@@ -1,0 +1,76 @@
+"""Build the port's Model, TaskParams and TaskSpec from numpy arrays.
+
+The JAX package compiles MJCF with `mujoco` (physics/model.py put_model
+:397, tasks/base.py parse_user_sensors :100), and neither `mujoco` nor JAX
+exists on the GPU machine. So the compiled model and the task's numeric
+parts travel as data: the JAX Model's and TaskParams' leaves as numpy
+arrays, plus a JSON-able dict of the static fields.
+tools/export_torch_snapshot.py writes them (it may import JAX; this
+module never does) into mujoco_mpc_tpu_torch/assets/<task>.npz.
+
+Snapshot layout: arrays 'model/<field>' (physics/model.py ARRAY_FIELDS
+and 'opt.<field>'), 'params/<field>' (TaskParams), and 'static', one JSON
+string: {'name', 'model': {static Model fields}, 'task': {term_names,
+norm_types, term_dims, config, weight_ranges, residual_param_names,
+residual_param_ranges}}.
+"""
+
+from __future__ import annotations
+
+import json
+
+import numpy as np
+import torch
+
+from mujoco_mpc_tpu_torch.physics import model as model_lib
+from mujoco_mpc_tpu_torch.tasks import base
+
+PARAM_FIELDS = ('weights', 'norm_params', 'residual_params', 'risk')
+
+
+def model_from_arrays(arrays: dict, static: dict, device='cpu',
+                      dtype=torch.float32) -> model_lib.Model:
+  """Model from its leaves (numpy) and static fields (see
+  physics/model.py from_arrays)."""
+  return model_lib.from_arrays(arrays, static, device=device, dtype=dtype)
+
+
+def params_from_arrays(arrays: dict, device='cpu',
+                       dtype=torch.float32) -> base.TaskParams:
+  """TaskParams from {'weights', 'norm_params', 'residual_params',
+  'risk'} numpy arrays."""
+  return base.TaskParams(**{
+      k: torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
+      for k in PARAM_FIELDS})
+
+
+def spec_from_arrays(arrays: dict, static: dict, residual_fn, device='cpu',
+                     dtype=torch.float32) -> base.TaskSpec:
+  """TaskSpec from a snapshot's arrays and static dict (layout above)."""
+  def sub(prefix):
+    return {k[len(prefix):]: v for k, v in arrays.items()
+            if k.startswith(prefix)}
+
+  task = static['task']
+  tup = lambda xs: tuple(tuple(x) for x in xs)  # noqa: E731
+  return base.TaskSpec(
+      name=static['name'],
+      model=model_from_arrays(sub('model/'), static['model'], device, dtype),
+      term_names=tuple(task['term_names']),
+      norm_types=tuple(task['norm_types']),
+      term_dims=tuple(task['term_dims']),
+      residual_fn=residual_fn,
+      default_params=params_from_arrays(sub('params/'), device, dtype),
+      config=dict(task['config']),
+      weight_ranges=tup(task['weight_ranges']),
+      residual_param_names=tuple(task['residual_param_names']),
+      residual_param_ranges=tup(task['residual_param_ranges']))
+
+
+def load_snapshot(path: str):
+  """(arrays, static) of a snapshot file written by
+  tools/export_torch_snapshot.py."""
+  with np.load(path, allow_pickle=False) as z:
+    arrays = {k: z[k] for k in z.files if k != 'static'}
+    static = json.loads(str(z['static']))
+  return arrays, static

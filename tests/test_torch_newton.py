@@ -1,0 +1,137 @@
+"""The port's plain Newton solve (kernel B2's plain version) against JAX.
+
+mujoco_mpc_tpu_torch/ops/newton.newton_reference is held against the JAX
+reference loop (vmapped pallas_newton._newton_reference) in float64, and
+against the fused Pallas kernel it stands for (newton_batched in interpret
+mode) in float32, on the synthetic problem of tests/test_pallas_newton.py
+regenerated with numpy, and on Cartpole-shaped inputs.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_tpu.ops import pallas_newton
+from mujoco_mpc_tpu_torch.ops import newton
+
+torch.set_num_threads(1)
+
+
+def _synthetic_problem(seed, bsz, nv, n, ns, dtype):
+  """(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec) as numpy arrays."""
+  rng = np.random.default_rng(seed)
+  softplus = lambda x: np.log1p(np.exp(x))  # noqa: E731
+  a = rng.normal(size=(bsz, nv, nv))
+  qm = a @ np.transpose(a, (0, 2, 1)) + 2.0 * np.eye(nv)
+  out = (qm, rng.normal(size=(bsz, nv)), rng.normal(size=(bsz, n, nv)),
+         rng.normal(size=(bsz, n)), softplus(rng.normal(size=(bsz, n))),
+         (rng.uniform(size=(bsz, n)) < 0.2).astype(np.float64),
+         rng.normal(size=(bsz, ns)), softplus(rng.normal(size=(bsz, ns))))
+  return tuple(x.astype(dtype) for x in out)
+
+
+def _cartpole_problem(seed, bsz, dtype):
+  """Cartpole-shaped limit solve: nv 2, no dense rows, the slider's two
+  limit rows on dof 0 with some samples past each side (jar < 0)."""
+  rng = np.random.default_rng(seed)
+  l = np.tril(rng.uniform(0.1, 1.0, size=(bsz, 2, 2)))
+  qm = l @ np.transpose(l, (0, 2, 1)) + 0.05 * np.eye(2)
+  qs = rng.normal(scale=20.0, size=(bsz, 2))
+  s_aref = rng.normal(scale=20.0, size=(bsz, 2))
+  s_dvec = np.where(rng.uniform(size=(bsz, 2)) < 0.5,
+                    rng.uniform(1.0, 50.0, size=(bsz, 2)), 0.0)
+  z = np.zeros((bsz, 0))
+  out = (qm, qs, np.zeros((bsz, 0, 2)), z, z, z, s_aref, s_dvec)
+  return tuple(x.astype(dtype) for x in out)
+
+
+# name -> (problem factory, dof, sign, cap, tol)
+CASES = {
+    'dense_and_scalar': (functools.partial(_synthetic_problem, 0, 16, 7, 12,
+                                           4), (0, 2, 0, 2),
+                         (1.0, 1.0, -1.0, -1.0), 30, 1e-6),
+    'dense_only': (functools.partial(_synthetic_problem, 1, 16, 5, 9, 0),
+                   (), (), 30, 1e-6),
+    'scalar_only': (functools.partial(_synthetic_problem, 2, 16, 4, 0, 3),
+                    (1, 3, 1), (1.0, 1.0, -1.0), 30, 1e-6),
+    'ragged_batch': (functools.partial(_synthetic_problem, 3, 13, 4, 6, 2),
+                     (1, 3), (1.0, -1.0), 30, 1e-6),
+    'cartpole_shaped': (functools.partial(_cartpole_problem, 4, 16), (0, 0),
+                        (1.0, -1.0), 8, 1e-5),
+}
+
+
+def _port(args, dof, sign, cap, tol):
+  t = [torch.from_numpy(x) for x in args]
+  out = newton.newton_reference(
+      *t, torch.tensor(dof, dtype=torch.int32),
+      torch.tensor(sign, dtype=t[1].dtype), cap=cap, tol=tol)
+  return [x.numpy() for x in out]
+
+
+def _cone_empty(bsz, nv, dtype):
+  return (jnp.zeros((bsz, 0, 6, nv), dtype), jnp.zeros((bsz, 0, 6), dtype),
+          jnp.zeros((bsz, 0), dtype), jnp.zeros((bsz, 0, 5), dtype),
+          jnp.zeros((bsz, 0), dtype), jnp.zeros((bsz, 0), dtype),
+          jnp.zeros((bsz, 0), dtype), jnp.zeros((bsz, 0), dtype))
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_newton_matches_jax_reference_loop_f64(case):
+  build, dof, sign, cap, tol = CASES[case]
+  args = build(np.float64)
+  bsz, nv = args[1].shape
+  got = _port(args, dof, sign, cap, tol)
+  want = jax.vmap(functools.partial(
+      pallas_newton._newton_reference, dof=dof, sign=sign, cap=cap,
+      tol=tol))(*(jnp.asarray(a) for a in args),
+                *_cone_empty(bsz, nv, jnp.float64))[:3]
+  # f64, same iteration in the same order: agreement to rounding, with
+  # headroom for the different summation order of the matmuls
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g, np.asarray(w), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize('case', sorted(CASES))
+def test_plain_newton_matches_pallas_kernel_f32(case):
+  build, dof, sign, cap, tol = CASES[case]
+  args = build(np.float32)
+  got = _port(args, dof, sign, cap, tol)
+  want = pallas_newton.newton_batched(
+      *(jnp.asarray(a) for a in args), dof=dof, sign=sign, cap=cap, tol=tol,
+      interpret=True)
+  # f32: the kernel and the plain loop sum in different orders, so a jar
+  # sitting on an activity boundary can wiggle at ~1e-3 (the tolerance of
+  # tests/test_pallas_newton.py for the same comparison)
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g.astype(np.float64),
+                               np.asarray(w, np.float64), rtol=2e-3,
+                               atol=1e-3)
+
+
+def test_finished_samples_stay_frozen():
+  """A sample that converged early keeps its answer while others iterate:
+  the same problem solved alone and inside a batch gives the same qacc."""
+  args = _synthetic_problem(5, 8, 4, 6, 2, np.float64)
+  dof, sign = (0, 3), (1.0, -1.0)
+  batch = _port(args, dof, sign, 30, 1e-10)
+  for i in range(8):
+    alone = _port(tuple(a[i:i + 1] for a in args), dof, sign, 30, 1e-10)
+    for b, a in zip(batch, alone):
+      np.testing.assert_array_equal(b[i:i + 1], a)
+
+
+def test_wrapper_takes_plain_version_on_cpu():
+  build, dof, sign, cap, tol = CASES['cartpole_shaped']
+  args = [torch.from_numpy(a) for a in build(np.float32)]
+  d, s = torch.tensor(dof, dtype=torch.int32), torch.tensor(sign)
+  before = newton.newton.launches
+  got = newton.newton(*args, d, s, cap=cap, tol=tol)
+  want = newton.newton_reference(*args, d, s, cap=cap, tol=tol)
+  for g, w in zip(got, want):
+    assert torch.equal(g, w)
+  assert newton.newton.launches == before   # no kernel on the CPU

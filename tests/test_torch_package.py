@@ -1,0 +1,180 @@
+"""Package-level checks of the PyTorch port.
+
+* Every module of mujoco_mpc_tpu_torch imports, and the Cartpole task
+  loads, with jax, flax, mujoco and the JAX package blocked: the GPU
+  machine has none of them.
+* chip_smoke.py refuses to run without a card and prints no result.
+* The committed model snapshot matches a fresh export from the JAX task.
+* The kernel wrappers raise, never fall back to the plain version, on a
+  non-CPU request the kernel cannot take.
+"""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from mujoco_mpc_tpu.tasks import registry as jregistry
+from mujoco_mpc_tpu_torch import convert
+from mujoco_mpc_tpu_torch.ops import cuda_build
+from mujoco_mpc_tpu_torch.ops import newton
+from mujoco_mpc_tpu_torch.ops import spd_solve
+from mujoco_mpc_tpu_torch.tasks import registry
+from tools import export_torch_snapshot as export
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BLOCK = ("import sys\n"
+         "for name in ('jax', 'jaxlib', 'flax', 'mujoco', 'mujoco_mpc_tpu'):\n"
+         "  sys.modules[name] = None\n")
+
+
+def _run(code, cwd=ROOT, args=()):
+  env = dict(os.environ, PYTHONPATH=ROOT if cwd == ROOT else '')
+  return subprocess.run([sys.executable, *args] + (['-c', code] if code
+                                                   else []),
+                        cwd=cwd, env=env, capture_output=True, text=True,
+                        timeout=300, check=False)
+
+
+def test_port_imports_without_jax_or_mujoco():
+  proc = _run(BLOCK + (
+      "import importlib, pkgutil\n"
+      "import mujoco_mpc_tpu_torch as pkg\n"
+      "names = [m.name for m in pkgutil.walk_packages(pkg.__path__,\n"
+      "                                               pkg.__name__ + '.')]\n"
+      "for n in names:\n"
+      "  importlib.import_module(n)\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "spec = registry.get_task('Cartpole')\n"
+      "print(len(names), spec.model.nv)\n"))
+  assert proc.returncode == 0, proc.stderr
+  count, nv = proc.stdout.split()
+  assert int(count) >= 20 and int(nv) == 2
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+  """Without CUDA, and alone in a directory, chip_smoke.py exits non-zero
+  and prints no result line."""
+  for cwd in (ROOT, str(tmp_path)):
+    if cwd != ROOT:
+      shutil.copy(os.path.join(ROOT, 'chip_smoke.py'), cwd)
+    proc = _run(None, cwd=cwd, args=('chip_smoke.py',))
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout
+
+
+def test_snapshot_is_current():
+  arrays, static = export.task_snapshot(jregistry.get_task('Cartpole'))
+  fname, _ = registry.TASKS['Cartpole']
+  c_arrays, c_static = convert.load_snapshot(
+      os.path.join(registry.ASSETS, fname))
+  hint = 'stale snapshot: run python tools/export_torch_snapshot.py'
+  assert sorted(arrays) == sorted(c_arrays), hint
+  for k, v in arrays.items():
+    assert v.dtype == c_arrays[k].dtype, (k, hint)
+    np.testing.assert_array_equal(v, c_arrays[k], err_msg=f'{k}: {hint}')
+  assert static == c_static, hint
+
+
+def test_port_uses_no_compiler_or_jit():
+  pkg = os.path.join(ROOT, 'mujoco_mpc_tpu_torch')
+  for dirpath, _, files in os.walk(pkg):
+    for f in files:
+      if f.endswith('.py'):
+        with open(os.path.join(dirpath, f)) as fh:
+          src = fh.read()
+        for banned in ('torch.compile', 'torch.jit', 'import jax',
+                       'import flax'):
+          assert banned not in src, (f, banned)
+
+
+def test_kernels_are_built_for_hopper():
+  assert 'arch=compute_90a,code=sm_90a' in cuda_build.NVCC_FLAGS
+  for name, entry in (('chol_solve', 'mjpc_chol_solve_f32'),
+                      ('newton', 'mjpc_newton_f32')):
+    with open(os.path.join(cuda_build.CSRC, name + '.cu')) as f:
+      assert f'extern "C" int {entry}(' in f.read()
+
+
+@pytest.fixture
+def no_plain(monkeypatch):
+  """Fail if a wrapper reaches its plain version, and let `meta` tensors
+  stand in for CUDA ones (there is no card here)."""
+  def boom(*a, **k):
+    raise AssertionError('fell back to the plain version')
+  monkeypatch.setattr(spd_solve.linalg, 'solve_spd', boom)
+  monkeypatch.setattr(newton, 'newton_reference', boom)
+
+  def as_cuda(*tensors):
+    for t in tensors:
+      if t.device.type != 'meta':
+        raise ValueError(f'expected a CUDA tensor, got one on {t.device}')
+  monkeypatch.setattr(cuda_build, 'require_cuda', as_cuda)
+
+
+def _meta(*shape, dtype=torch.float32):
+  return torch.empty(shape, dtype=dtype, device='meta')
+
+
+def _newton_args(bsz=4, nv=3, n=2, ns=2, dtype=torch.float32,
+                 dof_dtype=torch.int32):
+  return (_meta(bsz, nv, nv, dtype=dtype), _meta(bsz, nv, dtype=dtype),
+          _meta(bsz, n, nv, dtype=dtype), _meta(bsz, n, dtype=dtype),
+          _meta(bsz, n, dtype=dtype), _meta(bsz, n, dtype=dtype),
+          _meta(bsz, ns, dtype=dtype), _meta(bsz, ns, dtype=dtype),
+          _meta(ns, dtype=dof_dtype), _meta(ns, dtype=dtype))
+
+
+@pytest.mark.parametrize('args,error', [
+    ((_meta(8, 3, 3, dtype=torch.float64), _meta(8, 3, dtype=torch.float64)),
+     TypeError),
+    ((_meta(8, 33, 33), _meta(8, 33)), ValueError),
+    ((_meta(8, 3, 3), _meta(8, 4)), ValueError),
+    ((_meta(8, 3, 3).transpose(1, 2), _meta(8, 3)), ValueError),
+    ((torch.zeros(8, 3, 3), _meta(8, 3)), ValueError),
+])
+def test_spd_wrapper_refuses(no_plain, args, error):
+  with pytest.raises(error):
+    spd_solve.solve_spd(*args)
+
+
+@pytest.mark.parametrize('kwargs,error', [
+    (dict(dtype=torch.float64), TypeError),
+    (dict(dof_dtype=torch.int64), TypeError),
+    (dict(nv=33), ValueError),
+])
+def test_newton_wrapper_refuses(no_plain, kwargs, error):
+  with pytest.raises(error):
+    newton.newton(*_newton_args(**kwargs), cap=8, tol=1e-5)
+
+
+def test_newton_wrapper_refuses_groups_and_mixed_devices(no_plain):
+  args = _newton_args()
+  with pytest.raises(NotImplementedError):
+    newton.newton(*args, _meta(4, 3, 6), cap=8, tol=1e-5)
+  mixed = (torch.zeros(4, 3, 3),) + args[1:]
+  with pytest.raises(ValueError):
+    newton.newton(*mixed, cap=8, tol=1e-5)
+
+
+def test_wrappers_go_to_the_kernel_not_the_plain_version(no_plain,
+                                                         monkeypatch):
+  """A request the kernel takes goes on to build and launch it; here the
+  build stops (no nvcc) and the plain version is never called."""
+  calls = []
+
+  def no_build(name):
+    calls.append(name)
+    raise RuntimeError('no nvcc here')
+  monkeypatch.setattr(cuda_build, 'load', no_build)
+  spd_solve._entry.cache_clear()
+  newton._entry.cache_clear()
+  with pytest.raises(RuntimeError, match='no nvcc'):
+    spd_solve.solve_spd(_meta(8, 3, 3), _meta(8, 3))
+  with pytest.raises(RuntimeError, match='no nvcc'):
+    newton.newton(*_newton_args(), cap=8, tol=1e-5)
+  assert calls == ['chol_solve', 'newton']
