@@ -6,22 +6,29 @@ Run from the root of a checkout, with no arguments:
 
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both CUDA kernels from csrc/ with nvcc, for sm_90a;
-  3. check: each kernel against its plain PyTorch version on the card,
-     on random inputs and on the inputs the Cartpole step gives it;
-  4. timing: kernel vs plain at the Cartpole slice's shapes, wall per
-     call (CUDA events, median of 30) and device time (profiler); for B1
-     also torch.linalg's batched Cholesky;
-  5. main path: Cartpole Predictive Sampling, 8192 candidates x 101 steps,
-     20 timed plan iterations; both kernels must have been launched, as
-     often as the path calls them, and best_return <= nominal_return;
-     one profiled plan gives device ops, busy time and the top ops;
-  6. golden: a 256-candidate plan on the card vs the plain path on the CPU
-     with the same candidates, and a 5-step batched rollout's qpos drift;
-  7. plan-act: synchronous MPC on Cartpole at 8192 candidates for 2 s of
-     simulated time; its real-time factor.
-Then one JSON line with the kernels' launches, errors and times, and as
-the last line {"ok": true, "device": {...}}.
+  2. build: both CUDA kernels from csrc/ with nvcc, for sm_90a, at once;
+  3. check: each kernel against its plain PyTorch version on the card:
+     3a B1 on random systems; 3b B2 on random dense and one-hot rows;
+     3c both on the inputs the Cartpole step gives them; 3d B2's contact
+     groups (condim 1, 3, 4, 6, and two groups) on random factored
+     problems; 3e both on the inputs the Quadruped step gives them;
+  4. timing: kernel, plain version and (B1) torch.linalg's batched
+     Cholesky at both paths' shapes, wall per call (CUDA events, median
+     of 30) and device time (profiler), with each kernel's bound;
+  5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
+     steps, 10 timed plans; both kernels launched as often as the path
+     calls them, best_return <= nominal_return; one profiled plan;
+  6. Cartpole golden: a 256-candidate plan on the card vs the plain path
+     on the CPU with the same candidates, and a 5-step rollout's drift;
+  7. Cartpole plan-act: synchronous MPC at 8192 candidates, 1 s simulated;
+  8. Quadruped Flat main path: 4096 candidates x 36 steps, 10 knots, 5
+     timed plans from `home`, checked and profiled as in phase 5;
+  9. Quadruped golden: the bounds of bench.py's fused_newton_golden;
+  10. Quadruped plan-act: synchronous MPC at 128 candidates, 25 plans of
+     4 steps, the task's transition on.
+Then one JSON line with the kernels' launches, errors, times and bounds
+(top-level keys: the Quadruped path; "paths": both), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -33,12 +40,18 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-SAMPLES = 8192
+CART_SAMPLES = 8192
+QUAD_SAMPLES = 4096
 SPLINE_POINTS = 10
-QPOS0 = (1.0, 3.14159)
-PLAN_REPS = 20
+CART_QPOS0 = (1.0, 3.14159)
+CART_PLANS = 10
+QUAD_PLANS = 5
 TIME_REPS = 30
 DEV = 'cuda'
+# NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
+# tensor cores (data sheet, 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
 
 
 def check(cond, msg):
@@ -89,12 +102,45 @@ def device_us(fn, reps=TIME_REPS, top=0):
            for e in dev[:top]])
 
 
-def newton_cost(args, qacc):
-  """The Newton solve's objective at qacc, in float64: 0.5 e'M e plus
-  0.5 D jar^2 over the active rows, e = qacc - qs."""
+def bound(bytes_, flops):
+  """(ms, 'bytes' or 'operations'): the least time the card could take
+  to move `bytes_` and compute `flops` in float32."""
+  t_bytes, t_ops = bytes_ / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOPS
+  return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                     else 'operations')
+
+
+def spd_bound(a):
+  """B1's bound on a (B, n, n): read a and b, write x; n^3/3 flops for the
+  factor and 2 n^2 for the two triangular solves, per system."""
+  bsz, n = a.shape[0], a.shape[1]
+  return bound(4 * bsz * (n * n + 2 * n), bsz * (n ** 3 / 3 + 2 * n * n))
+
+
+def expanded(args, gargs=(), condims=(), dmasks=()):
+  """The Newton operands with every contact group facet-expanded into the
+  dense rows, in float64."""
   import torch
+  from mujoco_mpc_tpu_torch.ops import newton
   qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = (
       t.double() if t.is_floating_point() else t.long() for t in args)
+  gd = [t.double() for t in gargs]
+  for gi, cdim in enumerate(condims):
+    ej, ea, ed = newton.expand_group(
+        newton.materialize_jd(gd[1 + 4 * gi], gd[0], dmasks[gi].double()),
+        gd[2 + 4 * gi], gd[3 + 4 * gi], gd[4 + 4 * gi], cdim)
+    j, aref = torch.cat([j, ej], 1), torch.cat([aref, ea], 1)
+    dvec = torch.cat([dvec, ed], 1)
+    eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
+  return qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign
+
+
+def newton_cost(ex, qacc):
+  """The Newton solve's objective at qacc on expanded operands `ex`, in
+  float64: 0.5 e'M e plus 0.5 D jar^2 over the active rows, contact
+  facets included, e = qacc - qs."""
+  import torch
+  qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = ex
   qacc = qacc.double()
   e = qacc - qs
   cost = 0.5 * torch.sum(e * (qm @ e[..., None])[..., 0], -1)
@@ -104,6 +150,39 @@ def newton_cost(args, qacc):
   jar = sign * qacc[:, dof] - s_aref
   return cost + 0.5 * torch.sum(torch.where(jar < 0, s_dvec, 0.0) * jar
                                 * jar, -1)
+
+
+def newton_bound(args, gargs, condims, dmasks, cap, tol):
+  """B2's bound for these inputs: each operand read once (the shared
+  dof, sign and dmasks once for the batch), each output written once;
+  the arithmetic of the iterations each sample takes in the plain version
+  (the smallest cap that already gives its final answer), counted on the
+  facet-expanded rows with the active set at the answer: per iteration
+  4 nv^2 (M e, M step) + nv^3/3 + 2 nv^2 (factor and solves), nv^2 + 2 nv
+  per active row (Hessian, gradient), 2 nv + 15 per row (J step, the line
+  search) and 16 per one-hot row."""
+  import torch
+  from mujoco_mpc_tpu_torch.ops import newton
+  run = lambda c: newton.newton_reference(  # noqa: E731
+      *args, *gargs, cap=c, tol=tol, condims=condims, dmasks=dmasks)
+  final = run(cap)
+  bsz, nv = args[1].shape
+  iters = torch.full((bsz,), cap, device=args[1].device)
+  for c in range(cap - 1, 0, -1):
+    same = torch.ones(bsz, dtype=torch.bool, device=args[1].device)
+    for g, w in zip(run(c), final):
+      same &= (g.reshape(bsz, -1) == w.reshape(bsz, -1)).all(-1)
+    iters = torch.where(same, c, iters)
+  ex = expanded(args, gargs, condims, dmasks)
+  jar = (ex[2] @ final[0].double()[..., None])[..., 0] - ex[3]
+  active = ((jar < 0) | (ex[5] > 0.5)).sum(-1)
+  rows, ns = ex[2].shape[1], ex[6].shape[1]
+  per_iter = (6 * nv * nv + nv ** 3 / 3 + active * (nv * nv + 2 * nv)
+              + rows * (2 * nv + 15) + 16 * ns)
+  flops = float(torch.sum(iters * per_iter))
+  bytes_ = sum(t.numel() * t.element_size()
+               for t in list(args) + list(gargs) + list(dmasks) + list(final))
+  return bound(bytes_, flops) + (float(iters.float().mean()),)
 
 
 def random_spd(gen, bsz, n):
@@ -129,32 +208,50 @@ def random_newton(gen, bsz, nv, n, ns):
           sp(r(bsz, n)), eqf, r(bsz, ns), sp(r(bsz, ns)), dof, sign)
 
 
-def slice_inputs(spec, gen):
-  """The operands the Cartpole step hands both kernels: 8192 states
-  around the start state, some past the slider limit."""
+def random_groups(gen, bsz, nv, groups):
+  """Factored contact groups ((condim, P), ...) as tests/
+  test_torch_newton.py makes them: cdofc, then per group (g, aref, dvec,
+  mu), and the groups' (P, nv) dmasks in {-1, 0, 1}. A quarter of the
+  points are in contact (dvec > 0), about as many as in the Quadruped's
+  step (phase 3e: ~4 of 20); the rest carry dvec 0."""
   import torch
-  from mujoco_mpc_tpu_torch.physics import constraint, forward as fwd, smooth
-  from mujoco_mpc_tpu_torch.physics.model import make_data
-  m = spec.model
-  qpos = torch.tensor(QPOS0, device=DEV) + torch.randn(
-      (SAMPLES, 2), generator=gen, device=DEV) * torch.tensor(
-          [1.2, 1.0], device=DEV)
-  d = make_data(m, SAMPLES).replace(
-      qpos=qpos, qvel=2.0 * torch.randn((SAMPLES, 2), generator=gen,
-                                        device=DEV),
-      ctrl=torch.rand((SAMPLES, 1), generator=gen, device=DEV) * 2 - 1)
-  d = fwd.fwd_actuation(m, fwd.fwd_velocity(m, fwd.fwd_position(m, d)))
-  d = smooth.crb(m, d).replace(qfrc_constraint=torch.zeros_like(d.qvel))
-  d = fwd.fwd_acceleration(m, d)
-  _, rows = constraint.make_rows_split(m, d)
-  spd = (d.qM.contiguous(), d.qfrc_smooth.contiguous())
-  z = torch.zeros((SAMPLES, 0), device=DEV)
-  dvec_s = torch.where(rows.active, rows.d, torch.zeros_like(rows.d))
-  newton_args = (d.qM.contiguous(), d.qacc.contiguous(),
-                 torch.zeros((SAMPLES, 0, 2), device=DEV), z, z, z,
-                 rows.aref.contiguous(), dvec_s.contiguous(), rows.dof,
-                 rows.sign)
-  return spd, newton_args, rows.active
+  from mujoco_mpc_tpu_torch.ops import newton
+  r = lambda *s: torch.randn(s, generator=gen, device=DEV)  # noqa: E731
+  u = lambda *s: torch.rand(s, generator=gen, device=DEV)  # noqa: E731
+  gargs, dmasks = [0.5 * r(bsz, nv, 6)], []
+  for condim, p in groups:
+    nrep = len(newton.PYRAMID_FACETS[condim])
+    dvec = torch.nn.functional.softplus(r(bsz, p))
+    gargs += [r(bsz, p, condim, 6), r(bsz, nrep, p),
+              torch.where(u(bsz, p) < 0.25, dvec, 0.0),
+              0.2 + 0.8 * u(bsz, 3, p)]
+    dmasks.append(torch.randint(-1, 2, (p, nv), generator=gen, device=DEV
+                                ).float())
+  return tuple(gargs), tuple(dmasks)
+
+
+def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
+                   tol=1e-6):
+  """Kernel vs plain version: (samples outside rtol 2e-3/atol 1e-3 of the
+  plain version, max relative objective gap, max abs error)."""
+  import torch
+  from mujoco_mpc_tpu_torch.ops import newton
+  kw = dict(cap=cap, tol=tol, condims=condims, dmasks=dmasks)
+  got = newton.newton(*args, *gargs, **kw)
+  want = newton.newton_reference(*args, *gargs, **kw)
+  bsz = args[1].shape[0]
+  bad = torch.zeros(bsz, dtype=torch.bool, device=DEV)
+  err = 0.0
+  for g, w in zip(got, want):
+    if g.numel():
+      g, w = g.reshape(bsz, -1), w.reshape(bsz, -1)
+      bad |= (torch.abs(g - w) > 1e-3 + 2e-3 * torch.abs(w)).any(-1)
+      err = max(err, float(torch.max(torch.abs(g - w))))
+  ex = expanded(args, gargs, condims, dmasks)
+  c_got, c_want = newton_cost(ex, got[0]), newton_cost(ex, want[0])
+  gap = float(torch.max(torch.abs(c_got - c_want)
+                        / torch.clamp(torch.abs(c_want), min=1.0)))
+  return int(bad.sum()), gap, err
 
 
 def errors(got, want):
@@ -164,6 +261,176 @@ def errors(got, want):
   return err, err / max(1.0, float(torch.max(torch.abs(want))))
 
 
+def solver_inputs(spec, d):
+  """The operands one step of `spec` from states d hands both kernels:
+  (B1's (qM, qfrc_smooth), B2's (args, gargs, condims, dmasks))."""
+  from mujoco_mpc_tpu_torch.physics import constraint, forward as fwd, smooth
+  import torch
+  m = spec.model
+  d = fwd.fwd_actuation(m, fwd.fwd_velocity(m, fwd.fwd_position(m, d)))
+  d = smooth.crb(m, d).replace(qfrc_constraint=torch.zeros_like(d.qvel))
+  d = fwd.fwd_acceleration(m, d)
+  rows, scalar, points = constraint.make_rows_split(m, d)
+  args, gargs, condims, dmasks = constraint.newton_operands(m, d, rows,
+                                                            scalar, points)
+  args = tuple(t.contiguous() for t in args)
+  return (d.qM.contiguous(), d.qfrc_smooth.contiguous()), (
+      args, gargs, condims, dmasks)
+
+
+def cartpole_states(spec, gen):
+  """8192 states around the start state, some past the slider limit."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  qpos = torch.tensor(CART_QPOS0, device=DEV) + torch.randn(
+      (CART_SAMPLES, 2), generator=gen, device=DEV) * torch.tensor(
+          [1.2, 1.0], device=DEV)
+  return make_data(spec.model, CART_SAMPLES).replace(
+      qpos=qpos, qvel=2.0 * torch.randn((CART_SAMPLES, 2), generator=gen,
+                                        device=DEV),
+      ctrl=torch.rand((CART_SAMPLES, 1), generator=gen, device=DEV) * 2 - 1)
+
+
+def quadruped_states(spec, gen):
+  """4096 states around `home`: the trunk lowered by up to 8 cm and
+  tilted, so that feet, shanks and some trunk corners go into the floor,
+  and the leg joints spread by 0.4 rad, some past their limits."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.utils import math as tm
+  m, b = spec.model, QUAD_SAMPLES
+  r = lambda *s: torch.randn(s, generator=gen, device=DEV)  # noqa: E731
+  qpos = m.keyframe_qpos('home').expand(b, -1).clone()
+  qpos[:, 2] -= 0.08 * torch.rand(b, generator=gen, device=DEV)
+  qpos[:, 3:7] = tm.quat_normalize(qpos[:, 3:7] + 0.1 * r(b, 4))
+  qpos[:, 7:] += 0.4 * r(b, 12)
+  lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  ctrl = lo + (hi - lo) * torch.rand((b, m.nu), generator=gen, device=DEV)
+  return make_data(m, b).replace(qpos=qpos, qvel=0.5 * r(b, m.nv),
+                                 ctrl=ctrl)
+
+
+def main_path(spec, d0, samples, reps, gen):
+  """Predictive Sampling plans of `spec` from d0: a warm-up, then `reps`
+  timed plans with the kernels' counts set to 0 just before and read just
+  after, then one profiled plan."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve, spline
+  from mujoco_mpc_tpu_torch.planners import sampling
+  t_steps = agent.horizon_steps(spec)
+  cfg = sampling.default_config(spec)
+
+  def plan(pol):
+    noise = sampling.sample_noise(spec, SPLINE_POINTS, samples, cfg, gen)
+    return sampling.optimize(spec, pol, d0, spec.default_params, cfg, noise,
+                             t_steps, int(spline.Interp.ZERO))
+
+  pol, _ = plan(sampling.default_policy(spec, SPLINE_POINTS))   # warm-up
+  torch.cuda.synchronize()
+  spd_solve.solve_spd.launches = 0
+  newton.newton.launches = 0
+  lat, infos = [], []
+  for _ in range(reps):
+    t0 = time.perf_counter()
+    pol, info = plan(pol)
+    torch.cuda.synchronize()
+    lat.append(time.perf_counter() - t0)
+    infos.append(info)
+  launches = {'chol_solve': spd_solve.solve_spd.launches,
+              'newton': newton.newton.launches}
+  check(launches['newton'] == reps * t_steps,
+        f'newton launched {launches["newton"]} times, expected '
+        f'{reps * t_steps} (once per rollout step)')
+  check(launches['chol_solve'] == 2 * reps * t_steps,
+        f'chol_solve launched {launches["chol_solve"]} times, expected '
+        f'{2 * reps * t_steps} (twice per rollout step)')
+  best = torch.stack([i['best_return'] for i in infos]).cpu()
+  nominal = torch.stack([i['nominal_return'] for i in infos]).cpu()
+  check(bool(torch.isfinite(best).all()), f'best_return not finite: {best}')
+  check(bool((best <= nominal).all()), 'best_return > nominal_return')
+  p50 = statistics.median(lat)
+  dev_us, ops, top = device_us(lambda: plan(pol), reps=1, top=8)
+  return dict(t_steps=t_steps, p50=p50, launches=launches,
+              best=float(best[-1]), nominal=float(nominal[-1]),
+              dev_us=dev_us, ops=ops, top=top)
+
+
+def print_main_path(phase, name, samples, reps, r):
+  print(f'phase {phase} main path: {name} {samples} candidates x '
+        f'{r["t_steps"]} steps, {reps} plans: p50 {r["p50"] * 1e3:.2f} ms, '
+        f'{1.0 / r["p50"]:.2f} plans/s; launches chol_solve '
+        f'{r["launches"]["chol_solve"]}, newton {r["launches"]["newton"]}; '
+        f'best_return {r["best"]:.5g} <= nominal {r["nominal"]:.5g}; '
+        f'profiled plan: {r["ops"]} device ops, device busy '
+        f'{r["dev_us"] / 1e3:.2f} ms = {r["dev_us"] / 1e4 / r["p50"]:.1f}% '
+        f'of p50')
+  print(f'phase {phase} device time per plan by op (name: count, ms): '
+        + '; '.join(f'{n[:48]}: {c}, {us / 1e3:.2f}'
+                    for n, c, us in r['top']))
+
+
+def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale):
+  """A 256-candidate plan on the card against the plain path on the CPU
+  with the same noise, from the default plan, and a 5-step batched
+  rollout's qpos drift: (best_return card, CPU, rel err, winner card,
+  CPU, winner within 2 % of the CPU best, drift)."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import spline
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.planners import sampling
+  t_steps, interp = agent.horizon_steps(spec), int(spline.Interp.ZERO)
+  cfg, cpu_cfg = (sampling.default_config(spec),
+                  sampling.default_config(cpu_spec))
+  eps, use2 = sampling.sample_noise(spec, SPLINE_POINTS, 255, cfg, gen)
+  pol = sampling.default_policy(spec, SPLINE_POINTS)
+  _, info_gpu = sampling.optimize(spec, pol, d0, spec.default_params, cfg,
+                                  (eps, use2), t_steps, interp)
+  pol_cpu = sampling.SamplingPolicy(pol.times.cpu(), pol.values.cpu())
+  _, info_cpu = sampling.optimize(cpu_spec, pol_cpu, d0_cpu,
+                                  cpu_spec.default_params, cpu_cfg,
+                                  (eps.cpu(), use2.cpu()), t_steps, interp)
+  br_gpu, br_cpu = (float(info_gpu['best_return']),
+                    float(info_cpu['best_return']))
+  rel = abs(br_gpu - br_cpu) / max(abs(br_cpu), 1e-9)
+  win_gpu, win_cpu = int(info_gpu['winner']), int(info_cpu['winner'])
+  near = float(info_cpu['returns'][win_gpu]) <= br_cpu * 1.02 + 1e-9
+  ctrl = ctrl_scale * torch.randn((256, 5, spec.model.nu), generator=gen,
+                                  device=DEV)
+  qpos_run = []
+  for m, c, d in ((spec.model, ctrl, d0), (cpu_spec.model, ctrl.cpu(),
+                                           d0_cpu)):
+    d = d.expand(256)
+    for k in range(5):
+      d = fwd.step(m, d.replace(ctrl=c[:, k]))
+    qpos_run.append(d.qpos.cpu())
+  drift = float(torch.max(torch.abs(qpos_run[0] - qpos_run[1])))
+  # bounds of bench.py's TPU golden check (fused_newton_golden)
+  check(rel <= 0.02, f'golden best_return rel err {rel:.3g} > 0.02')
+  check(near, 'the card\'s winner is not within 2% of the CPU best')
+  check(drift <= 0.05, f'golden qpos drift {drift:.3g} > 0.05')
+  return br_gpu, br_cpu, rel, win_gpu, win_cpu, drift
+
+
+def plan_act(spec, sim0, samples, total_steps, seed):
+  """synchronous_mpc with 4 steps per plan: (steps, simulated s, wall s,
+  real-time factor, mean cost, last cost)."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  _, costs = agent.synchronous_mpc(
+      spec, samples, total_steps, 4,
+      torch.Generator(device=DEV).manual_seed(seed), sim0=sim0)
+  costs = costs.cpu()
+  wall = time.perf_counter() - t0
+  check(bool(torch.isfinite(costs).all()), 'plan-act costs not finite')
+  sim_time = len(costs) * float(spec.model.opt.timestep)
+  return (len(costs), sim_time, wall, sim_time / wall, float(costs.mean()),
+          float(costs[-1]))
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -171,12 +438,8 @@ def main():
                      'this script needs an NVIDIA GPU')
   sys.path.insert(0, ROOT)
   try:
-    from mujoco_mpc_tpu_torch import agent
     from mujoco_mpc_tpu_torch.ops import cuda_build, linalg, newton, spd_solve
-    from mujoco_mpc_tpu_torch.ops import spline
-    from mujoco_mpc_tpu_torch.physics import forward as fwd
     from mujoco_mpc_tpu_torch.physics.model import make_data
-    from mujoco_mpc_tpu_torch.planners import sampling
     from mujoco_mpc_tpu_torch.tasks import registry
   except ImportError as e:
     raise SystemExit(f'chip_smoke: run it from a checkout of the repository'
@@ -197,17 +460,19 @@ def main():
   t0 = time.perf_counter()
   kernels = ('chol_solve', 'newton')
   with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
-    list(pool.map(cuda_build.build, kernels))
+    libs = dict(zip(kernels, pool.map(cuda_build.build, kernels)))
   for name in kernels:
     cuda_build.load(name)
   print(f'phase 2 build: chol_solve.cu + newton.cu with nvcc for sm_90a in '
         f'{time.perf_counter() - t0:.1f} s')
+  print('phase 2 ptxas -v, newton nv-18 bucket: ' + ' | '.join(
+      ptxas_report(libs['newton'] + '.log', 'newton_kernelILi18E')))
 
   # 3. kernels vs plain versions, float32 on the card
   gen = torch.Generator(device=DEV).manual_seed(0)
   worst_spd = 0.0
   for n in (2, 8, 18, 24, 32):
-    for bsz in (SAMPLES, SAMPLES + 1):
+    for bsz in (CART_SAMPLES, CART_SAMPLES + 1):
       a, b = random_spd(gen, bsz, n)
       _, err = errors(spd_solve.solve_spd(a, b), linalg.solve_spd(a, b))
       worst_spd = max(worst_spd, err)
@@ -226,198 +491,216 @@ def main():
   # Both ends minimise one convex piecewise-quadratic cost, so where qacc
   # differs the two costs must still agree: a wrong kernel would leave an
   # O(1) relative cost gap, two near-minimisers a gap near f32 rounding.
+  def newton_ok(label, bsz, nbad, gap):
+    check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
+          f'disagree, more than 1%')
+    check(gap <= 1e-3, f'newton ({label}, B {bsz}): relative cost gap '
+          f'{gap:.3g} > 1e-3')
+
   for (nv, n, ns) in ((2, 0, 2), (8, 16, 4), (18, 24, 8)):
-    for bsz in (SAMPLES, SAMPLES + 37):
-      args = random_newton(gen, bsz, nv, n, ns)
-      got = newton.newton(*args, cap=30, tol=1e-6)
-      want = newton.newton_reference(*args, cap=30, tol=1e-6)
-      bad = torch.zeros(bsz, dtype=torch.bool, device=DEV)
-      for g, w in zip(got, want):
-        if g.shape[1]:
-          bad |= (torch.abs(g - w) > 1e-3 + 2e-3 * torch.abs(w)).any(-1)
-      nbad = int(bad.sum())
-      c_got, c_want = newton_cost(args, got[0]), newton_cost(args, want[0])
-      gap = float(torch.max(torch.abs(c_got - c_want)
-                            / torch.clamp(torch.abs(c_want), min=1.0)))
-      check(nbad <= bsz // 100, f'newton (nv {nv}, n {n}, ns {ns}, B {bsz})'
-            f': {nbad} samples disagree, more than 1%')
-      check(gap <= 1e-3, f'newton (nv {nv}, n {n}, ns {ns}, B {bsz}): '
-            f'relative cost gap {gap:.3g} > 1e-3')
+    for bsz in (CART_SAMPLES, CART_SAMPLES + 37):
+      nbad, gap, _ = compare_newton(random_newton(gen, bsz, nv, n, ns))
+      newton_ok(f'nv {nv}, n {n}, ns {ns}', bsz, nbad, gap)
       print(f'phase 3b newton vs plain, nv {nv} n {n} ns {ns} B {bsz} cap 30:'
             f' {nbad} of {bsz} samples outside rtol 2e-3/atol 1e-3 '
             f'(bound 1%); max relative cost gap {gap:.3g} (tol 1e-3)')
 
-  spec = registry.get_task('Cartpole', device=DEV)
-  spd_in, newton_in, active = slice_inputs(spec, gen)
+  cart = registry.get_task('Cartpole', device=DEV)
+  spd_in, (newton_in, _, _, _) = solver_inputs(cart, cartpole_states(cart,
+                                                                     gen))
   spd_abs, spd_err = errors(spd_solve.solve_spd(*spd_in),
                             linalg.solve_spd(*spd_in))
   check(spd_err <= 1e-5, f'chol_solve on Cartpole inputs: {spd_err:.3g}')
-  got = newton.newton(*newton_in, cap=spec.model.opt.iterations, tol=1e-5)
-  want = newton.newton_reference(*newton_in, cap=spec.model.opt.iterations,
-                                 tol=1e-5)
+  cart_cap = cart.model.opt.iterations
+  got = newton.newton(*newton_in, cap=cart_cap, tol=1e-5)
+  want = newton.newton_reference(*newton_in, cap=cart_cap, tol=1e-5)
   newton_abs, newton_err = max(errors(g, w) for g, w in zip(got, want)
                                if g.shape[1])
   # one-hot rows and nv = 2: no near-boundary flips seen; f32 rounding of
   # qacc up to ~1e3 past the limit
   check(newton_err <= 1e-4, f'newton on Cartpole inputs: {newton_err:.3g}')
-  print(f'phase 3c Cartpole step inputs (B {SAMPLES}, {int(active.sum())} '
-        f'active limit rows): chol_solve rel err {spd_err:.3g} (tol 1e-5), '
-        f'newton rel err {newton_err:.3g} (tol 1e-4)')
+  print(f'phase 3c Cartpole step inputs (B {CART_SAMPLES}, '
+        f'{int((got[2] < 0).sum())} active limit rows): chol_solve rel err '
+        f'{spd_err:.3g} (tol 1e-5), newton rel err {newton_err:.3g} '
+        f'(tol 1e-4)')
 
-  # 4. timing at the slice's shapes
-  cap = spec.model.opt.iterations
-  t_spd = cuda_time_ms(lambda: spd_solve.solve_spd(*spd_in))
-  t_spd_plain = cuda_time_ms(lambda: linalg.solve_spd(*spd_in))
-  t_newton = cuda_time_ms(lambda: newton.newton(*newton_in, cap=cap,
-                                                tol=1e-5))
-  t_newton_plain = cuda_time_ms(lambda: newton.newton_reference(
-      *newton_in, cap=cap, tol=1e-5))
+  # P per group at nv 18 as in the Quadruped (one condim-3 group of 20
+  # points, 80 facet rows beside 24 limit rows), scaled with nv so that
+  # the rows per dof stay near its own: a random problem with many more
+  # rows than dofs sits on many kinks at its optimum, where f32 near-ties
+  # multiply
+  group_sets = {'condim 1': ((1, 20),), 'condim 3': ((3, 20),),
+                'condim 4': ((4, 12),), 'condim 6': ((6, 8),),
+                'condim 3 + 6': ((3, 12), (6, 4))}
+  for label, groups18 in group_sets.items():
+    for nv in (8, 18):
+      groups = tuple((c, max(1, round(p * nv / 18))) for c, p in groups18)
+      for bsz in (QUAD_SAMPLES, QUAD_SAMPLES + 1):
+        gargs, dmasks = random_groups(gen, bsz, nv, groups)
+        nbad, gap, _ = compare_newton(
+            random_newton(gen, bsz, nv, 4, 8), gargs,
+            tuple(c for c, _ in groups), dmasks)
+        newton_ok(f'{label}, nv {nv}', bsz, nbad, gap)
+        print(f'phase 3d newton groups vs plain, {label} (P '
+              f'{"+".join(str(p) for _, p in groups)}), nv {nv} n 4 ns 8 '
+              f'B {bsz} cap 30: {nbad} of {bsz} samples outside rtol '
+              f'2e-3/atol 1e-3 (bound 1%); max relative cost gap {gap:.3g} '
+              f'(tol 1e-3)')
 
+  quad = registry.get_task('Quadruped Flat')     # the default device: cuda
+  check(quad.model.device.type == torch.device(DEV).type,
+        'Quadruped Flat not on the card')
+  quad_cap = quad.model.opt.iterations
+  q_spd_in, (q_args, q_gargs, q_condims, q_dmasks) = solver_inputs(
+      quad, quadruped_states(quad, gen))
+  q_spd_abs, q_spd_err = errors(spd_solve.solve_spd(*q_spd_in),
+                                linalg.solve_spd(*q_spd_in))
+  check(q_spd_err <= 1e-4, f'chol_solve on Quadruped inputs: '
+        f'{q_spd_err:.3g} > 1e-4')
+  q_kw = dict(cap=quad_cap, tol=1e-5, condims=q_condims, dmasks=q_dmasks)
+  nbad, gap, q_newton_abs = compare_newton(q_args, q_gargs, **q_kw)
+  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap)
+  want = newton.newton_reference(*q_args, *q_gargs, **q_kw)
+  in_contact = int((q_gargs[3] > 0).sum())
+  facets = int(((want[3] < 0) & (q_gargs[3][:, None, :] > 0)).sum())
+  violated = int((q_args[7] > 0).sum())
+  limits = int(((want[2] < 0) & (q_args[7] > 0)).sum())
+  print(f'phase 3e Quadruped step inputs (B {QUAD_SAMPLES}, condims '
+        f'{q_condims}, P {q_gargs[1].shape[1]}): {in_contact} points in '
+        f'contact, {facets} of their facets active at the solution; '
+        f'{violated} limit rows violated, {limits} active at the solution; '
+        f'chol_solve n 18 rel err {q_spd_err:.3g} (tol 1e-4); newton cap '
+        f'{quad_cap}: {nbad} of {QUAD_SAMPLES} samples outside rtol '
+        f'2e-3/atol 1e-3 (bound 1%), max relative cost gap {gap:.3g} (tol '
+        f'1e-3)')
+
+  # 4. timing at both paths' shapes
   def library_spd(a, b):
     factor, _ = torch.linalg.cholesky_ex(a)
     return torch.cholesky_solve(b[..., None], factor)[..., 0]
-  t_spd_lib = cuda_time_ms(lambda: library_spd(*spd_in))
-  dev = {name: device_us(fn) for name, fn in (
-      ('chol_solve', lambda: spd_solve.solve_spd(*spd_in)),
-      ('chol_plain', lambda: linalg.solve_spd(*spd_in)),
-      ('chol_library', lambda: library_spd(*spd_in)),
-      ('newton', lambda: newton.newton(*newton_in, cap=cap, tol=1e-5)),
-      ('newton_plain', lambda: newton.newton_reference(*newton_in, cap=cap,
-                                                       tol=1e-5)))}
-  print(f'phase 4 timing per call, wall (median of {TIME_REPS}, CUDA events)'
-        f' / device only (profiler): chol_solve B {SAMPLES} n 2: kernel '
-        f'{t_spd * 1e3:.1f} / {dev["chol_solve"]:.1f} us, plain '
-        f'{t_spd_plain * 1e3:.1f} / {dev["chol_plain"]:.1f} us, '
-        f'torch.linalg.cholesky_ex + cholesky_solve {t_spd_lib * 1e3:.1f} / '
-        f'{dev["chol_library"]:.1f} us; newton B {SAMPLES} nv 2 ns 2 cap '
-        f'{cap}: kernel {t_newton * 1e3:.1f} / {dev["newton"]:.1f} us, plain'
-        f' {t_newton_plain * 1e3:.1f} / {dev["newton_plain"]:.1f} us')
 
-  # 5. main path: Cartpole plan iterations at 8192 x 101
-  interp = int(spline.Interp.ZERO)
-  t_steps = agent.horizon_steps(spec)
-  d0 = make_data(spec.model).replace(
-      qpos=torch.tensor([QPOS0], device=DEV))
-  cfg = sampling.default_config(spec)
-  params = spec.default_params
+  kern = {}
+  for path, spd_args, n_args, n_gargs, n_kw, n_label in (
+      ('cartpole', spd_in, newton_in, (), dict(cap=cart_cap, tol=1e-5),
+       f'B {CART_SAMPLES} nv 2 ns 2 cap {cart_cap}'),
+      ('quadruped', q_spd_in, q_args, q_gargs, q_kw,
+       f'B {QUAD_SAMPLES} nv 18 ns 24 one condim-3 group P 20 cap '
+       f'{quad_cap}')):
+    fns = {
+        'chol_solve': lambda a=spd_args: spd_solve.solve_spd(*a),
+        'chol_plain': lambda a=spd_args: linalg.solve_spd(*a),
+        'chol_library': lambda a=spd_args: library_spd(*a),
+        'newton': lambda a=n_args, g=n_gargs, k=n_kw: newton.newton(
+            *a, *g, **k),
+        'newton_plain': lambda a=n_args, g=n_gargs, k=n_kw:
+            newton.newton_reference(*a, *g, **k)}
+    wall = {k: cuda_time_ms(f) for k, f in fns.items()}
+    dev = {k: device_us(f) for k, f in fns.items()}
+    spd_b, spd_by = spd_bound(spd_args[0])
+    n_b, n_by, iters = newton_bound(n_args, n_gargs, n_kw.get('condims', ()),
+                                    n_kw.get('dmasks', ()), n_kw['cap'],
+                                    n_kw['tol'])
+    kern[path] = dict(wall=wall, dev=dev, spd_bound=(spd_b, spd_by),
+                      newton_bound=(n_b, n_by))
+    print(f'phase 4 timing {path} per call, wall (median of {TIME_REPS}, '
+          f'CUDA events) / device only (profiler): chol_solve B '
+          f'{spd_args[0].shape[0]} n {spd_args[0].shape[1]}: kernel '
+          f'{wall["chol_solve"] * 1e3:.1f} / {dev["chol_solve"]:.1f} us, '
+          f'plain {wall["chol_plain"] * 1e3:.1f} / {dev["chol_plain"]:.1f} '
+          f'us, torch.linalg.cholesky_ex + cholesky_solve '
+          f'{wall["chol_library"] * 1e3:.1f} / {dev["chol_library"]:.1f} '
+          f'us, bound {spd_b * 1e3:.2f} us ({spd_by}); newton {n_label}: '
+          f'kernel {wall["newton"] * 1e3:.1f} / {dev["newton"]:.1f} us, '
+          f'plain {wall["newton_plain"] * 1e3:.1f} / '
+          f'{dev["newton_plain"]:.1f} us, bound {n_b * 1e3:.2f} us '
+          f'({n_by}; {iters:.2f} iterations per sample)')
 
-  def plan(pol, num_samples=SAMPLES, generator=gen):
-    noise = sampling.sample_noise(spec, SPLINE_POINTS, num_samples, cfg,
-                                  generator)
-    return sampling.optimize(spec, pol, d0, params, cfg, noise, t_steps,
-                             interp)
+  # 5-7. Cartpole
+  d0 = make_data(cart.model).replace(qpos=torch.tensor([CART_QPOS0],
+                                                       device=DEV))
+  cart_main = main_path(cart, d0, CART_SAMPLES, CART_PLANS, gen)
+  print_main_path(5, 'Cartpole', CART_SAMPLES, CART_PLANS, cart_main)
+  cart_cpu = registry.get_task('Cartpole', device='cpu')
+  d0_cpu = make_data(cart_cpu.model).replace(
+      qpos=torch.tensor([CART_QPOS0]))
+  br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+      cart, cart_cpu, d0, d0_cpu, gen, 0.5)
+  print(f'phase 6 golden: Cartpole 256-candidate plan best_return card '
+        f'{br_gpu:.6g} vs CPU plain {br_cpu:.6g}: rel err {rel:.3g} (tol '
+        f'0.02); winner card {win_gpu} vs CPU {win_cpu} (match '
+        f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
+        f'(tol 0.05)')
+  steps, sim_t, wall, rtf, mean, last = plan_act(
+      cart, d0, CART_SAMPLES, int(round(1.0 / float(cart.model.opt.timestep))),
+      1)
+  print(f'phase 7 plan-act: Cartpole {steps} steps ({sim_t:.2f} s simulated,'
+        f' 4 steps per plan, {CART_SAMPLES} candidates) in {wall:.2f} s wall:'
+        f' real-time factor {rtf:.3f}; mean cost {mean:.4g}, last {last:.4g}')
 
-  pol = sampling.default_policy(spec, SPLINE_POINTS)
-  pol, _ = plan(pol)                                    # warm-up
-  torch.cuda.synchronize()
-  spd_solve.solve_spd.launches = 0
-  newton.newton.launches = 0
-  lat, infos = [], []
-  for _ in range(PLAN_REPS):
-    t0 = time.perf_counter()
-    pol, info = plan(pol)
-    torch.cuda.synchronize()
-    lat.append(time.perf_counter() - t0)
-    infos.append(info)
-  launches = {'chol_solve': spd_solve.solve_spd.launches,
-              'newton': newton.newton.launches}
-  check(launches['newton'] == PLAN_REPS * t_steps,
-        f'newton launched {launches["newton"]} times, expected '
-        f'{PLAN_REPS * t_steps} (once per rollout step)')
-  check(launches['chol_solve'] == 2 * PLAN_REPS * t_steps,
-        f'chol_solve launched {launches["chol_solve"]} times, expected '
-        f'{2 * PLAN_REPS * t_steps} (twice per rollout step)')
-  best = torch.stack([i['best_return'] for i in infos]).cpu()
-  nominal = torch.stack([i['nominal_return'] for i in infos]).cpu()
-  check(bool(torch.isfinite(best).all()), f'best_return not finite: {best}')
-  check(bool((best <= nominal).all()), 'best_return > nominal_return')
-  p50 = statistics.median(lat)
+  # 8-10. Quadruped Flat
+  home = quad.model.keyframe_qpos('home')[None]
+  q_d0 = make_data(quad.model).replace(qpos=home)
+  quad_main = main_path(quad, q_d0, QUAD_SAMPLES, QUAD_PLANS, gen)
+  print_main_path(8, 'Quadruped Flat', QUAD_SAMPLES, QUAD_PLANS, quad_main)
+  quad_cpu = registry.get_task('Quadruped Flat', device='cpu')
+  q_d0_cpu = make_data(quad_cpu.model).replace(qpos=home.cpu())
+  br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+      quad, quad_cpu, q_d0, q_d0_cpu, gen, 0.2)
+  print(f'phase 9 golden: Quadruped 256-candidate plan best_return card '
+        f'{br_gpu:.6g} vs CPU plain {br_cpu:.6g}: rel err {rel:.3g} (tol '
+        f'0.02); winner card {win_gpu} vs CPU {win_cpu} (match '
+        f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
+        f'(tol 0.05)')
+  samples = max(int(quad.config.get('sampling_trajectories', 128)), 128)
+  steps, sim_t, wall, rtf, mean, last = plan_act(quad, q_d0, samples, 100, 2)
+  print(f'phase 10 plan-act: Quadruped Flat {steps} steps ({sim_t:.2f} s '
+        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
+        f'{mean:.4g}, last {last:.4g}')
 
-  plan_dev_us, plan_ops, top = device_us(lambda: plan(pol), reps=1,
-                                         top=8)
-  print(f'phase 5 main path: Cartpole {SAMPLES} candidates x {t_steps} steps,'
-        f' {PLAN_REPS} plans: p50 {p50 * 1e3:.2f} ms, '
-        f'{1.0 / p50:.2f} plans/s; launches chol_solve '
-        f'{launches["chol_solve"]}, newton {launches["newton"]}; '
-        f'best_return {float(best[-1]):.5g} <= nominal {float(nominal[-1]):.5g}'
-        f'; profiled plan: {plan_ops} device ops, device busy '
-        f'{plan_dev_us / 1e3:.2f} ms = {plan_dev_us / 1e4 / p50:.1f}% of p50')
-  print('phase 5 device time per plan by op (name: count, ms): ' + '; '.join(
-      f'{name[:48]}: {count}, {us / 1e3:.2f}' for name, count, us in top))
+  def entry(name, path, launches, err):
+    k = kern[path]
+    short = 'chol' if name == 'chol_solve' else 'newton'
+    b_ms, b_by = k['spd_bound' if short == 'chol' else 'newton_bound']
+    return {'launches': launches[name], 'max_abs_err': err,
+            'ms': k['wall'][name], 'plain_ms': k['wall'][short + '_plain'],
+            'device_ms': k['dev'][name] / 1e3, 'bound_ms': b_ms,
+            'bound_by': b_by,
+            'library_ms': (k['wall']['chol_library'] if short == 'chol'
+                           else None)}
 
-  # 6. golden: the card against the plain path on the CPU, from the
-  # default plan (after phase 5's plans the nominal tends to win outright,
-  # which would make the winner check trivial)
-  cpu_spec = registry.get_task('Cartpole', device='cpu')
-  cpu_cfg = sampling.default_config(cpu_spec)
-  d0_cpu = make_data(cpu_spec.model).replace(qpos=torch.tensor([QPOS0]))
-  eps, use2 = sampling.sample_noise(spec, SPLINE_POINTS, 255, cfg, gen)
-  pol = sampling.default_policy(spec, SPLINE_POINTS)
-  _, info_gpu = sampling.optimize(spec, pol, d0, params, cfg, (eps, use2),
-                                  t_steps, interp)
-  pol_cpu = sampling.SamplingPolicy(pol.times.cpu(), pol.values.cpu())
-  _, info_cpu = sampling.optimize(cpu_spec, pol_cpu, d0_cpu,
-                                  cpu_spec.default_params, cpu_cfg,
-                                  (eps.cpu(), use2.cpu()), t_steps, interp)
-  br_gpu, br_cpu = float(info_gpu['best_return']), float(
-      info_cpu['best_return'])
-  rel = abs(br_gpu - br_cpu) / max(abs(br_cpu), 1e-9)
-  win_gpu, win_cpu = int(info_gpu['winner']), int(info_cpu['winner'])
-  near = float(info_cpu['returns'][win_gpu]) <= br_cpu * 1.02 + 1e-9
-  ctrl = 0.5 * torch.randn((256, 5, 1), generator=gen, device=DEV)
-  qpos_run = []
-  for m, c, dev_ in ((spec.model, ctrl, DEV),
-                     (cpu_spec.model, ctrl.cpu(), 'cpu')):
-    d = make_data(m, 256).replace(qpos=torch.tensor([QPOS0], device=dev_)
-                                  .expand(256, 2))
-    for k in range(5):
-      d = fwd.step(m, d.replace(ctrl=c[:, k]))
-    qpos_run.append(d.qpos.cpu())
-  drift = float(torch.max(torch.abs(qpos_run[0] - qpos_run[1])))
-  # bounds of bench.py's TPU golden check (fused_newton_golden)
-  check(rel <= 0.02, f'golden best_return rel err {rel:.3g} > 0.02')
-  check(near, 'the card\'s winner is not within 2% of the CPU best')
-  check(drift <= 0.05, f'golden qpos drift {drift:.3g} > 0.05')
-  print(f'phase 6 golden: 256-candidate plan best_return card {br_gpu:.6g} vs'
-        f' CPU plain {br_cpu:.6g}: rel err {rel:.3g} (tol 0.02); winner card '
-        f'{win_gpu} vs CPU {win_cpu} (match {win_gpu == win_cpu}); 5-step '
-        f'rollout qpos drift {drift:.3g} (tol 0.05)')
-
-  # 7. plan-act loop
-  sim_dt = float(spec.model.opt.timestep)
-  total_steps = int(round(2.0 / sim_dt))
-  steps_per_plan = 4
-  sim0 = make_data(spec.model).replace(
-      qpos=torch.tensor([QPOS0], device=DEV))
-  torch.cuda.synchronize()
-  t0 = time.perf_counter()
-  carry, costs = agent.synchronous_mpc(
-      spec, SAMPLES, total_steps, steps_per_plan,
-      torch.Generator(device=DEV).manual_seed(1), sim0=sim0)
-  costs = costs.cpu()
-  wall = time.perf_counter() - t0
-  check(bool(torch.isfinite(costs).all()), 'plan-act costs not finite')
-  sim_time = len(costs) * sim_dt
-  print(f'phase 7 plan-act: {len(costs)} steps ({sim_time:.2f} s simulated, '
-        f'{steps_per_plan} steps per plan, {SAMPLES} candidates) in '
-        f'{wall:.2f} s wall: real-time factor {sim_time / wall:.3f}; mean '
-        f'cost {float(costs.mean()):.4g}, last {float(costs[-1]):.4g}')
-
-  print(json.dumps({'kernels': [
-      {'name': 'chol_solve', 'route': 'cuda',
-       'source': 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
-       'replaces': 'mujoco_mpc_tpu/ops/pallas_linalg.py:90',
-       'launches': launches['chol_solve'], 'max_abs_err': spd_abs,
-       'ms': t_spd, 'plain_ms': t_spd_plain},
-      {'name': 'newton', 'route': 'cuda',
-       'source': 'mujoco_mpc_tpu_torch/csrc/newton.cu',
-       'replaces': 'mujoco_mpc_tpu/ops/pallas_newton.py:750',
-       'launches': launches['newton'], 'max_abs_err': newton_abs,
-       'ms': t_newton, 'plain_ms': t_newton_plain},
-  ]}))
+  out = []
+  for name, source, replaces, errs in (
+      ('chol_solve', 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
+       'mujoco_mpc_tpu/ops/pallas_linalg.py:90',
+       {'cartpole': spd_abs, 'quadruped': q_spd_abs}),
+      ('newton', 'mujoco_mpc_tpu_torch/csrc/newton.cu',
+       'mujoco_mpc_tpu/ops/pallas_newton.py:750',
+       {'cartpole': newton_abs, 'quadruped': q_newton_abs})):
+    paths = {p: entry(name, p, r['launches'], errs[p])
+             for p, r in (('cartpole', cart_main), ('quadruped', quad_main))}
+    out.append({'name': name, 'route': 'cuda', 'source': source,
+                'replaces': replaces, **paths['quadruped'], 'paths': paths})
+  print(json.dumps({'kernels': out}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))
+
+
+def ptxas_report(log_path, kernel_tag):
+  """ptxas -v's lines for the kernel whose mangled name holds
+  `kernel_tag`: its registers, stack frame and spills."""
+  with open(log_path) as f:
+    lines = f.read().splitlines()
+  out = []
+  for i, line in enumerate(lines):
+    if 'Compiling entry function' in line and kernel_tag in line:
+      for follow in lines[i + 1:]:
+        if 'Compiling entry function' in follow:
+          break
+        if 'stack frame' in follow or 'Used' in follow:
+          out.append(follow.split(' : ', 1)[-1].strip())
+  return out or ['(no ptxas report found)']
 
 
 if __name__ == '__main__':

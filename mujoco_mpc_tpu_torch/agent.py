@@ -7,7 +7,11 @@ a Python loop of plan iterations, each followed by `steps_per_plan`
 simulation steps of the batch-1 state under the frozen plan. The TPU's
 128-lane broadcast of the simulation step (agent.py:114-136) is not
 carried over: on the card the batch-1 step calls the same functions with
-B = 1. The host-driven Agent class (:179) is still to come (ROADMAP A13).
+B = 1. The task's transition runs once per plan, before planning
+(:96-100), on the simulation state whose derived fields come from the
+last step's forward; where a state has none yet (a fresh make_data, which
+JAX zero-fills instead), they come from a forward of that state. The
+host-driven Agent class (:179) is still to come (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -86,6 +90,11 @@ def make_mpc_step(spec: TaskSpec, num_samples: int, steps_per_plan: int,
 
   def plan_and_step(carry: MpcCarry) -> Tuple[MpcCarry, dict]:
     sim, policy, params = carry.sim, carry.policy, carry.params
+    if spec.transition_fn is not None:
+      if sim.xpos is None:
+        sim = fwd.forward(sim_model, sim)
+      sim, params = spec.transition_fn(sim_model, sim, params,
+                                       carry.generator)
     plan_d = sync_plan_state(plan_d0, sim)
     for _ in range(planner_iterations):
       noise = sampling.sample_noise(pspec, policy.times.shape[0],
@@ -100,7 +109,8 @@ def make_mpc_step(spec: TaskSpec, num_samples: int, steps_per_plan: int,
       costs.append(spec.cost(res, params))
       sim = fwd.integrate(sim_model, d)
     out = {'costs': torch.cat(costs), 'best_return': info['best_return']}
-    return dataclasses.replace(carry, sim=sim, policy=policy), out
+    return dataclasses.replace(carry, sim=sim, policy=policy,
+                               params=params), out
 
   return plan_and_step
 

@@ -28,23 +28,24 @@ from mujoco_mpc_tpu_torch.tasks import base
 PARAM_FIELDS = ('weights', 'norm_params', 'residual_params', 'risk')
 
 
-def model_from_arrays(arrays: dict, static: dict, device='cpu',
+def model_from_arrays(arrays: dict, static: dict, device='cuda',
                       dtype=torch.float32) -> model_lib.Model:
   """Model from its leaves (numpy) and static fields (see
   physics/model.py from_arrays)."""
   return model_lib.from_arrays(arrays, static, device=device, dtype=dtype)
 
 
-def params_from_arrays(arrays: dict, device='cpu',
+def params_from_arrays(arrays: dict, device='cuda',
                        dtype=torch.float32) -> base.TaskParams:
   """TaskParams from {'weights', 'norm_params', 'residual_params',
   'risk'} numpy arrays."""
+  device = model_lib.resolve_device(device)
   return base.TaskParams(**{
       k: torch.as_tensor(np.array(arrays[k]), dtype=dtype, device=device)
       for k in PARAM_FIELDS})
 
 
-def spec_from_arrays(arrays: dict, static: dict, residual_fn, device='cpu',
+def spec_from_arrays(arrays: dict, static: dict, residual_fn, device='cuda',
                      dtype=torch.float32) -> base.TaskSpec:
   """TaskSpec from a snapshot's arrays and static dict (layout above)."""
   def sub(prefix):

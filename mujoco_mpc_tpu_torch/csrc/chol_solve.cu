@@ -6,9 +6,10 @@
 // forward and back substitution.
 //
 // What bounds it on the card: nothing but launch overhead on the planner's
-// path. There a = (B, n, n) and b = (B, n) float32 with n = nv of the model
-// (2 for Cartpole) and B = 8192 rollouts: ~260 KB moved and ~20 flops per
-// system, far below any roofline. Measured there on an NVIDIA H100 80GB
+// paths. There a = (B, n, n) and b = (B, n) float32 with n = nv of the
+// model: Cartpole n 2, B 8192, ~260 KB moved and ~20 flops per system;
+// Quadruped n 18 (its own bucket), B 4096, ~5.6 MB moved and ~1.6 kflop
+// per system, far below any roofline. Measured there on an NVIDIA H100 80GB
 // HBM3 (700 W power limit): 1.4 us of device time per call, against ~30 us
 // of host time for the wrapper and the launch. At n near 32 the factor no
 // longer fits in registers and spills to local memory (n = 32: 9 KB stack
@@ -116,7 +117,7 @@ extern "C" int mjpc_chol_solve_f32(const float* a, const float* b, float* x,
   else if (n <= 6) launch<6>(a, b, x, batch, n, st);
   else if (n <= 8) launch<8>(a, b, x, batch, n, st);
   else if (n <= 12) launch<12>(a, b, x, batch, n, st);
-  else if (n <= 16) launch<16>(a, b, x, batch, n, st);
+  else if (n <= 18) launch<18>(a, b, x, batch, n, st);
   else if (n <= 24) launch<24>(a, b, x, batch, n, st);
   else launch<32>(a, b, x, batch, n, st);
   return static_cast<int>(cudaGetLastError());

@@ -2,15 +2,16 @@
 version.
 
 Port of mujoco_mpc_tpu/ops/pallas_newton.py: the fused Pallas kernel
-_newton_kernel (:222) behind newton_batched (:631), for the dense +
-one-hot-scalar operand set, and the reference loop _newton_reference
-(:792) as `newton_reference`, batch first. The kernel is csrc/newton.cu.
+_newton_kernel (:222) behind newton_batched (:631), for dense rows,
+one-hot-scalar rows and the factored pyramidal contact-point groups; the
+facet table PYRAMID_FACETS (:79), expand_group (:90) and materialize_jd
+(:126); and the reference loop _newton_reference (:792) as
+`newton_reference`, batch first. The kernel is csrc/newton.cu.
 
 Dispatch is by device only: a CPU tensor takes `newton_reference`, a CUDA
 tensor the kernel, and anything the kernel cannot take raises. Not ported
-yet: the factored contact-point groups (ROADMAP A6), elliptic-cone and
-frictionloss rows (A8), and the implicit-function tangent make_newton's
-custom_jvp supplies (:1053; A9).
+yet: elliptic-cone and frictionloss rows (ROADMAP A8), and the
+implicit-function tangent make_newton's custom_jvp supplies (:1053; A9).
 """
 
 from __future__ import annotations
@@ -24,22 +25,75 @@ from mujoco_mpc_tpu_torch.ops import cuda_build
 from mujoco_mpc_tpu_torch.ops import linalg
 
 MAX_NV = 32
+MAX_GROUPS = 4
 _DAMP = 1e-10
 _ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.0625)
 
+# Pyramidal contact facets in point-direction form: a condim-c contact
+# contributes one one-sided facet row per entry (di, mucol, sign),
+# row = jd[0] + sign * mu[mucol] * jd[di] over its direction Jacobians
+# jd = (normal, t1, t2[, rn, rt1, rt2]); condim 1 is the bare normal.
+PYRAMID_FACETS = {
+    1: ((0, 0, 0.0),),
+    3: ((1, 0, 1.0), (1, 0, -1.0), (2, 0, 1.0), (2, 0, -1.0)),
+    4: ((1, 0, 1.0), (1, 0, -1.0), (2, 0, 1.0), (2, 0, -1.0),
+        (3, 1, 1.0), (3, 1, -1.0)),
+    6: ((1, 0, 1.0), (1, 0, -1.0), (2, 0, 1.0), (2, 0, -1.0),
+        (3, 1, 1.0), (3, 1, -1.0),
+        (4, 2, 1.0), (4, 2, -1.0), (5, 2, 1.0), (5, 2, -1.0)),
+}
+
+
+def expand_group(jd, aref, dvec, mu, condim):
+  """Facet-expand one point group to dense one-sided rows, facet-major.
+
+  jd (B, P, ndirs, nv), aref (B, nrep, P), dvec (B, P), mu (B, 3, P) ->
+  (j (B, nrep*P, nv), aref (B, nrep*P), dvec (B, nrep*P))."""
+  facets = PYRAMID_FACETS[condim]
+  jn = jd[:, :, 0]
+  rows = [jn + sgn * mu[:, col, :, None] * jd[:, :, di] if sgn else jn
+          for (di, col, sgn) in facets]
+  bsz, p = dvec.shape
+  return (torch.cat(rows, 1), aref.reshape(bsz, len(facets) * p),
+          dvec.repeat(1, len(facets)))
+
+
+def materialize_jd(g, cdofc, dmask):
+  """jd (B, P, ndirs, nv) from factored G (B, P, ndirs, 6), cdofc
+  (B, nv, 6) and the model constant dmask (P, nv):
+  jd[p, d, n] = (G[p, d] . cdofc[n]) * dmask[p, n]."""
+  jd = torch.einsum('bpdj,bnj->bpdn', g, cdofc)
+  return jd * dmask.to(jd.dtype)[:, None, :]
+
 
 def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
-                     *, cap: int, tol: float):
+                     *gargs, cap: int, tol: float, condims=(), dmasks=()):
   """Plain batch-first Newton solve.
 
   qm (B, nv, nv), qs (B, nv), j (B, n, nv), aref/dvec/eqf (B, n),
-  s_aref/s_dvec (B, ns), dof (ns,) int, sign (ns,) float ->
-  (qacc (B, nv), jar_d (B, n), jar_s (B, ns)).
+  s_aref/s_dvec (B, ns), dof (ns,) int, sign (ns,) float; with point
+  groups (`condims` non-empty), gargs = (cdofc (B, nv, 6), then per group
+  g (B, P, ndirs, 6), aref (B, nrep, P), dvec (B, P), mu (B, 3, P)) and
+  `dmasks` the groups' (P, nv) masks -> (qacc (B, nv), jar_d (B, n),
+  jar_s (B, ns), *jar_g (B, nrep, P)).
 
-  Runs `cap` iterations with per-sample done masks and frozen finished
-  samples, which is what the vmapped while_loop computes, and never reads
-  a tensor value on the host, so on the card it queues without a sync."""
+  The groups are facet-expanded into the dense block and their jars split
+  back out, as _newton_reference does (:799-815). Runs `cap` iterations
+  with per-sample done masks and frozen finished samples, which is what
+  the vmapped while_loop computes, and never reads a tensor value on the
+  host, so on the card it queues without a sync."""
   bsz, nv = qs.shape
+  n_dense = j.shape[1]
+  gsizes = []
+  for gi, cdim in enumerate(condims):
+    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
+    ej, ea, ed = expand_group(materialize_jd(g, gargs[0], dmasks[gi]),
+                              garef, gdvec, gmu, cdim)
+    gsizes.append(tuple(garef.shape[1:]))             # (nrep, P)
+    j = torch.cat([j, ej], 1)
+    aref = torch.cat([aref, ea], 1)
+    dvec = torch.cat([dvec, ed], 1)
+    eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
   n = j.shape[1]
   ns = s_aref.shape[1]
   eq = eqf > 0.5
@@ -112,7 +166,21 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
     prev_exact_new = torch.where(live, exact, prev_exact)
     done = done | ((exact & prev_exact) | small)
     prev_exact = prev_exact_new
-  return qacc, jar_d, jar_s
+  jar_groups = []
+  off = n_dense
+  for (nrep, p) in gsizes:
+    jar_groups.append(jar_d[:, off:off + nrep * p].reshape(bsz, nrep, p))
+    off += nrep * p
+  return (qacc, jar_d[:, :n_dense], jar_s) + tuple(jar_groups)
+
+
+class _Group(ctypes.Structure):
+  """One contact-point group at the kernel's C interface (MjpcNewtonGroup
+  in csrc/newton.cu)."""
+  _fields_ = [('g', ctypes.c_void_p), ('aref', ctypes.c_void_p),
+              ('dvec', ctypes.c_void_p), ('mu', ctypes.c_void_p),
+              ('dmask', ctypes.c_void_p), ('jar', ctypes.c_void_p),
+              ('p', ctypes.c_int), ('condim', ctypes.c_int)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,14 +188,17 @@ def _entry():
   fn = cuda_build.load('newton').mjpc_newton_f32
   p = ctypes.c_void_p
   i = ctypes.c_int
-  fn.argtypes = [p] * 13 + [i, i, i, i, i, ctypes.c_float, p]
+  fn.argtypes = ([p] * 13 + [i, i, i, i, i, ctypes.c_float]
+                 + [p, ctypes.POINTER(_Group), i, p])
   fn.restype = ctypes.c_int
   return fn
 
 
-def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap):
+def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
+           gargs, condims, dmasks):
   """Refuse what the kernel does not take (it never falls back)."""
-  floats = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, sign)
+  floats = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, sign) + tuple(
+      gargs) + tuple(dmasks)
   cuda_build.require_cuda(*floats, dof)
   if any(t.device != qs.device for t in floats + (dof,)):
     raise ValueError('all operands must be on one device')
@@ -146,8 +217,29 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap):
           'eqf': (eqf, (bsz, n)), 's_aref': (s_aref, (bsz, ns)),
           's_dvec': (s_dvec, (bsz, ns)), 'dof': (dof, (ns,)),
           'sign': (sign, (ns,))}
+  if len(condims) > MAX_GROUPS or len(set(condims)) != len(condims) \
+     or any(c not in PYRAMID_FACETS for c in condims):
+    raise ValueError(f'the kernel takes at most one group per condim in '
+                     f'{sorted(PYRAMID_FACETS)}, got condims {condims}')
+  if len(gargs) != (1 + 4 * len(condims) if condims else 0) \
+     or len(dmasks) != len(condims):
+    raise ValueError(f'{len(condims)} groups need '
+                     f'{1 + 4 * len(condims) if condims else 0} group '
+                     f'operands and {len(condims)} dmasks, got '
+                     f'{len(gargs)} and {len(dmasks)}')
+  if condims:
+    want['cdofc'] = (gargs[0], (bsz, nv, 6))
+  for gi, cdim in enumerate(condims):
+    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
+    p = g.shape[1] if g.dim() == 4 else -1
+    nrep = len(PYRAMID_FACETS[cdim])
+    want.update({
+        f'g[{gi}]': (g, (bsz, p, cdim, 6)),     # condim directions a point
+        f'aref[{gi}]': (garef, (bsz, nrep, p)),
+        f'dvec[{gi}]': (gdvec, (bsz, p)), f'mu[{gi}]': (gmu, (bsz, 3, p)),
+        f'dmask[{gi}]': (dmasks[gi], (p, nv))})
   for name, (t, shape) in want.items():
-    if n < 0 or ns < 0 or tuple(t.shape) != shape:
+    if min(shape) < 0 or tuple(t.shape) != shape:
       raise ValueError(f'{name}: expected shape {shape}, got '
                        f'{tuple(t.shape)}')
   if not 1 <= nv <= MAX_NV:
@@ -158,36 +250,45 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap):
     raise ValueError('the kernel takes contiguous tensors')
 
 
-def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *groups,
-           cap: int, tol: float):
-  """Newton solve over dense and one-hot rows; shapes as newton_reference.
+def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
+           cap: int, tol: float, condims=(), dmasks=()):
+  """Newton solve over dense rows, one-hot rows and factored point groups;
+  operands and results as newton_reference.
 
   On the CPU, newton_reference; on CUDA, the kernel, which adds one to
-  `newton.launches` per launch. `groups` (the factored contact-point
-  operands of newton_batched) are not ported yet and raise. The kernel
+  `newton.launches` per launch and builds each facet row from (G, cdofc,
+  dmask) itself: the (B, nrep*P, nv) facet block never exists. The kernel
   reads dof only to compare it with 0..nv-1, so an out-of-range dof drops
   the row instead of reaching outside the sample's memory."""
-  if groups:
-    raise NotImplementedError(
-        'factored contact-point groups are not ported yet (ROADMAP A6)')
   operands = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign)
-  if all(t.device.type == 'cpu' for t in operands):
-    return newton_reference(*operands, cap=cap, tol=tol)
-  _check(*operands, cap)
+  if all(t.device.type == 'cpu'
+         for t in operands + tuple(gargs) + tuple(dmasks)):
+    return newton_reference(*operands, *gargs, cap=cap, tol=tol,
+                            condims=condims, dmasks=dmasks)
+  _check(*operands, cap, gargs, condims, dmasks)
   bsz, nv = qs.shape
   n, ns = j.shape[1], s_aref.shape[1]
   qacc = torch.empty_like(qs)
   jar_d = torch.empty_like(aref)
   jar_s = torch.empty_like(s_aref)
+  jar_g = tuple(torch.empty_like(gargs[2 + 4 * gi])
+                for gi in range(len(condims)))
   if bsz == 0:
-    return qacc, jar_d, jar_s
+    return (qacc, jar_d, jar_s) + jar_g
+  groups = (_Group * MAX_GROUPS)()
+  for gi, cdim in enumerate(condims):
+    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
+    groups[gi] = _Group(g.data_ptr(), garef.data_ptr(), gdvec.data_ptr(),
+                        gmu.data_ptr(), dmasks[gi].data_ptr(),
+                        jar_g[gi].data_ptr(), g.shape[1], cdim)
   err = _entry()(
       *(t.data_ptr() for t in operands), qacc.data_ptr(), jar_d.data_ptr(),
       jar_s.data_ptr(), bsz, nv, n, ns, int(cap), float(tol),
+      gargs[0].data_ptr() if condims else None, groups, len(condims),
       torch.cuda.current_stream(qs.device).cuda_stream)
   cuda_build.check(err, 'newton kernel')
   newton.launches += 1
-  return qacc, jar_d, jar_s
+  return (qacc, jar_d, jar_s) + jar_g
 
 
 newton.launches = 0

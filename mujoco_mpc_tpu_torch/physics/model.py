@@ -14,18 +14,22 @@ Differences from the JAX pytrees:
     gathers the step indexes with are built once, on the model's device,
     into `Model.idx` (physics/structure.py).
 
-Model fields not carried yet (their consumers are still to be ported;
-ROADMAP A6-A8): collision and geom contact parameters (geom_type,
-geom_contype/conaffinity/condim/priority, geom_size, geom_friction,
-geom_solref/solimp/margin/gap/solmix, geom_mesh, geom_hfield,
-contact_point_cap, contact_cap), body_invweight0, frictionloss rows
-(dof_frictionloss, dof_friction_solref/solimp), equality data (eq_*),
-tendons (ten_*, tendon_*), sensors (sensor_*, nsensordata), site_size,
-site_type, magnetic-field consumers and the name tables other than
-bodies, joints, sites, actuators and keyframes. Data fields not carried
-yet: sensordata and the tendon quantities. A model that needs any of them
-is refused where it would be used (NotImplementedError), never silently
-computed without them.
+The geom contact fields (geom_type, geom_contype/conaffinity/condim/
+priority/group, geom_size, geom_friction, geom_solref/solimp/solmix/
+margin/gap, body_invweight0, geom_names, contact_point_cap, contact_cap)
+are carried for the primitive colliders (physics/collision.py). Model
+fields not carried yet (their consumers are still to be ported; ROADMAP
+A7-A8): the mesh hulls and height fields (geom_mesh, geom_hfield: a model
+with a mesh or hfield geom is refused where contacts or ground_height
+reach it), frictionloss rows (dof_frictionloss, dof_friction_solref/
+solimp), equality data (eq_*), tendons (ten_*, tendon_*), sensors
+(sensor_*, nsensordata), site_size, site_type, magnetic-field consumers.
+Data fields not carried yet: sensordata and the tendon quantities. A model
+that needs any of them is refused where it would be used
+(NotImplementedError), never silently computed without them.
+
+Entry points build on the card: `device` defaults to 'cuda' and raises
+when there is none (`resolve_device`); the tests ask for 'cpu'.
 """
 
 from __future__ import annotations
@@ -51,6 +55,18 @@ class IntegratorType(enum.IntEnum):
   EULER = 0
   RK4 = 1
   IMPLICITFAST = 2
+
+
+class GeomType(enum.IntEnum):
+  PLANE = 0
+  HFIELD = 1
+  SPHERE = 2
+  CAPSULE = 3
+  ELLIPSOID = 4
+  CYLINDER = 5
+  BOX = 6
+  MESH = 7
+  OTHER = 100
 
 
 class TrnType(enum.IntEnum):
@@ -109,13 +125,15 @@ STATIC_FIELDS = (
     'body_dofadr', 'body_dofnum', 'body_mocapid', 'jnt_type', 'jnt_qposadr',
     'jnt_dofadr', 'jnt_bodyid', 'jnt_limited', 'dof_bodyid', 'dof_jntid',
     'dof_parentid', 'geom_bodyid', 'site_bodyid', 'collision_pairs',
+    'geom_type', 'geom_contype', 'geom_conaffinity', 'geom_condim',
+    'geom_priority', 'geom_group', 'contact_point_cap', 'contact_cap',
     'tendon_limited', 'friction_dof',
     'actuator_trntype', 'actuator_dyntype', 'actuator_gaintype',
     'actuator_biastype', 'actuator_trnid', 'actuator_actadr',
     'actuator_actnum', 'actuator_ctrllimited', 'actuator_forcelimited',
     'has_fluid', 'any_gravcomp',
-    'body_names', 'joint_names', 'site_names', 'actuator_names',
-    'keyframe_names',
+    'body_names', 'joint_names', 'geom_names', 'site_names',
+    'actuator_names', 'keyframe_names',
 )
 # Static fields of Option, stored in `static` as 'opt.<name>'.
 OPTION_STATIC = ('integrator', 'iterations', 'cone', 'noslip_iterations')
@@ -128,7 +146,9 @@ ARRAY_FIELDS = (
     'body_iquat', 'body_mass', 'body_gravcomp', 'body_inertia', 'jnt_pos',
     'jnt_axis', 'jnt_stiffness', 'jnt_range', 'jnt_solref', 'jnt_solimp',
     'jnt_margin', 'dof_damping', 'dof_armature', 'dof_invweight0',
-    'geom_pos', 'geom_quat', 'site_pos', 'site_quat', 'actuator_gear',
+    'geom_pos', 'geom_quat', 'geom_size', 'geom_friction', 'geom_solref',
+    'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap',
+    'body_invweight0', 'site_pos', 'site_quat', 'actuator_gear',
     'actuator_dynprm', 'actuator_gainprm', 'actuator_biasprm',
     'actuator_ctrlrange', 'actuator_forcerange', 'act_range',
     'dof_ancestor_mask', 'key_qpos', 'key_qvel', 'key_act', 'key_ctrl',
@@ -169,6 +189,14 @@ class Model(_Replace):
   geom_bodyid: Tuple[int, ...]
   site_bodyid: Tuple[int, ...]
   collision_pairs: Tuple[Tuple[int, int], ...]
+  geom_type: Tuple[int, ...]
+  geom_contype: Tuple[int, ...]
+  geom_conaffinity: Tuple[int, ...]
+  geom_condim: Tuple[int, ...]
+  geom_priority: Tuple[int, ...]
+  geom_group: Tuple[int, ...]
+  contact_point_cap: int
+  contact_cap: int
   tendon_limited: Tuple[int, ...]
   friction_dof: Tuple[int, ...]
   actuator_trntype: Tuple[int, ...]
@@ -184,6 +212,7 @@ class Model(_Replace):
   any_gravcomp: bool
   body_names: Tuple[str, ...]
   joint_names: Tuple[str, ...]
+  geom_names: Tuple[str, ...]
   site_names: Tuple[str, ...]
   actuator_names: Tuple[str, ...]
   keyframe_names: Tuple[str, ...]
@@ -209,6 +238,14 @@ class Model(_Replace):
   dof_invweight0: torch.Tensor
   geom_pos: torch.Tensor
   geom_quat: torch.Tensor
+  geom_size: torch.Tensor
+  geom_friction: torch.Tensor
+  geom_solref: torch.Tensor
+  geom_solimp: torch.Tensor
+  geom_solmix: torch.Tensor
+  geom_margin: torch.Tensor
+  geom_gap: torch.Tensor
+  body_invweight0: torch.Tensor
   site_pos: torch.Tensor
   site_quat: torch.Tensor
   actuator_gear: torch.Tensor
@@ -225,6 +262,9 @@ class Model(_Replace):
   key_ctrl: torch.Tensor
   opt: Option
   idx: structure.Indices
+  # per-condim contact groups of the collision pairs
+  # (physics/constraint.py contact_table), built by from_arrays
+  contact: tuple = ()
 
   @property
   def device(self) -> torch.device:
@@ -241,15 +281,35 @@ class Model(_Replace):
   def keyframe_qpos(self, name: str) -> torch.Tensor:
     return self.key_qpos[self.keyframe_names.index(name)]
 
+  def body(self, name: str) -> int:
+    return self.body_names.index(name)
 
-def from_arrays(arrays: dict, static: dict, device='cpu',
+  def geom(self, name: str) -> int:
+    return self.geom_names.index(name)
+
+  def site(self, name: str) -> int:
+    return self.site_names.index(name)
+
+
+def resolve_device(device) -> torch.device:
+  """`device` as a torch.device; a CUDA device must exist (no quiet
+  fallback to the CPU)."""
+  device = torch.device(device)
+  if device.type == 'cuda' and not torch.cuda.is_available():
+    raise RuntimeError(
+        'no CUDA device: the port runs on the GPU by default; pass '
+        "device='cpu' to run on the CPU")
+  return device
+
+
+def from_arrays(arrays: dict, static: dict, device='cuda',
                 dtype=torch.float32) -> Model:
   """Build a Model from numpy arrays and static fields.
 
   arrays: ARRAY_FIELDS plus 'opt.<OPTION_ARRAYS>' -> numpy arrays (the
   JAX Model's leaves); static: STATIC_FIELDS plus 'opt.<OPTION_STATIC>'
   -> ints, bools, strings or (nested) sequences of them."""
-  device = torch.device(device)
+  device = resolve_device(device)
 
   def tup(v):
     if isinstance(v, (list, tuple)):
@@ -266,8 +326,11 @@ def from_arrays(arrays: dict, static: dict, device='cpu',
       **{k: torch.as_tensor(np.array(arrays['opt.' + k]), dtype=dtype,
                             device=device) for k in OPTION_ARRAYS},
       **{k: int(static['opt.' + k]) for k in OPTION_STATIC})
-  return Model(**s, **t, opt=opt,
-               idx=structure.build_indices(s, device, dtype))
+  m = Model(**s, **t, opt=opt, idx=structure.build_indices(s, device, dtype))
+  if m.collision_pairs:
+    from mujoco_mpc_tpu_torch.physics import constraint
+    m = m.replace(contact=constraint.contact_table(m))
+  return m
 
 
 @dataclasses.dataclass(frozen=True)

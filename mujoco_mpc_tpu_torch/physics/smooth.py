@@ -5,9 +5,8 @@ passive :278, transmission :348, actuation :473, xfrc_accumulate :525),
 batch-first. Dense mass matrix; tree sums are matmuls against the static
 masks in Model.idx.
 
-Not ported yet, and refused where reached: tendons (ROADMAP A8), joint
-springs on ball/free joints and gravity compensation (A8), and actuator
-transmissions other than joints (A8).
+Not ported yet, and refused where reached: tendons (ROADMAP A8), gravity
+compensation (A8), and actuator transmissions other than joints (A8).
 """
 
 from __future__ import annotations
@@ -49,18 +48,23 @@ def tendon(m: Model, d: Data) -> Data:
 
 
 def passive(m: Model, d: Data) -> Data:
-  """Damper and joint-spring forces (mj_passive; fluid in forward.py)."""
+  """Damper and joint-spring forces (mj_passive; fluid in forward.py).
+  Ball and free joints spring on the quaternion difference
+  (smooth.py:304-307)."""
   qfrc = -m.dof_damping * d.qvel
   idx = m.idx
-  if len(idx.qj):
-    raise NotImplementedError(
-        'ball/free joint springs are not ported yet (ROADMAP A8)')
   if m.any_gravcomp:
     raise NotImplementedError(
         'gravity compensation is not ported yet (ROADMAP A8)')
   if len(idx.sq):
     dif = d.qpos[:, idx.sq] - m.qpos_spring[idx.sq]
     qfrc = qfrc.index_add(1, idx.sd, -m.jnt_stiffness[idx.sj] * dif)
+  if len(idx.qj):
+    rot = tm.quat_sub(d.qpos[:, idx.quat_q], m.qpos_spring[idx.quat_q])
+    qfrc = qfrc.index_add(
+        1, idx.quat_d.reshape(-1),
+        (-m.jnt_stiffness[idx.qj][:, None] * rot).reshape(d.qpos.shape[0],
+                                                          -1))
   return d.replace(qfrc_passive=qfrc)
 
 

@@ -245,6 +245,7 @@ class Indices:
   geom_bodyid: torch.Tensor    # (ngeom,)
   site_bodyid: torch.Tensor    # (nsite,)
   eye3: torch.Tensor           # (3, 3) float
+  box_signs: torch.Tensor      # (8, 3) float: box corner signs, x outermost
   lim_ids: torch.Tensor        # limited hinge/slide joints
   lim_qadr: torch.Tensor
   lim_dof: torch.Tensor
@@ -359,6 +360,8 @@ def build_indices(s: dict, device, dtype) -> Indices:
       geom_bodyid=li(s['geom_bodyid']),
       site_bodyid=li(s['site_bodyid']),
       eye3=fl(np.eye(3)),
+      box_signs=fl([[sx, sy, sz] for sx in (-1, 1) for sy in (-1, 1)
+                    for sz in (-1, 1)]),
       lim_ids=li(lim_ids), lim_qadr=li(lim_qadr), lim_dof=li(lim_dof),
       lim_dof2=li(np.concatenate([lim_dof, lim_dof])).to(torch.int32),
       lim_sign=fl(np.concatenate([np.ones(nl), -np.ones(nl)])),

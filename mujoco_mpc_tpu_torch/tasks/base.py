@@ -6,13 +6,14 @@ compiled model travels as arrays (convert.py), and the MJCF parsers
 parse_user_sensors / parse_custom_numerics (:100, :134), which need
 `mujoco`, stay on the JAX side of tools/export_torch_snapshot.py.
 Residual functions are batch-first: (Model, Data, residual_params) ->
-(B, num_residual).
+(B, num_residual). A transition (TransitionFn, :46) updates the B = 1
+simulation state and the task parameters once per plan.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -38,6 +39,9 @@ class TaskParams:
 
 
 ResidualFn = Callable[[Model, Data, torch.Tensor], torch.Tensor]
+# (Model, Data with B = 1, TaskParams, torch.Generator) -> (Data, TaskParams)
+TransitionFn = Callable[[Model, Data, TaskParams, torch.Generator],
+                        Tuple[Data, TaskParams]]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +55,7 @@ class TaskSpec:
   residual_fn: ResidualFn
   default_params: TaskParams
   config: Dict[str, float]
+  transition_fn: Optional[TransitionFn] = None
   weight_ranges: Tuple[Tuple[float, float], ...] = ()
   residual_param_names: Tuple[str, ...] = ()
   residual_param_ranges: Tuple[Tuple[float, float], ...] = ()

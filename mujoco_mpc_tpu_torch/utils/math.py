@@ -2,8 +2,8 @@
 
 Port of mujoco_mpc_tpu/utils/tpu_math.py (quat_mul :28, quat_rot :46,
 quat_to_mat :60, quat_conj :42, quat_normalize :24, quat_integrate :118,
-axis_angle_to_quat :94, motion_cross :160, force_cross :167, inert_vec
-:174, inert_from_body_quat :197). Quaternions are (w, x, y, z); spatial
+quat_sub :128, axis_angle_to_quat :94, motion_cross :160, force_cross
+:167, inert_vec :174, inert_from_body_quat :197). Quaternions are (w, x, y, z); spatial
 vectors are 6D with the angular part first. Every function broadcasts over
 leading dimensions.
 """
@@ -90,6 +90,17 @@ def quat_integrate(q: torch.Tensor, omega_local: torch.Tensor,
                    dt) -> torch.Tensor:
   """q * exp(omega_local dt), renormalized (mj_integratePos for quats)."""
   return quat_normalize(quat_mul(q, quat_exp(omega_local * dt)))
+
+
+def quat_sub(qa: torch.Tensor, qb: torch.Tensor) -> torch.Tensor:
+  """Rotation vector phi (local frame) with qa = qb * exp(phi)
+  (mju_subQuat), the angle wrapped to (-pi, pi]."""
+  dq = quat_mul(quat_conj(qb), qa)
+  sin_half = torch.linalg.vector_norm(dq[..., 1:], dim=-1, keepdim=True)
+  angle = 2.0 * torch.atan2(sin_half, dq[..., :1])
+  angle = torch.where(angle > torch.pi, angle - 2 * torch.pi, angle)
+  axis = dq[..., 1:] / torch.clamp(sin_half, min=_EPS)
+  return torch.where(sin_half < 1e-10, torch.zeros_like(axis), axis * angle)
 
 
 def motion_cross(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

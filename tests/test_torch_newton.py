@@ -135,3 +135,85 @@ def test_wrapper_takes_plain_version_on_cpu():
   for g, w in zip(got, want):
     assert torch.equal(g, w)
   assert newton.newton.launches == before   # no kernel on the CPU
+
+
+def _group_problem(seed, bsz, nv, n, ns, groups, dtype):
+  """A synthetic problem with factored contact-point groups: the dense and
+  one-hot operands of _synthetic_problem, then cdofc and per group
+  (g, aref, dvec, mu), and the groups' static dmasks. groups: ((condim,
+  P), ...). About half the points carry a zero penalty weight, as points
+  out of contact do."""
+  rng = np.random.default_rng(seed)
+  base = _synthetic_problem(seed, bsz, nv, n, ns, dtype)
+  softplus = lambda x: np.log1p(np.exp(x))  # noqa: E731
+  gargs = [0.5 * rng.normal(size=(bsz, nv, 6))]
+  dmasks = []
+  for condim, p in groups:
+    nrep = len(pallas_newton.PYRAMID_FACETS[condim])
+    dvec = softplus(rng.normal(size=(bsz, p)))
+    gargs += [rng.normal(size=(bsz, p, condim, 6)),
+              rng.normal(size=(bsz, nrep, p)),
+              np.where(rng.uniform(size=(bsz, p)) < 0.5, dvec, 0.0),
+              rng.uniform(0.2, 1.0, size=(bsz, 3, p))]
+    dmasks.append(rng.integers(-1, 2, size=(p, nv)).astype(np.float32))
+  return base, tuple(x.astype(dtype) for x in gargs), tuple(dmasks)
+
+
+# name -> (condims and point counts, dof, sign); nv 6, n 3, ns 2, B 8
+GROUP_CASES = {
+    'condim1': (((1, 4),), (0, 5), (1.0, -1.0)),
+    'condim3': (((3, 3),), (0, 5), (1.0, -1.0)),
+    'condim4': (((4, 3),), (2, 3), (1.0, 1.0)),
+    'condim6': (((6, 2),), (1, 4), (-1.0, 1.0)),
+    'two_groups': (((3, 3), (6, 2)), (0, 5), (1.0, -1.0)),
+}
+
+
+def _port_groups(base, gargs, dmasks, groups, dof, sign, cap, tol):
+  t = [torch.from_numpy(x) for x in base]
+  out = newton.newton_reference(
+      *t, torch.tensor(dof, dtype=torch.int32),
+      torch.tensor(sign, dtype=t[1].dtype),
+      *(torch.from_numpy(x) for x in gargs), cap=cap, tol=tol,
+      condims=tuple(c for c, _ in groups),
+      dmasks=tuple(torch.from_numpy(x) for x in dmasks))
+  return [x.numpy() for x in out]
+
+
+@pytest.mark.parametrize('case', sorted(GROUP_CASES))
+def test_plain_newton_groups_match_jax_reference_loop_f64(case):
+  groups, dof, sign = GROUP_CASES[case]
+  base, gargs, dmasks = _group_problem(6, 8, 6, 3, 2, groups, np.float64)
+  got = _port_groups(base, gargs, dmasks, groups, dof, sign, 30, 1e-10)
+  condims = tuple(c for c, _ in groups)
+
+  def one(*a):
+    jd = tuple((pallas_newton.materialize_jd(a[9 + 4 * i], a[8],
+                                             dmasks[i]),)
+               + tuple(a[10 + 4 * i:13 + 4 * i]) for i in range(len(groups)))
+    return pallas_newton._newton_reference(
+        *a[:8], *a[-8:], dof=dof, sign=sign, cap=30, tol=1e-10,
+        condims=condims, groups=jd)
+
+  want = jax.vmap(one)(*(jnp.asarray(x) for x in base + gargs),
+                       *_cone_empty(8, 6, jnp.float64))
+  want = want[:3] + want[5:]
+  # f64, the same iteration on the facet-expanded rows in the same order
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g, np.asarray(w), rtol=1e-9, atol=1e-9)
+
+
+@pytest.mark.parametrize('case', sorted(GROUP_CASES))
+def test_plain_newton_groups_match_pallas_kernel_f32(case):
+  groups, dof, sign = GROUP_CASES[case]
+  base, gargs, dmasks = _group_problem(7, 8, 6, 3, 2, groups, np.float32)
+  got = _port_groups(base, gargs, dmasks, groups, dof, sign, 30, 1e-6)
+  want = pallas_newton.newton_batched(
+      *(jnp.asarray(a) for a in base + gargs), dof=dof, sign=sign, cap=30,
+      tol=1e-6, interpret=True, condims=tuple(c for c, _ in groups),
+      dmasks=tuple(d.tobytes() for d in dmasks))
+  # f32, tolerance as for the dense rows above
+  for g, w in zip(got, want):
+    np.testing.assert_allclose(g.astype(np.float64),
+                               np.asarray(w, np.float64), rtol=2e-3,
+                               atol=1e-3)

@@ -1,12 +1,15 @@
 """Package-level checks of the PyTorch port.
 
-* Every module of mujoco_mpc_tpu_torch imports, and the Cartpole task
-  loads, with jax, flax, mujoco and the JAX package blocked: the GPU
-  machine has none of them.
+* Every module of mujoco_mpc_tpu_torch imports, and the Cartpole and
+  Quadruped Flat tasks load, with jax, flax, mujoco and the JAX package
+  blocked: the GPU machine has none of them.
+* Entry points build on the card unless asked for the CPU: without a card
+  the default raises.
 * chip_smoke.py refuses to run without a card and prints no result.
-* The committed model snapshot matches a fresh export from the JAX task.
+* The committed model snapshots match a fresh export from the JAX tasks.
 * The kernel wrappers raise, never fall back to the plain version, on a
-  non-CPU request the kernel cannot take.
+  non-CPU request the kernel cannot take, malformed contact groups
+  included.
 """
 
 import os
@@ -49,11 +52,42 @@ def test_port_imports_without_jax_or_mujoco():
       "for n in names:\n"
       "  importlib.import_module(n)\n"
       "from mujoco_mpc_tpu_torch.tasks import registry\n"
-      "spec = registry.get_task('Cartpole')\n"
+      "spec = registry.get_task('Cartpole', device='cpu')\n"
       "print(len(names), spec.model.nv)\n"))
   assert proc.returncode == 0, proc.stderr
   count, nv = proc.stdout.split()
   assert int(count) >= 20 and int(nv) == 2
+
+
+def test_quadruped_loads_without_jax_or_mujoco():
+  proc = _run(BLOCK + (
+      "import torch\n"
+      "from mujoco_mpc_tpu_torch.physics import forward\n"
+      "from mujoco_mpc_tpu_torch.physics.model import make_data\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "spec = registry.get_task('Quadruped Flat', device='cpu')\n"
+      "m = spec.model\n"
+      "d = forward.forward(m, make_data(m).replace(\n"
+      "    qpos=m.keyframe_qpos('home')[None]))\n"
+      "r = spec.residual_fn(m, d, spec.default_params.residual_params)\n"
+      "print(m.nv, len(m.collision_pairs), r.shape[1],\n"
+      "      int(torch.isfinite(d.qacc).all()))\n"))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.split() == ['18', '9', '42', '1']
+
+
+def test_get_task_defaults_to_the_card():
+  """No quiet CPU fallback: the default device is CUDA, and without a
+  card asking for it raises."""
+  registry.get_task.cache_clear()
+  if torch.cuda.is_available():
+    assert registry.get_task('Quadruped Flat').model.device.type == 'cuda'
+  else:
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+      registry.get_task('Quadruped Flat')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+      convert.params_from_arrays({k: np.zeros(1) for k in
+                                  convert.PARAM_FIELDS})
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -67,9 +101,9 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     assert '"ok": true' not in proc.stdout
 
 
-def test_snapshot_is_current():
-  arrays, static = export.task_snapshot(jregistry.get_task('Cartpole'))
-  fname, _ = registry.TASKS['Cartpole']
+def _check_snapshot(name):
+  arrays, static = export.task_snapshot(jregistry.get_task(name))
+  fname, _ = registry.TASKS[name]
   c_arrays, c_static = convert.load_snapshot(
       os.path.join(registry.ASSETS, fname))
   hint = 'stale snapshot: run python tools/export_torch_snapshot.py'
@@ -78,6 +112,14 @@ def test_snapshot_is_current():
     assert v.dtype == c_arrays[k].dtype, (k, hint)
     np.testing.assert_array_equal(v, c_arrays[k], err_msg=f'{k}: {hint}')
   assert static == c_static, hint
+
+
+def test_snapshot_is_current():
+  _check_snapshot('Cartpole')
+
+
+def test_quadruped_snapshot_is_current():
+  _check_snapshot('Quadruped Flat')
 
 
 def test_port_uses_no_compiler_or_jit():
@@ -129,6 +171,36 @@ def _newton_args(bsz=4, nv=3, n=2, ns=2, dtype=torch.float32,
           _meta(ns, dtype=dof_dtype), _meta(ns, dtype=dtype))
 
 
+def _group_args(bsz=4, nv=3, condim=3, p=5):
+  """(cdofc, g, aref, dvec, mu) and the dmask of one well-formed group."""
+  nrep = {1: 1, 3: 4, 4: 6, 6: 10}[condim]
+  return ((_meta(bsz, nv, 6), _meta(bsz, p, condim, 6),
+           _meta(bsz, nrep, p), _meta(bsz, p), _meta(bsz, 3, p)),
+          _meta(p, nv))
+
+
+def _malformed(case):
+  """(group operands, condims, dmasks) broken in one way."""
+  gargs, dmask = _group_args()
+  if case == 'missing_operand':
+    return gargs[:-1], (3,), (dmask,)
+  if case == 'missing_dmask':
+    return gargs, (3,), ()
+  if case == 'bad_condim':
+    return gargs, (2,), (dmask,)
+  if case == 'two_groups_one_condim':
+    return gargs + gargs[1:], (3, 3), (dmask, dmask)
+  if case == 'wrong_facet_count':
+    return gargs[:2] + (_meta(4, 6, 5),) + gargs[3:], (3,), (dmask,)
+  if case == 'wrong_dmask_shape':
+    return gargs, (3,), (_meta(5, 4),)
+  if case == 'wrong_cdofc':
+    return (_meta(4, 3, 3),) + gargs[1:], (3,), (dmask,)
+  if case == 'float64':
+    return gargs[:4] + (_meta(4, 3, 5, dtype=torch.float64),), (3,), (dmask,)
+  raise ValueError(case)
+
+
 @pytest.mark.parametrize('args,error', [
     ((_meta(8, 3, 3, dtype=torch.float64), _meta(8, 3, dtype=torch.float64)),
      TypeError),
@@ -153,12 +225,28 @@ def test_newton_wrapper_refuses(no_plain, kwargs, error):
 
 
 def test_newton_wrapper_refuses_groups_and_mixed_devices(no_plain):
+  """Malformed contact-group operands and operands on two devices."""
   args = _newton_args()
-  with pytest.raises(NotImplementedError):
+  with pytest.raises(ValueError):       # group operands without condims
     newton.newton(*args, _meta(4, 3, 6), cap=8, tol=1e-5)
+  gargs, dmask = _group_args()
+  with pytest.raises(ValueError):       # a group on another device
+    newton.newton(*args, *gargs[:4], torch.zeros(4, 3, 5), cap=8, tol=1e-5,
+                  condims=(3,), dmasks=(dmask,))
   mixed = (torch.zeros(4, 3, 3),) + args[1:]
   with pytest.raises(ValueError):
     newton.newton(*mixed, cap=8, tol=1e-5)
+
+
+@pytest.mark.parametrize('case', [
+    'missing_operand', 'missing_dmask', 'bad_condim', 'two_groups_one_condim',
+    'wrong_facet_count', 'wrong_dmask_shape', 'wrong_cdofc', 'float64'])
+def test_newton_wrapper_refuses_malformed_groups(no_plain, case):
+  gargs, condims, dmasks = _malformed(case)
+  error = TypeError if case == 'float64' else ValueError
+  with pytest.raises(error):
+    newton.newton(*_newton_args(), *gargs, cap=8, tol=1e-5,
+                  condims=condims, dmasks=dmasks)
 
 
 def test_wrappers_go_to_the_kernel_not_the_plain_version(no_plain,
@@ -178,3 +266,26 @@ def test_wrappers_go_to_the_kernel_not_the_plain_version(no_plain,
   with pytest.raises(RuntimeError, match='no nvcc'):
     newton.newton(*_newton_args(), cap=8, tol=1e-5)
   assert calls == ['chol_solve', 'newton']
+
+
+def test_newton_wrapper_takes_groups_to_the_kernel(no_plain, monkeypatch):
+  """Well-formed contact groups (two, of condims 1 and 6) pass the checks
+  and go on to the kernel: no facet expansion, no plain version."""
+  calls = []
+
+  def no_build(name):
+    calls.append(name)
+    raise RuntimeError('no nvcc here')
+  monkeypatch.setattr(cuda_build, 'load', no_build)
+  monkeypatch.setattr(newton, 'expand_group', no_plain_expand)
+  newton._entry.cache_clear()
+  g1, m1 = _group_args(condim=1, p=2)
+  g6, m6 = _group_args(condim=6, p=3)
+  with pytest.raises(RuntimeError, match='no nvcc'):
+    newton.newton(*_newton_args(), *g1, *g6[1:], cap=8, tol=1e-5,
+                  condims=(1, 6), dmasks=(m1, m6))
+  assert calls == ['newton']
+
+
+def no_plain_expand(*a, **k):
+  raise AssertionError('expanded the facets in PyTorch')

@@ -40,7 +40,8 @@ NSTATE = 8
 @pytest.fixture(scope='module')
 def setup():
   jm, mj = load_model(XML, dtype=jnp.float64)
-  m = model_lib.from_arrays(*export.model_snapshot(jm), dtype=torch.float64)
+  m = model_lib.from_arrays(*export.model_snapshot(jm), device='cpu',
+                            dtype=torch.float64)
   rng = np.random.default_rng(0)
   qpos = np.stack([rng.uniform(-2.2, 2.2, NSTATE),
                    rng.uniform(-np.pi, np.pi, NSTATE)], 1)

@@ -85,7 +85,8 @@ def test_norm_value(norm_type):
 
 @pytest.fixture(scope='module')
 def tasks():
-  return jregistry.get_task('Cartpole'), registry.get_task('Cartpole')
+  return (jregistry.get_task('Cartpole'),
+          registry.get_task('Cartpole', device='cpu'))
 
 
 @pytest.mark.parametrize('risk', [0.0, 0.35])

@@ -1,0 +1,91 @@
+"""Rehearse chip_smoke.py on the CPU, at a small size, without a card.
+
+Every phase runs in order on CPU tensors: the kernel wrappers take their
+plain versions (and count launches as the kernels would), the build step
+and nvidia-smi are stubbed, CUDA-event timings become host timings and the
+profiler's device times are 0. It checks the script's paths, shapes and
+control flow before a run on the card; none of its numbers is a device
+measurement. Run from the repository root (a few minutes):
+
+    python tools/rehearse_chip_smoke.py [candidates]
+"""
+
+import os
+import subprocess
+import sys
+import time
+import types
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke  # noqa: E402
+from mujoco_mpc_tpu_torch.ops import cuda_build, newton, spd_solve  # noqa: E402
+from mujoco_mpc_tpu_torch.tasks import registry  # noqa: E402
+
+
+class _Event:
+  """Host-clock stand-in for torch.cuda.Event."""
+
+  def __init__(self, **_):
+    self.t = 0.0
+
+  def record(self):
+    self.t = time.perf_counter()
+
+  def synchronize(self):
+    pass
+
+  def elapsed_time(self, end):
+    return (end.t - self.t) * 1e3
+
+
+def _counted(fn):
+  """The plain version behind a wrapper, counting calls as launches."""
+  def wrapper(*args, **kwargs):
+    wrapper.launches += 1
+    return fn(*args, **kwargs)
+  wrapper.launches = 0
+  return wrapper
+
+
+def _fake_build(name):
+  """No nvcc here: an empty library path and a ptxas log."""
+  lib = os.path.join(ROOT, 'build', 'rehearsal', name + '.so')
+  os.makedirs(os.path.dirname(lib), exist_ok=True)
+  with open(lib + '.log', 'w') as f:
+    f.write('(rehearsal: no ptxas report)\n')
+  return lib
+
+
+def main():
+  samples = int(sys.argv[1]) if len(sys.argv) > 1 else 32
+  chip_smoke.DEV = 'cpu'
+  chip_smoke.CART_SAMPLES = chip_smoke.QUAD_SAMPLES = samples
+  chip_smoke.CART_PLANS = chip_smoke.QUAD_PLANS = 2
+  chip_smoke.TIME_REPS = 2
+  chip_smoke.device_us = lambda fn, reps=2, top=0: (
+      fn(), (0.0, 0, []) if top else 0.0)[1]
+  run = subprocess.run
+  chip_smoke.subprocess = types.SimpleNamespace(run=lambda cmd, **kw: (
+      types.SimpleNamespace(stdout='CPU rehearsal, no card\n')
+      if cmd[0] == 'nvidia-smi' else run(cmd, **kw)))
+  torch.cuda.is_available = lambda: True
+  torch.cuda.synchronize = lambda *a: None
+  torch.cuda.get_device_name = lambda *a: 'CPU rehearsal'
+  torch.cuda.device_count = lambda: 1
+  torch.cuda.Event = _Event
+  cuda_build.build = _fake_build
+  cuda_build.load = lambda name: None
+  newton.newton = _counted(newton.newton)
+  spd_solve.solve_spd = _counted(spd_solve.solve_spd)
+  get_task = registry.get_task
+  registry.get_task = lambda name, device='cuda', dtype=torch.float32: (
+      get_task(name, device='cpu', dtype=dtype))
+  chip_smoke.main()
+
+
+if __name__ == '__main__':
+  main()
