@@ -11,7 +11,8 @@ Phases, one line each (any failure exits non-zero):
      3a B1 on random systems; 3b B2 on random dense and one-hot rows;
      3c both on the inputs the Cartpole step gives them; 3d B2's contact
      groups (condim 1, 3, 4, 6, and two groups) on random factored
-     problems; 3e both on the inputs the Quadruped step gives them;
+     problems, task-shaped and dense, with the near ties counted by rows
+     per dof; 3e both on the inputs the Quadruped step gives them;
   4. timing: kernel, plain version and (B1) torch.linalg's batched
      Cholesky at both paths' shapes, wall per call (CUDA events, median
      of 30) and device time (profiler), with each kernel's bound;
@@ -81,19 +82,24 @@ def device_us(fn, reps=TIME_REPS, top=0):
   """Device time of fn() per call in microseconds: the CUDA kernels the
   profiler saw over `reps` calls, over `reps` (no host time). With `top`,
   also (device ops per call, [(name, count, us) of the `top` ops with the
-  most device time])."""
+  most device time]). Every fn timed here launches kernels, so a pass in
+  which the profiler saw none (it happened once on an H100, for B1 at
+  n 18) is taken again, up to three passes."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  dev = [e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA]
-  total = sum(e.self_device_time_total for e in dev) / reps
+  for _ in range(3):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      for _ in range(reps):
+        fn()
+      torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in dev) / reps
+    if total:
+      break
   if not top:
     return total
   dev.sort(key=lambda e: -e.self_device_time_total)
@@ -111,27 +117,23 @@ def bound(bytes_, flops):
 
 
 def spd_bound(a):
-  """B1's bound on a (B, n, n): read a and b, write x; n^3/3 flops for the
-  factor and 2 n^2 for the two triangular solves, per system."""
+  """B1's bound on a (B, n, n): read the lower triangle of a (all the
+  factor needs) and b, write x; n^3/3 flops for the factor and 2 n^2 for
+  the two triangular solves, per system."""
   bsz, n = a.shape[0], a.shape[1]
-  return bound(4 * bsz * (n * n + 2 * n), bsz * (n ** 3 / 3 + 2 * n * n))
+  return bound(4 * bsz * (n * (n + 1) // 2 + 2 * n),
+               bsz * (n ** 3 / 3 + 2 * n * n))
 
 
 def expanded(args, gargs=(), condims=(), dmasks=()):
   """The Newton operands with every contact group facet-expanded into the
   dense rows, in float64."""
-  import torch
   from mujoco_mpc_tpu_torch.ops import newton
   qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = (
       t.double() if t.is_floating_point() else t.long() for t in args)
-  gd = [t.double() for t in gargs]
-  for gi, cdim in enumerate(condims):
-    ej, ea, ed = newton.expand_group(
-        newton.materialize_jd(gd[1 + 4 * gi], gd[0], dmasks[gi].double()),
-        gd[2 + 4 * gi], gd[3 + 4 * gi], gd[4 + 4 * gi], cdim)
-    j, aref = torch.cat([j, ej], 1), torch.cat([aref, ea], 1)
-    dvec = torch.cat([dvec, ed], 1)
-    eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
+  j, aref, dvec, eqf, _ = newton.expand_groups(
+      j, aref, dvec, eqf, [t.double() for t in gargs], condims,
+      [t.double() for t in dmasks])
   return qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign
 
 
@@ -153,35 +155,59 @@ def newton_cost(ex, qacc):
 
 
 def newton_bound(args, gargs, condims, dmasks, cap, tol):
-  """B2's bound for these inputs: each operand read once (the shared
-  dof, sign and dmasks once for the batch), each output written once;
-  the arithmetic of the iterations each sample takes in the plain version
-  (the smallest cap that already gives its final answer), counted on the
-  facet-expanded rows with the active set at the answer: per iteration
-  4 nv^2 (M e, M step) + nv^3/3 + 2 nv^2 (factor and solves), nv^2 + 2 nv
-  per active row (Hessian, gradient), 2 nv + 15 per row (J step, the line
-  search) and 16 per one-hot row."""
+  """B2's bound for these inputs, float32.
+
+  Bytes: each operand read once, each output written once. Of qm only the
+  lower triangle (the kernel reads no more); an operand that is the same
+  for every sample (dof, sign, the dmasks, and mu, which the contact rows
+  broadcast from the pair parameters) once for the batch.
+
+  Flops (a multiply-add is 2), for the iterations each sample takes in the
+  plain version (the smallest cap that already gives its final answer),
+  with the active set at the answer. Per iteration: 4 nv^2 (M e, M step)
+  + nv^3/3 + 2 nv^2 (factor, two triangular solves); 16 per one-hot row;
+  2 nv + 15 per dense row (J step, the 5-point line search); per point,
+  the factored J step 12 nnz (w = sum_k dmask_k x_k cdofc_k over the
+  point's nnz nonzero dmask entries) + 24 per facet (GF = G0 + s mu Gd,
+  GF . w), and 15 per facet of a point in contact (line search); per
+  active dense row nv^2 + 3 nv (Hessian lower triangle, gradient), per
+  active facet the same + 12 + 12 nnz (GF, its row from cdofc)."""
   import torch
   from mujoco_mpc_tpu_torch.ops import newton
   run = lambda c: newton.newton_reference(  # noqa: E731
       *args, *gargs, cap=c, tol=tol, condims=condims, dmasks=dmasks)
   final = run(cap)
-  bsz, nv = args[1].shape
-  iters = torch.full((bsz,), cap, device=args[1].device)
+  qm, qs, j, _, _, eqf, _, _, _, _ = args
+  bsz, nv = qs.shape
+  iters = torch.full((bsz,), cap, device=qs.device)
   for c in range(cap - 1, 0, -1):
-    same = torch.ones(bsz, dtype=torch.bool, device=args[1].device)
+    same = torch.ones(bsz, dtype=torch.bool, device=qs.device)
     for g, w in zip(run(c), final):
       same &= (g.reshape(bsz, -1) == w.reshape(bsz, -1)).all(-1)
     iters = torch.where(same, c, iters)
-  ex = expanded(args, gargs, condims, dmasks)
-  jar = (ex[2] @ final[0].double()[..., None])[..., 0] - ex[3]
-  active = ((jar < 0) | (ex[5] > 0.5)).sum(-1)
-  rows, ns = ex[2].shape[1], ex[6].shape[1]
-  per_iter = (6 * nv * nv + nv ** 3 / 3 + active * (nv * nv + 2 * nv)
-              + rows * (2 * nv + 15) + 16 * ns)
+  row_cost = nv * nv + 3 * nv
+  active_d = ((final[1] < 0) | (eqf > 0.5)).sum(-1)
+  per_iter = (6 * nv * nv + nv ** 3 / 3 + 16 * args[6].shape[1]
+              + j.shape[1] * (2 * nv + 15) + active_d * row_cost)
+  for gi in range(len(condims)):
+    nnz = (dmasks[gi] != 0).sum(-1)                          # (P,)
+    contact = gargs[3 + 4 * gi] > 0                          # (B, P)
+    active = (final[3 + gi] < 0) & contact[:, None, :]       # (B, nrep, P)
+    nrep = active.shape[1]
+    per_iter = (per_iter + float(12 * nnz.sum() + 24 * nrep * nnz.numel())
+                + 15 * nrep * contact.sum(-1)
+                + (active * (row_cost + 12 + 12 * nnz)).sum((1, 2)))
   flops = float(torch.sum(iters * per_iter))
-  bytes_ = sum(t.numel() * t.element_size()
-               for t in list(args) + list(gargs) + list(dmasks) + list(final))
+
+  def read(t):
+    if t.dim() and t.shape[0] == bsz and torch.equal(t, t[:1].expand_as(t)):
+      return t[0].numel() * t.element_size()
+    return t.numel() * t.element_size()
+
+  bytes_ = (bsz * nv * (nv + 1) // 2 * qm.element_size()
+            + sum(read(t) for t in list(args[1:]) + list(gargs)
+                  + list(dmasks))
+            + sum(t.numel() * t.element_size() for t in final))
   return bound(bytes_, flops) + (float(iters.float().mean()),)
 
 
@@ -208,12 +234,11 @@ def random_newton(gen, bsz, nv, n, ns):
           sp(r(bsz, n)), eqf, r(bsz, ns), sp(r(bsz, ns)), dof, sign)
 
 
-def random_groups(gen, bsz, nv, groups):
+def random_groups(gen, bsz, nv, groups, share):
   """Factored contact groups ((condim, P), ...) as tests/
   test_torch_newton.py makes them: cdofc, then per group (g, aref, dvec,
-  mu), and the groups' (P, nv) dmasks in {-1, 0, 1}. A quarter of the
-  points are in contact (dvec > 0), about as many as in the Quadruped's
-  step (phase 3e: ~4 of 20); the rest carry dvec 0."""
+  mu), and the groups' (P, nv) dmasks in {-1, 0, 1}. A `share` of the
+  points are in contact (dvec > 0); the rest carry dvec 0."""
   import torch
   from mujoco_mpc_tpu_torch.ops import newton
   r = lambda *s: torch.randn(s, generator=gen, device=DEV)  # noqa: E731
@@ -223,7 +248,7 @@ def random_groups(gen, bsz, nv, groups):
     nrep = len(newton.PYRAMID_FACETS[condim])
     dvec = torch.nn.functional.softplus(r(bsz, p))
     gargs += [r(bsz, p, condim, 6), r(bsz, nrep, p),
-              torch.where(u(bsz, p) < 0.25, dvec, 0.0),
+              torch.where(u(bsz, p) < share, dvec, 0.0),
               0.2 + 0.8 * u(bsz, 3, p)]
     dmasks.append(torch.randint(-1, 2, (p, nv), generator=gen, device=DEV
                                 ).float())
@@ -233,7 +258,8 @@ def random_groups(gen, bsz, nv, groups):
 def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
                    tol=1e-6):
   """Kernel vs plain version: (samples outside rtol 2e-3/atol 1e-3 of the
-  plain version, max relative objective gap, max abs error)."""
+  plain version, max relative objective gap, max abs error, max relative
+  objective gap over the samples outside the tolerance)."""
   import torch
   from mujoco_mpc_tpu_torch.ops import newton
   kw = dict(cap=cap, tol=tol, condims=condims, dmasks=dmasks)
@@ -249,9 +275,9 @@ def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
       err = max(err, float(torch.max(torch.abs(g - w))))
   ex = expanded(args, gargs, condims, dmasks)
   c_got, c_want = newton_cost(ex, got[0]), newton_cost(ex, want[0])
-  gap = float(torch.max(torch.abs(c_got - c_want)
-                        / torch.clamp(torch.abs(c_want), min=1.0)))
-  return int(bad.sum()), gap, err
+  gap = torch.abs(c_got - c_want) / torch.clamp(torch.abs(c_want), min=1.0)
+  return (int(bad.sum()), float(gap.max()), err,
+          float(torch.where(bad, gap, 0.0).max()))
 
 
 def errors(got, want):
@@ -486,24 +512,35 @@ def main():
   # side of an active-set boundary in the kernel (fused multiply-adds,
   # another summation order) than in the plain loop; the two then follow
   # different Newton paths for a while and may stop at different
-  # iterations. Such samples are rare: at most 1% may disagree beyond the
-  # tolerance of tests/test_pallas_newton.py (rtol 2e-3, atol 1e-3).
-  # Both ends minimise one convex piecewise-quadratic cost, so where qacc
-  # differs the two costs must still agree: a wrong kernel would leave an
-  # O(1) relative cost gap, two near-minimisers a gap near f32 rounding.
-  def newton_ok(label, bsz, nbad, gap):
-    check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
-          f'disagree, more than 1%')
+  # iterations, beyond the tolerance of tests/test_pallas_newton.py (rtol
+  # 2e-3, atol 1e-3). Both ends minimise one convex piecewise-quadratic
+  # cost, so such a sample must still be a near tie: a wrong kernel
+  # leaves an O(1) relative cost gap, two near-minimisers one near f32
+  # rounding. So every sample outside the tolerance must have a relative
+  # cost gap <= 1e-5, and every sample one <= 1e-3; on problems shaped
+  # like a task's (`share`), at most 1% may be outside the tolerance.
+  def newton_ok(label, bsz, nbad, gap, bad_gap, share=True):
+    if share:
+      check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
+            f'disagree, more than 1%')
     check(gap <= 1e-3, f'newton ({label}, B {bsz}): relative cost gap '
           f'{gap:.3g} > 1e-3')
+    check(bad_gap <= 1e-5, f'newton ({label}, B {bsz}): a sample outside '
+          f'the tolerance has relative cost gap {bad_gap:.3g} > 1e-5')
+
+  def newton_line(nbad, bsz, gap, bad_gap, share=True):
+    return (f'{nbad} of {bsz} samples outside rtol 2e-3/atol 1e-3'
+            f'{" (bound 1%)" if share else ""}, their max relative cost '
+            f'gap {bad_gap:.3g} (tol 1e-5); max relative cost gap {gap:.3g} '
+            f'(tol 1e-3)')
 
   for (nv, n, ns) in ((2, 0, 2), (8, 16, 4), (18, 24, 8)):
     for bsz in (CART_SAMPLES, CART_SAMPLES + 37):
-      nbad, gap, _ = compare_newton(random_newton(gen, bsz, nv, n, ns))
-      newton_ok(f'nv {nv}, n {n}, ns {ns}', bsz, nbad, gap)
+      nbad, gap, _, bad_gap = compare_newton(
+          random_newton(gen, bsz, nv, n, ns))
+      newton_ok(f'nv {nv}, n {n}, ns {ns}', bsz, nbad, gap, bad_gap)
       print(f'phase 3b newton vs plain, nv {nv} n {n} ns {ns} B {bsz} cap 30:'
-            f' {nbad} of {bsz} samples outside rtol 2e-3/atol 1e-3 '
-            f'(bound 1%); max relative cost gap {gap:.3g} (tol 1e-3)')
+            f' {newton_line(nbad, bsz, gap, bad_gap)}')
 
   cart = registry.get_task('Cartpole', device=DEV)
   spd_in, (newton_in, _, _, _) = solver_inputs(cart, cartpole_states(cart,
@@ -524,28 +561,44 @@ def main():
         f'{spd_err:.3g} (tol 1e-5), newton rel err {newton_err:.3g} '
         f'(tol 1e-4)')
 
-  # P per group at nv 18 as in the Quadruped (one condim-3 group of 20
-  # points, 80 facet rows beside 24 limit rows), scaled with nv so that
-  # the rows per dof stay near its own: a random problem with many more
-  # rows than dofs sits on many kinks at its optimum, where f32 near-ties
-  # multiply
+  # Two densities. Task-shaped: P per group at nv 18 as in the Quadruped
+  # (one condim-3 group of 20 points, 80 facet rows beside 24 limit
+  # rows), scaled with nv, a quarter of the points in contact (its step
+  # has ~18%). Dense: the same P at both nv and half the points in
+  # contact, as tests/test_torch_newton.py makes them. A random problem
+  # with many more rows than dofs sits on many kinks at its optimum,
+  # where f32 near ties multiply; the last line counts them by rows per
+  # dof.
   group_sets = {'condim 1': ((1, 20),), 'condim 3': ((3, 20),),
                 'condim 4': ((4, 12),), 'condim 6': ((6, 8),),
                 'condim 3 + 6': ((3, 12), (6, 4))}
-  for label, groups18 in group_sets.items():
-    for nv in (8, 18):
-      groups = tuple((c, max(1, round(p * nv / 18))) for c, p in groups18)
-      for bsz in (QUAD_SAMPLES, QUAD_SAMPLES + 1):
-        gargs, dmasks = random_groups(gen, bsz, nv, groups)
-        nbad, gap, _ = compare_newton(
-            random_newton(gen, bsz, nv, 4, 8), gargs,
-            tuple(c for c, _ in groups), dmasks)
-        newton_ok(f'{label}, nv {nv}', bsz, nbad, gap)
-        print(f'phase 3d newton groups vs plain, {label} (P '
-              f'{"+".join(str(p) for _, p in groups)}), nv {nv} n 4 ns 8 '
-              f'B {bsz} cap 30: {nbad} of {bsz} samples outside rtol '
-              f'2e-3/atol 1e-3 (bound 1%); max relative cost gap {gap:.3g} '
-              f'(tol 1e-3)')
+  ties = {}
+  for density, share, task in (('task-shaped', 0.25, True),
+                               ('dense', 0.5, False)):
+    for label, groups18 in group_sets.items():
+      for nv in (8, 18):
+        groups = tuple((c, max(1, round(p * nv / 18)) if task else p)
+                       for c, p in groups18)
+        rows = 4 + 8 + sum(len(newton.PYRAMID_FACETS[c]) * p
+                           for c, p in groups)
+        for bsz in (QUAD_SAMPLES, QUAD_SAMPLES + 1):
+          gargs, dmasks = random_groups(gen, bsz, nv, groups, share)
+          nbad, gap, _, bad_gap = compare_newton(
+              random_newton(gen, bsz, nv, 4, 8), gargs,
+              tuple(c for c, _ in groups), dmasks)
+          newton_ok(f'{density} {label}, nv {nv}', bsz, nbad, gap, bad_gap,
+                    task)
+          tie = ties.setdefault((round(rows / nv, 1), share), [0, 0])
+          tie[0], tie[1] = tie[0] + nbad, tie[1] + bsz
+          print(f'phase 3d newton groups vs plain, {density} {label} (P '
+                f'{"+".join(str(p) for _, p in groups)}, {share:g} in '
+                f'contact, {rows / nv:.1f} rows per dof), nv {nv} n 4 ns 8 '
+                f'B {bsz} cap 30: '
+                + newton_line(nbad, bsz, gap, bad_gap, task))
+  print('phase 3d near ties by rows per dof (rows per dof, share in '
+        'contact: samples outside the tolerance of all): ' + '; '.join(
+            f'{r:.1f}, {sh:g}: {nb} of {b}'
+            for (r, sh), (nb, b) in sorted(ties.items())))
 
   quad = registry.get_task('Quadruped Flat')     # the default device: cuda
   check(quad.model.device.type == torch.device(DEV).type,
@@ -558,8 +611,8 @@ def main():
   check(q_spd_err <= 1e-4, f'chol_solve on Quadruped inputs: '
         f'{q_spd_err:.3g} > 1e-4')
   q_kw = dict(cap=quad_cap, tol=1e-5, condims=q_condims, dmasks=q_dmasks)
-  nbad, gap, q_newton_abs = compare_newton(q_args, q_gargs, **q_kw)
-  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap)
+  nbad, gap, q_newton_abs, bad_gap = compare_newton(q_args, q_gargs, **q_kw)
+  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap, bad_gap)
   want = newton.newton_reference(*q_args, *q_gargs, **q_kw)
   in_contact = int((q_gargs[3] > 0).sum())
   facets = int(((want[3] < 0) & (q_gargs[3][:, None, :] > 0)).sum())
@@ -570,9 +623,7 @@ def main():
         f'contact, {facets} of their facets active at the solution; '
         f'{violated} limit rows violated, {limits} active at the solution; '
         f'chol_solve n 18 rel err {q_spd_err:.3g} (tol 1e-4); newton cap '
-        f'{quad_cap}: {nbad} of {QUAD_SAMPLES} samples outside rtol '
-        f'2e-3/atol 1e-3 (bound 1%), max relative cost gap {gap:.3g} (tol '
-        f'1e-3)')
+        f'{quad_cap}: {newton_line(nbad, QUAD_SAMPLES, gap, bad_gap)}')
 
   # 4. timing at both paths' shapes
   def library_spd(a, b):

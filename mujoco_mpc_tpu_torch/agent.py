@@ -9,9 +9,9 @@ simulation steps of the batch-1 state under the frozen plan. The TPU's
 carried over: on the card the batch-1 step calls the same functions with
 B = 1. The task's transition runs once per plan, before planning
 (:96-100), on the simulation state whose derived fields come from the
-last step's forward; where a state has none yet (a fresh make_data, which
-JAX zero-fills instead), they come from a forward of that state. The
-host-driven Agent class (:179) is still to come (ROADMAP A13).
+last step's forward; a state that has none yet (a fresh make_data) gets
+zeros there, as JAX's make_data gives them. The host-driven Agent class
+(:179) is still to come (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -23,7 +23,8 @@ import torch
 
 from mujoco_mpc_tpu_torch.ops import spline
 from mujoco_mpc_tpu_torch.physics import forward as fwd
-from mujoco_mpc_tpu_torch.physics.model import Data, Model, make_data
+from mujoco_mpc_tpu_torch.physics.model import (Data, Model, make_data,
+                                                zero_filled)
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks.base import TaskParams, TaskSpec
 
@@ -91,10 +92,8 @@ def make_mpc_step(spec: TaskSpec, num_samples: int, steps_per_plan: int,
   def plan_and_step(carry: MpcCarry) -> Tuple[MpcCarry, dict]:
     sim, policy, params = carry.sim, carry.policy, carry.params
     if spec.transition_fn is not None:
-      if sim.xpos is None:
-        sim = fwd.forward(sim_model, sim)
-      sim, params = spec.transition_fn(sim_model, sim, params,
-                                       carry.generator)
+      sim, params = spec.transition_fn(sim_model, zero_filled(sim_model, sim),
+                                       params, carry.generator)
     plan_d = sync_plan_state(plan_d0, sim)
     for _ in range(planner_iterations):
       noise = sampling.sample_noise(pspec, policy.times.shape[0],

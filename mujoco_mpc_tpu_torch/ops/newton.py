@@ -5,7 +5,8 @@ Port of mujoco_mpc_tpu/ops/pallas_newton.py: the fused Pallas kernel
 _newton_kernel (:222) behind newton_batched (:631), for dense rows,
 one-hot-scalar rows and the factored pyramidal contact-point groups; the
 facet table PYRAMID_FACETS (:79), expand_group (:90) and materialize_jd
-(:126); and the reference loop _newton_reference (:792) as
+(:126), the group stacking of _newton_reference (:807-815) as
+`expand_groups`; and the reference loop _newton_reference (:792) as
 `newton_reference`, batch first. The kernel is csrc/newton.cu.
 
 Dispatch is by device only: a CPU tensor takes `newton_reference`, a CUDA
@@ -66,6 +67,23 @@ def materialize_jd(g, cdofc, dmask):
   return jd * dmask.to(jd.dtype)[:, None, :]
 
 
+def expand_groups(j, aref, dvec, eqf, gargs, condims, dmasks):
+  """The dense rows (j, aref, dvec, eqf) with every point group's facet
+  rows appended in group order, as _newton_reference stacks them
+  (:807-815) -> (j, aref, dvec, eqf, [(nrep, P) of each group])."""
+  gsizes = []
+  for gi, cdim in enumerate(condims):
+    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
+    ej, ea, ed = expand_group(materialize_jd(g, gargs[0], dmasks[gi]),
+                              garef, gdvec, gmu, cdim)
+    gsizes.append(tuple(garef.shape[1:]))
+    j = torch.cat([j, ej], 1)
+    aref = torch.cat([aref, ea], 1)
+    dvec = torch.cat([dvec, ed], 1)
+    eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
+  return j, aref, dvec, eqf, gsizes
+
+
 def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
                      *gargs, cap: int, tol: float, condims=(), dmasks=()):
   """Plain batch-first Newton solve.
@@ -84,16 +102,8 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   host, so on the card it queues without a sync."""
   bsz, nv = qs.shape
   n_dense = j.shape[1]
-  gsizes = []
-  for gi, cdim in enumerate(condims):
-    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
-    ej, ea, ed = expand_group(materialize_jd(g, gargs[0], dmasks[gi]),
-                              garef, gdvec, gmu, cdim)
-    gsizes.append(tuple(garef.shape[1:]))             # (nrep, P)
-    j = torch.cat([j, ej], 1)
-    aref = torch.cat([aref, ea], 1)
-    dvec = torch.cat([dvec, ed], 1)
-    eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
+  j, aref, dvec, eqf, gsizes = expand_groups(j, aref, dvec, eqf, gargs,
+                                             condims, dmasks)
   n = j.shape[1]
   ns = s_aref.shape[1]
   eq = eqf > 0.5

@@ -416,3 +416,23 @@ def make_data(m: Model, batch: int = 1) -> Data:
       act=z(m.na), ctrl=z(m.nu), qfrc_applied=z(m.nv),
       xfrc_applied=z(m.nbody, 6), mocap_pos=mocap_pos,
       mocap_quat=mocap_quat, userdata=z(NUSERDATA))
+
+
+def zero_filled(m: Model, d: Data) -> Data:
+  """d with every computed field that is still None set to zeros, as JAX's
+  make_data leaves them (model.py:853-884) on a state no stage has seen."""
+  nb, nv, nu = m.nbody, m.nv, m.nu
+  shapes = dict(
+      xpos=(nb, 3), xquat=(nb, 4), xmat=(nb, 3, 3), xipos=(nb, 3),
+      ximat=(nb, 3, 3), xanchor=(m.njnt, 3), xaxis=(m.njnt, 3),
+      geom_xpos=(m.ngeom, 3), geom_xmat=(m.ngeom, 3, 3),
+      site_xpos=(m.nsite, 3), site_xmat=(m.nsite, 3, 3),
+      subtree_com=(nb, 3), cinert=(nb, 10), cdof=(nv, 6), cvel=(nb, 6),
+      cdof_dot=(nv, 6), qM=(nv, nv), qfrc_bias=(nv,), qfrc_passive=(nv,),
+      qfrc_constraint=(nv,), actuator_length=(nu,),
+      actuator_velocity=(nu,), actuator_force=(nu,),
+      actuator_moment=(nu, nv), qfrc_actuator=(nv,), qfrc_smooth=(nv,),
+      qacc=(nv,), act_dot=(m.na,))
+  return d.replace(**{
+      k: torch.zeros((d.batch,) + s, device=m.device, dtype=m.dtype)
+      for k, s in shapes.items() if getattr(d, k) is None})

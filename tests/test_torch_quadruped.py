@@ -256,6 +256,40 @@ def test_transition_with_the_draw_handed_in(tasks, jax_kinematics,
                                 draw.numpy())
 
 
+def test_first_plan_from_a_fresh_state_matches_jax(tasks):
+  """One plan of synchronous MPC from make_data at `home`, moving, with
+  Flip selected: its transition sees the zero-filled derived fields of
+  JAX's make_data (no com velocity to filter, a zero trunk frame for the
+  Flip and Walk entry snapshots), so the parameters and goal it carries on
+  equal JAX's transition of JAX's fresh state."""
+  jspec, jm, jparams, _, spec = tasks
+  spec = dataclasses.replace(spec, config={**spec.config,
+                                           'agent_horizon': 0.02})
+  m = spec.model
+  home = m.keyframe_qpos('home')
+  qvel = np.random.default_rng(3).normal(scale=0.8, size=m.nv)
+  rp = spec.default_params.residual_params.numpy().copy()
+  rp[spec.residual_param_names.index('select_Mode')] = 4
+  carry, costs = agent.synchronous_mpc(
+      spec, 2, total_steps=1, steps_per_plan=1,
+      generator=torch.Generator().manual_seed(0),
+      sim0=make_data(m).replace(qpos=home[None],
+                                qvel=torch.from_numpy(qvel)[None]),
+      params=spec.default_params.replace(
+          residual_params=torch.from_numpy(rp)))
+  jd = jmake_data(jm, dtype=jnp.float64).replace(
+      qpos=jnp.asarray(home.numpy()), qvel=jnp.asarray(qvel))
+  jd2, jp2 = jspec.transition_fn(
+      jm, jd, jparams.replace(residual_params=jnp.asarray(rp)),
+      jax.random.key(0))
+  assert torch.isfinite(costs).all()
+  _close(carry.params.residual_params, jp2.residual_params,
+         'residual_params', rtol=1e-10, atol=1e-12)
+  _close(carry.params.weights, jp2.weights, 'weights', rtol=1e-12, atol=0)
+  _close(carry.sim.mocap_pos[0], jd2.mocap_pos, 'mocap_pos', rtol=1e-10,
+         atol=1e-12)
+
+
 def test_synchronous_mpc_applies_the_transition(tasks):
   """Two plans of a 6-step horizon, one simulation step each."""
   spec = tasks[-1]

@@ -25,7 +25,7 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-from chip_smoke import cuda_time_ms  # noqa: E402
+from chip_smoke import cuda_time_ms, device_us  # noqa: E402
 from mujoco_mpc_tpu_torch.ops import cuda_build  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import constraint  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import forward as fwd  # noqa: E402
@@ -33,22 +33,6 @@ from mujoco_mpc_tpu_torch.physics import kinematics as kin  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import smooth  # noqa: E402
 from mujoco_mpc_tpu_torch.physics.model import make_data  # noqa: E402
 from mujoco_mpc_tpu_torch.tasks import registry  # noqa: E402
-
-
-def device_ops(fn, reps=5):
-  """(device ops, device us) per fn() call, from the profiler."""
-  from torch.profiler import ProfilerActivity, profile
-  fn()
-  torch.cuda.synchronize()
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    for _ in range(reps):
-      fn()
-    torch.cuda.synchronize()
-  dev = [e for e in prof.key_averages()
-         if e.device_type == torch.autograd.DeviceType.CUDA]
-  return (sum(e.count for e in dev) / reps,
-          sum(e.self_device_time_total for e in dev) / reps)
 
 
 def stages(spec):
@@ -91,7 +75,7 @@ def table(name, spec, d):
   total = [0.0, 0.0, 0.0]
   for stage, fn in stages(spec):
     wall = cuda_time_ms(lambda x=d, fn=fn: fn(x))
-    ops, dev = device_ops(lambda x=d, fn=fn: fn(x))
+    dev, ops, _ = device_us(lambda x=d, fn=fn: fn(x), reps=5, top=1)
     print(f'  {stage} | {wall:.3f} | {ops:.0f} | {dev:.1f}')
     total = [total[0] + wall, total[1] + ops, total[2] + dev]
     d = fn(d)
