@@ -7,15 +7,19 @@ Run from the root of a checkout, with no arguments:
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: both CUDA kernels from csrc/ with nvcc, for sm_90a, at once;
+     ptxas's registers, stack and spills of B2's nv-2 and nv-18 instances
+     and the shared memory they take;
   3. check: each kernel against its plain PyTorch version on the card:
-     3a B1 on random systems; 3b B2 on random dense and one-hot rows;
+     3a B1 on random systems; 3b B2 on random dense and one-hot rows,
+     nv 2, 8, 18, 24 and 32;
      3c both on the inputs the Cartpole step gives them; 3d B2's contact
      groups (condim 1, 3, 4, 6, and two groups) on random factored
      problems, task-shaped and dense, with the near ties counted by rows
      per dof; 3e both on the inputs the Quadruped step gives them;
   4. timing: kernel, plain version and (B1) torch.linalg's batched
      Cholesky at both paths' shapes, wall per call (CUDA events, median
-     of 30) and device time (profiler), with each kernel's bound;
+     of 30) and device time (profiler), with each kernel's bound and its
+     device time as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
      steps, 10 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
@@ -280,6 +284,166 @@ def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
           float(torch.where(bad, gap, 0.0).max()))
 
 
+# A sample whose jar sits within f32 rounding of 0 can take the other side
+# of an active-set boundary in the kernel (fused multiply-adds, another
+# summation order) than in the plain loop; the two then follow different
+# Newton paths for a while and may stop at different iterations, beyond
+# the tolerance of tests/test_pallas_newton.py (rtol 2e-3, atol 1e-3).
+# Both ends minimise one convex piecewise-quadratic cost, so such a sample
+# must still be a near tie: a wrong kernel leaves an O(1) relative cost
+# gap, two near-minimisers one near f32 rounding. So every sample outside
+# the tolerance must have a relative cost gap <= 1e-5, and every sample
+# one <= 1e-3; on problems shaped like a task's (`share`), at most 1% may
+# be outside the tolerance.
+def newton_ok(label, bsz, nbad, gap, bad_gap, share=True):
+  if share:
+    check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
+          f'disagree, more than 1%')
+  check(gap <= 1e-3, f'newton ({label}, B {bsz}): relative cost gap '
+        f'{gap:.3g} > 1e-3')
+  check(bad_gap <= 1e-5, f'newton ({label}, B {bsz}): a sample outside '
+        f'the tolerance has relative cost gap {bad_gap:.3g} > 1e-5')
+
+
+def newton_line(nbad, bsz, gap, bad_gap, share=True):
+  return (f'{nbad} of {bsz} samples outside rtol 2e-3/atol 1e-3'
+          f'{" (bound 1%)" if share else ""}, their max relative cost '
+          f'gap {bad_gap:.3g} (tol 1e-5); max relative cost gap {gap:.3g} '
+          f'(tol 1e-3)')
+
+
+def check_newton_random(gen):
+  """Phase 3b: B2 on random dense and one-hot rows at nv 2, 8, 18, 24 and
+  32, so that the buckets above the Quadruped's run on the card too."""
+  for (nv, n, ns) in ((2, 0, 2), (8, 16, 4), (18, 24, 8), (24, 24, 8),
+                      (32, 24, 8)):
+    for bsz in (CART_SAMPLES, CART_SAMPLES + 37):
+      nbad, gap, _, bad_gap = compare_newton(
+          random_newton(gen, bsz, nv, n, ns))
+      newton_ok(f'nv {nv}, n {n}, ns {ns}', bsz, nbad, gap, bad_gap)
+      print(f'phase 3b newton vs plain, nv {nv} n {n} ns {ns} B {bsz} cap 30:'
+            f' {newton_line(nbad, bsz, gap, bad_gap)}')
+
+
+def check_newton_cartpole(args, cap):
+  """Phase 3c's B2 part: (max abs error, max relative error, active limit
+  rows) on the Cartpole step's inputs. One-hot rows and nv = 2: no
+  near-boundary flips seen; f32 rounding of qacc up to ~1e3 past the
+  limit, so 1e-4 relative."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  got = newton.newton(*args, cap=cap, tol=1e-5)
+  want = newton.newton_reference(*args, cap=cap, tol=1e-5)
+  err_abs, err = max(errors(g, w) for g, w in zip(got, want) if g.shape[1])
+  check(err <= 1e-4, f'newton on Cartpole inputs: {err:.3g}')
+  return err_abs, err, int((got[2] < 0).sum())
+
+
+def check_newton_groups(gen):
+  """Phase 3d: B2's contact groups at two densities. Task-shaped: P per
+  group at nv 18 as in the Quadruped (one condim-3 group of 20 points, 80
+  facet rows beside 24 limit rows), scaled with nv, a quarter of the
+  points in contact (its step has ~18%). Dense: the same P at both nv and
+  half the points in contact, as tests/test_torch_newton.py makes them. A
+  random problem with many more rows than dofs sits on many kinks at its
+  optimum, where f32 near ties multiply; the last line counts them by rows
+  per dof."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  group_sets = {'condim 1': ((1, 20),), 'condim 3': ((3, 20),),
+                'condim 4': ((4, 12),), 'condim 6': ((6, 8),),
+                'condim 3 + 6': ((3, 12), (6, 4))}
+  ties = {}
+  for density, share, task in (('task-shaped', 0.25, True),
+                               ('dense', 0.5, False)):
+    for label, groups18 in group_sets.items():
+      for nv in (8, 18):
+        groups = tuple((c, max(1, round(p * nv / 18)) if task else p)
+                       for c, p in groups18)
+        rows = 4 + 8 + sum(len(newton.PYRAMID_FACETS[c]) * p
+                           for c, p in groups)
+        for bsz in (QUAD_SAMPLES, QUAD_SAMPLES + 1):
+          gargs, dmasks = random_groups(gen, bsz, nv, groups, share)
+          nbad, gap, _, bad_gap = compare_newton(
+              random_newton(gen, bsz, nv, 4, 8), gargs,
+              tuple(c for c, _ in groups), dmasks)
+          newton_ok(f'{density} {label}, nv {nv}', bsz, nbad, gap, bad_gap,
+                    task)
+          tie = ties.setdefault((round(rows / nv, 1), share), [0, 0])
+          tie[0], tie[1] = tie[0] + nbad, tie[1] + bsz
+          print(f'phase 3d newton groups vs plain, {density} {label} (P '
+                f'{"+".join(str(p) for _, p in groups)}, {share:g} in '
+                f'contact, {rows / nv:.1f} rows per dof), nv {nv} n 4 ns 8 '
+                f'B {bsz} cap 30: '
+                + newton_line(nbad, bsz, gap, bad_gap, task))
+  print('phase 3d near ties by rows per dof (rows per dof, share in '
+        'contact: samples outside the tolerance of all): ' + '; '.join(
+            f'{r:.1f}, {sh:g}: {nb} of {b}'
+            for (r, sh), (nb, b) in sorted(ties.items())))
+
+
+def check_newton_quadruped(args, gargs, kw):
+  """Phase 3e's B2 part on the Quadruped step's inputs: (max abs error,
+  the line's text)."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  nbad, gap, err_abs, bad_gap = compare_newton(args, gargs, **kw)
+  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap, bad_gap)
+  want = newton.newton_reference(*args, *gargs, **kw)
+  in_contact = int((gargs[3] > 0).sum())
+  facets = int(((want[3] < 0) & (gargs[3][:, None, :] > 0)).sum())
+  violated = int((args[7] > 0).sum())
+  limits = int(((want[2] < 0) & (args[7] > 0)).sum())
+  return err_abs, (
+      f'{in_contact} points in contact, {facets} of their facets active at '
+      f'the solution; {violated} limit rows violated, {limits} active at the'
+      f' solution; newton cap {kw["cap"]}: '
+      f'{newton_line(nbad, QUAD_SAMPLES, gap, bad_gap)}')
+
+
+def time_newton(args, gargs, kw):
+  """Phase 4's B2 part: wall (CUDA events) and device (profiler) times of
+  the kernel and its plain version, and the bound for these inputs."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  fns = {'newton': lambda: newton.newton(*args, *gargs, **kw),
+         'newton_plain': lambda: newton.newton_reference(*args, *gargs,
+                                                         **kw)}
+  wall = {k: cuda_time_ms(f) for k, f in fns.items()}
+  dev = {k: device_us(f) for k, f in fns.items()}
+  b_ms, by, iters = newton_bound(args, gargs, kw.get('condims', ()),
+                                 kw.get('dmasks', ()), kw['cap'], kw['tol'])
+  return wall, dev, (b_ms, by), iters
+
+
+def newton_timing_line(label, wall, dev, bound_, iters):
+  b_ms, by = bound_
+  return (f'newton {label}: kernel {wall["newton"] * 1e3:.1f} / '
+          f'{dev["newton"]:.1f} us, plain {wall["newton_plain"] * 1e3:.1f} / '
+          f'{dev["newton_plain"]:.1f} us, bound {b_ms * 1e3:.2f} us ({by}; '
+          f'{iters:.2f} iterations per sample); kernel device time '
+          f'{dev["newton"] / (b_ms * 1e3):.1f}x its bound')
+
+
+def newton_smem():
+  """[(nv, text)]: the dynamic shared memory B2 takes at the two paths'
+  shapes (the kernel sizes it at launch, 128 threads a block)."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  out = []
+  for nv, shape, smem in (
+      (2, 'Cartpole nv 2 ns 2', newton.sample_smem_bytes(2, 0, 2)),
+      (18, 'Quadruped nv 18 ns 24, condim-3 P 20',
+       newton.sample_smem_bytes(18, 0, 24, [(3, 20)]))):
+    tiles = 128 // newton.kernel_lanes(nv)
+    out.append((nv, f'dynamic shared memory at {shape}: {smem} bytes a '
+                f'sample, {tiles * smem} a block of {tiles}'))
+  return out
+
+
+def newton_ptxas(log_path):
+  """ptxas -v's registers, stack and spills of B2's nv-2 and nv-18
+  instances, with the shared memory they take."""
+  return [f'nv-{nv} instance: '
+          + ' | '.join(ptxas_report(log_path, f'newton_kernelILi{nv}E'))
+          + '; ' + text for nv, text in newton_smem()]
+
+
 def errors(got, want):
   """(max abs error, max abs error / max(1, max |want|))."""
   import torch
@@ -464,7 +628,7 @@ def main():
                      'this script needs an NVIDIA GPU')
   sys.path.insert(0, ROOT)
   try:
-    from mujoco_mpc_tpu_torch.ops import cuda_build, linalg, newton, spd_solve
+    from mujoco_mpc_tpu_torch.ops import cuda_build, linalg, spd_solve
     from mujoco_mpc_tpu_torch.physics.model import make_data
     from mujoco_mpc_tpu_torch.tasks import registry
   except ImportError as e:
@@ -491,8 +655,8 @@ def main():
     cuda_build.load(name)
   print(f'phase 2 build: chol_solve.cu + newton.cu with nvcc for sm_90a in '
         f'{time.perf_counter() - t0:.1f} s')
-  print('phase 2 ptxas -v, newton nv-18 bucket: ' + ' | '.join(
-      ptxas_report(libs['newton'] + '.log', 'newton_kernelILi18E')))
+  for line in newton_ptxas(libs['newton'] + '.log'):
+    print('phase 2 ptxas -v, newton ' + line)
 
   # 3. kernels vs plain versions, float32 on the card
   gen = torch.Generator(device=DEV).manual_seed(0)
@@ -508,39 +672,7 @@ def main():
   print(f'phase 3a chol_solve vs plain, n in 2/8/18/24/32, B 8192/8193: max '
         f'rel err {worst_spd:.3g} (tol 1e-4)')
 
-  # A sample whose jar sits within f32 rounding of 0 can take the other
-  # side of an active-set boundary in the kernel (fused multiply-adds,
-  # another summation order) than in the plain loop; the two then follow
-  # different Newton paths for a while and may stop at different
-  # iterations, beyond the tolerance of tests/test_pallas_newton.py (rtol
-  # 2e-3, atol 1e-3). Both ends minimise one convex piecewise-quadratic
-  # cost, so such a sample must still be a near tie: a wrong kernel
-  # leaves an O(1) relative cost gap, two near-minimisers one near f32
-  # rounding. So every sample outside the tolerance must have a relative
-  # cost gap <= 1e-5, and every sample one <= 1e-3; on problems shaped
-  # like a task's (`share`), at most 1% may be outside the tolerance.
-  def newton_ok(label, bsz, nbad, gap, bad_gap, share=True):
-    if share:
-      check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
-            f'disagree, more than 1%')
-    check(gap <= 1e-3, f'newton ({label}, B {bsz}): relative cost gap '
-          f'{gap:.3g} > 1e-3')
-    check(bad_gap <= 1e-5, f'newton ({label}, B {bsz}): a sample outside '
-          f'the tolerance has relative cost gap {bad_gap:.3g} > 1e-5')
-
-  def newton_line(nbad, bsz, gap, bad_gap, share=True):
-    return (f'{nbad} of {bsz} samples outside rtol 2e-3/atol 1e-3'
-            f'{" (bound 1%)" if share else ""}, their max relative cost '
-            f'gap {bad_gap:.3g} (tol 1e-5); max relative cost gap {gap:.3g} '
-            f'(tol 1e-3)')
-
-  for (nv, n, ns) in ((2, 0, 2), (8, 16, 4), (18, 24, 8)):
-    for bsz in (CART_SAMPLES, CART_SAMPLES + 37):
-      nbad, gap, _, bad_gap = compare_newton(
-          random_newton(gen, bsz, nv, n, ns))
-      newton_ok(f'nv {nv}, n {n}, ns {ns}', bsz, nbad, gap, bad_gap)
-      print(f'phase 3b newton vs plain, nv {nv} n {n} ns {ns} B {bsz} cap 30:'
-            f' {newton_line(nbad, bsz, gap, bad_gap)}')
+  check_newton_random(gen)
 
   cart = registry.get_task('Cartpole', device=DEV)
   spd_in, (newton_in, _, _, _) = solver_inputs(cart, cartpole_states(cart,
@@ -549,56 +681,14 @@ def main():
                             linalg.solve_spd(*spd_in))
   check(spd_err <= 1e-5, f'chol_solve on Cartpole inputs: {spd_err:.3g}')
   cart_cap = cart.model.opt.iterations
-  got = newton.newton(*newton_in, cap=cart_cap, tol=1e-5)
-  want = newton.newton_reference(*newton_in, cap=cart_cap, tol=1e-5)
-  newton_abs, newton_err = max(errors(g, w) for g, w in zip(got, want)
-                               if g.shape[1])
-  # one-hot rows and nv = 2: no near-boundary flips seen; f32 rounding of
-  # qacc up to ~1e3 past the limit
-  check(newton_err <= 1e-4, f'newton on Cartpole inputs: {newton_err:.3g}')
+  newton_abs, newton_err, cart_active = check_newton_cartpole(newton_in,
+                                                              cart_cap)
   print(f'phase 3c Cartpole step inputs (B {CART_SAMPLES}, '
-        f'{int((got[2] < 0).sum())} active limit rows): chol_solve rel err '
+        f'{cart_active} active limit rows): chol_solve rel err '
         f'{spd_err:.3g} (tol 1e-5), newton rel err {newton_err:.3g} '
         f'(tol 1e-4)')
 
-  # Two densities. Task-shaped: P per group at nv 18 as in the Quadruped
-  # (one condim-3 group of 20 points, 80 facet rows beside 24 limit
-  # rows), scaled with nv, a quarter of the points in contact (its step
-  # has ~18%). Dense: the same P at both nv and half the points in
-  # contact, as tests/test_torch_newton.py makes them. A random problem
-  # with many more rows than dofs sits on many kinks at its optimum,
-  # where f32 near ties multiply; the last line counts them by rows per
-  # dof.
-  group_sets = {'condim 1': ((1, 20),), 'condim 3': ((3, 20),),
-                'condim 4': ((4, 12),), 'condim 6': ((6, 8),),
-                'condim 3 + 6': ((3, 12), (6, 4))}
-  ties = {}
-  for density, share, task in (('task-shaped', 0.25, True),
-                               ('dense', 0.5, False)):
-    for label, groups18 in group_sets.items():
-      for nv in (8, 18):
-        groups = tuple((c, max(1, round(p * nv / 18)) if task else p)
-                       for c, p in groups18)
-        rows = 4 + 8 + sum(len(newton.PYRAMID_FACETS[c]) * p
-                           for c, p in groups)
-        for bsz in (QUAD_SAMPLES, QUAD_SAMPLES + 1):
-          gargs, dmasks = random_groups(gen, bsz, nv, groups, share)
-          nbad, gap, _, bad_gap = compare_newton(
-              random_newton(gen, bsz, nv, 4, 8), gargs,
-              tuple(c for c, _ in groups), dmasks)
-          newton_ok(f'{density} {label}, nv {nv}', bsz, nbad, gap, bad_gap,
-                    task)
-          tie = ties.setdefault((round(rows / nv, 1), share), [0, 0])
-          tie[0], tie[1] = tie[0] + nbad, tie[1] + bsz
-          print(f'phase 3d newton groups vs plain, {density} {label} (P '
-                f'{"+".join(str(p) for _, p in groups)}, {share:g} in '
-                f'contact, {rows / nv:.1f} rows per dof), nv {nv} n 4 ns 8 '
-                f'B {bsz} cap 30: '
-                + newton_line(nbad, bsz, gap, bad_gap, task))
-  print('phase 3d near ties by rows per dof (rows per dof, share in '
-        'contact: samples outside the tolerance of all): ' + '; '.join(
-            f'{r:.1f}, {sh:g}: {nb} of {b}'
-            for (r, sh), (nb, b) in sorted(ties.items())))
+  check_newton_groups(gen)
 
   quad = registry.get_task('Quadruped Flat')     # the default device: cuda
   check(quad.model.device.type == torch.device(DEV).type,
@@ -611,19 +701,10 @@ def main():
   check(q_spd_err <= 1e-4, f'chol_solve on Quadruped inputs: '
         f'{q_spd_err:.3g} > 1e-4')
   q_kw = dict(cap=quad_cap, tol=1e-5, condims=q_condims, dmasks=q_dmasks)
-  nbad, gap, q_newton_abs, bad_gap = compare_newton(q_args, q_gargs, **q_kw)
-  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap, bad_gap)
-  want = newton.newton_reference(*q_args, *q_gargs, **q_kw)
-  in_contact = int((q_gargs[3] > 0).sum())
-  facets = int(((want[3] < 0) & (q_gargs[3][:, None, :] > 0)).sum())
-  violated = int((q_args[7] > 0).sum())
-  limits = int(((want[2] < 0) & (q_args[7] > 0)).sum())
+  q_newton_abs, q_line = check_newton_quadruped(q_args, q_gargs, q_kw)
   print(f'phase 3e Quadruped step inputs (B {QUAD_SAMPLES}, condims '
-        f'{q_condims}, P {q_gargs[1].shape[1]}): {in_contact} points in '
-        f'contact, {facets} of their facets active at the solution; '
-        f'{violated} limit rows violated, {limits} active at the solution; '
-        f'chol_solve n 18 rel err {q_spd_err:.3g} (tol 1e-4); newton cap '
-        f'{quad_cap}: {newton_line(nbad, QUAD_SAMPLES, gap, bad_gap)}')
+        f'{q_condims}, P {q_gargs[1].shape[1]}): chol_solve n 18 rel err '
+        f'{q_spd_err:.3g} (tol 1e-4); {q_line}')
 
   # 4. timing at both paths' shapes
   def library_spd(a, b):
@@ -640,19 +721,15 @@ def main():
     fns = {
         'chol_solve': lambda a=spd_args: spd_solve.solve_spd(*a),
         'chol_plain': lambda a=spd_args: linalg.solve_spd(*a),
-        'chol_library': lambda a=spd_args: library_spd(*a),
-        'newton': lambda a=n_args, g=n_gargs, k=n_kw: newton.newton(
-            *a, *g, **k),
-        'newton_plain': lambda a=n_args, g=n_gargs, k=n_kw:
-            newton.newton_reference(*a, *g, **k)}
+        'chol_library': lambda a=spd_args: library_spd(*a)}
     wall = {k: cuda_time_ms(f) for k, f in fns.items()}
     dev = {k: device_us(f) for k, f in fns.items()}
     spd_b, spd_by = spd_bound(spd_args[0])
-    n_b, n_by, iters = newton_bound(n_args, n_gargs, n_kw.get('condims', ()),
-                                    n_kw.get('dmasks', ()), n_kw['cap'],
-                                    n_kw['tol'])
+    n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw)
+    wall.update(n_wall)
+    dev.update(n_dev)
     kern[path] = dict(wall=wall, dev=dev, spd_bound=(spd_b, spd_by),
-                      newton_bound=(n_b, n_by))
+                      newton_bound=n_bound)
     print(f'phase 4 timing {path} per call, wall (median of {TIME_REPS}, '
           f'CUDA events) / device only (profiler): chol_solve B '
           f'{spd_args[0].shape[0]} n {spd_args[0].shape[1]}: kernel '
@@ -660,11 +737,9 @@ def main():
           f'plain {wall["chol_plain"] * 1e3:.1f} / {dev["chol_plain"]:.1f} '
           f'us, torch.linalg.cholesky_ex + cholesky_solve '
           f'{wall["chol_library"] * 1e3:.1f} / {dev["chol_library"]:.1f} '
-          f'us, bound {spd_b * 1e3:.2f} us ({spd_by}); newton {n_label}: '
-          f'kernel {wall["newton"] * 1e3:.1f} / {dev["newton"]:.1f} us, '
-          f'plain {wall["newton_plain"] * 1e3:.1f} / '
-          f'{dev["newton_plain"]:.1f} us, bound {n_b * 1e3:.2f} us '
-          f'({n_by}; {iters:.2f} iterations per sample)')
+          f'us, bound {spd_b * 1e3:.2f} us ({spd_by}); kernel device time '
+          f'{dev["chol_solve"] / (spd_b * 1e3):.1f}x its bound; '
+          + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters))
 
   # 5-7. Cartpole
   d0 = make_data(cart.model).replace(qpos=torch.tensor([CART_QPOS0],

@@ -14,43 +14,49 @@
 // direction factors G[p, d] (6-vectors), the dof axes cdofc[k] (6-vectors,
 // shared by the groups) and the model constant dmask[p, k] in {-1, 0, 1}.
 // Facet f of point p has the Jacobian row
-//   J[f, p, k] = dmask[p, k] (GF[f, p] . cdofc[k]),
-//   GF[f, p] = G[p, 0] + sign_f mu[col_f, p] G[p, dir_f]
-// (PYRAMID_FACETS; condim 1: GF = G[p, 0]). The TPU kernel expands these
-// rows once into VMEM (:285-321). A thread here has at most 255 registers,
-// and at the Quadruped's shapes (nv 18, 80 facet rows) the expansion
-// alone would be 5.8 KB per sample, so the kernel never stores it: the
-// gradient and Hessian rebuild each active facet's row when they need it
-// (6 multiply-adds per entry), and the line search and the jar update use
-// J[f, p] . x = GF[f, p] . (sum_k dmask[p, k] x[k] cdofc[k]), one 6-vector
-// per point shared by its facets. Points with a zero penalty weight (not
-// in contact) add nothing to the gradient, Hessian or line search and are
-// skipped there; their jars are still carried, because the exit test
-// counts their sign flips as the TPU kernel does. dmask is read per point
-// and is the same for every sample, so its branches never diverge.
+//   J[f, p, k] = jd[p, 0, k] + sign_f mu[col_f, p] jd[p, dir_f, k],
+//   jd[p, d, k] = dmask[p, k] (G[p, d] . cdofc[k])
+// (PYRAMID_FACETS; condim 1: the bare normal jd[p, 0]).
 //
-// What bounds it on the card: arithmetic latency of one thread per sample.
-// Cartpole (nv 2, ns 2, cap 8, B 8192) does a few hundred flops and moves
-// ~80 bytes per sample; Quadruped (nv 18, ns 24, one condim-3 group of 20
-// points, cap 6, B 4096) does ~1e5 flops and moves ~4 KB per sample, and
-// its 4096 threads are 128 warps, about one per SM, so nothing hides the
-// latency of the dependent multiply-adds. The per-sample matrices spill to
-// local memory from nv = 8 up (ptxas -v, PERF.md). A warp per sample or a
-// batch-innermost layout is later work (ROADMAP B3).
+// Design: a tile of L lanes solves one sample, L the smallest power of two
+// >= the bucket NV (2 for Cartpole's nv 2, 32 for nv 18..32), 128 / L
+// tiles a block. Every synchronisation is the warp's own (__syncwarp,
+// shuffles of width L, ballot), never the block's, and the warp iterates
+// until each of its tiles has met its sample's exit rule; a tile whose
+// sample has finished keeps its sample frozen meanwhile (for L = 32 a tile
+// is the warp). Before the loop the tile stages its sample once into its
+// slice of dynamic shared memory, reading each operand coalesced (lane k
+// takes element k of a contiguous block): every row, dense and facet, as
+// one (R, NV + 1) block (the odd stride keeps column reads free of bank
+// conflicts), with jar, D and the equality flag per row; the facet rows
+// are expanded from (G, mu, cdofc, dmask) once, as the TPU kernel does
+// (pallas_newton.py:285-321); M as a symmetric (NV, NV + 1) block from
+// qm's lower triangle. One-hot rows keep their (dof, sign) form. Per
+// iteration, lane i owns dof i: (M e)_i, the gradient and row i of the
+// Hessian, summed over the active rows, which a ballot and a prefix count
+// compact into a list; the Cholesky factor and the forward solve run
+// column by column across the tile by shuffles, with the rows in
+// registers, and the backward solve reads the factor back from shared
+// memory. Lane l owns rows l, l + L, ... for J step (kept for the jar
+// update), the five line-search penalties and the jar update; the sums,
+// the flip flag and the norms are reduced over the tile by butterfly
+// shuffles and a ballot, so every lane of a tile sees the same alpha and
+// the same exit decision. Dimensions nv..NV-1 are padded with an identity
+// block, which leaves the first nv components exactly as an exact-nv solve
+// would compute them.
 //
-// Design: one thread per sample runs the whole loop to its own exit, so a
-// finished sample is frozen for free (the TPU kernel masks every lane
-// until the whole tile is done). qm (lower triangle), the Hessian, its
-// factor, gradient and step live in (NV, NV) / (NV,) arrays, fully
-// unrolled for a compile-time bucket NV >= nv; dimensions nv..NV-1 are
-// padded with an identity block, which leaves the first nv components
-// exactly as an exact-nv solve would compute them. The row jars are
-// carried in the jar outputs themselves, so the kernel needs no scratch
-// and allocates nothing. Dense rows, qm, G and cdofc are read row-major
-// per sample, which is uncoalesced (the TPU's batch-innermost layout is
-// the later fix). No shared memory, no synchronisation; the launch goes
-// on the caller's stream, 32 threads a block so that B = 4096 spreads
-// over 128 SMs.
+// What bounds it on the card: the latency of each sample's dependent
+// steps, which the ~20 samples an SM holds at once do not hide. On an
+// NVIDIA H100 (700 W) at the Quadruped's shapes (B 4096, nv 18, 80 facet
+// rows, 24 one-hot rows, cap 6) it takes ~107 us, ~24x the 4.5 us that its
+// bytes need: staging alone (cap 0) ~28 us, then ~18-21 us per iteration
+// (about NV shuffle rounds each for the factor and the two solves, and
+// passes over the active and one-hot rows); Cartpole (B 8192, nv 2) ~4.7
+// us (tools/newton_check.py, PERF.md). Shared memory per sample is
+// 4 (R (NV + 6) + NV (NV + 2) + max(NV (NV + 1), the largest group's
+// P (6 condim + 3)) + 2 ns) bytes, ~11 KB at the Quadruped's shapes; the
+// launch holds fewer tiles a block when 128 / L of them do not fit, and
+// refuses a warp of samples that does not.
 
 #include <cuda_runtime.h>
 
@@ -61,14 +67,18 @@ struct MjpcNewtonGroup {
   const float* dvec;   // (batch, p)
   const float* mu;     // (batch, 3, p)
   const float* dmask;  // (p, nv), shared by the batch
-  float* jar;          // (batch, nrep, p): written, and carried in place
+  float* jar;          // (batch, nrep, p): written
   int p;
   int condim;          // 1, 3, 4 or 6: nrep = 1, 4, 6, 10 facets a point
 };
 
 namespace {
 
-constexpr int kThreads = 32;
+constexpr int kThreads = 128;
+// Asking ptxas for 4 resident blocks an SM caps a thread at 128 registers;
+// at nv 18 it then keeps everything in registers (112, no spills), where
+// the default spilled 12 bytes (ptxas -v, PERF.md).
+constexpr int kBlocksPerSm = 4;
 constexpr int kMaxGroups = 4;
 constexpr float kDamp = 1e-10f;
 __constant__ float kAlphas[5] = {0.f, 1.f, 0.5f, 0.25f, 0.0625f};
@@ -85,179 +95,83 @@ struct Groups {
   int count;
 };
 
-// One group's operands for sample b.
-struct GroupView {
-  const float* g;
-  const float* aref;
-  const float* dvec;
-  const float* mu;
-  const float* dmask;
-  float* jar;
-  int p;
-  int ndirs;
-  int nrep;
+__host__ __device__ constexpr int lanes(int nv) {
+  return nv <= 2 ? 2 : nv <= 4 ? 4 : nv <= 8 ? 8 : nv <= 16 ? 16 : 32;
+}
+
+__host__ __device__ inline int nrep_of(int condim) {
+  return condim == 1 ? 1 : 2 * (condim - 1);
+}
+
+// A sample's slice of shared memory: offsets in floats.
+struct Layout {
+  int rows;   // R: dense rows, then each group's facet rows, facet-major
+  int jar, dv, eq, js, list, m, scratch, vec, sjar, sdv, total;
 };
 
-__device__ __forceinline__ GroupView group_view(const MjpcNewtonGroup& gr,
-                                                int b) {
-  GroupView v;
-  const size_t bs = static_cast<size_t>(b);
-  v.p = gr.p;
-  v.ndirs = gr.condim;
-  v.nrep = gr.condim == 1 ? 1 : 2 * (gr.condim - 1);
-  v.g = gr.g + bs * gr.p * v.ndirs * 6;
-  v.aref = gr.aref + bs * v.nrep * gr.p;
-  v.dvec = gr.dvec + bs * gr.p;
-  v.mu = gr.mu + bs * 3 * gr.p;
-  v.dmask = gr.dmask;
-  v.jar = gr.jar + bs * v.nrep * gr.p;
-  return v;
-}
-
-// GF[f, p], the facet-combined 6-vector factor.
-__device__ __forceinline__ void facet_factor(const GroupView& v, int p,
-                                             int f, float (&gf)[6]) {
-  const float* gp = v.g + p * v.ndirs * 6;
-  if (v.nrep == 1) {
-#pragma unroll
-    for (int j = 0; j < 6; ++j) gf[j] = __ldg(gp + j);
-    return;
+Layout layout(int bucket, int n, int ns, const Groups& gs) {
+  const int stride = bucket + 1;
+  Layout l;
+  l.rows = n;
+  int stage = bucket * stride;  // the factor; G and mu while staging
+  for (int s = 0; s < gs.count; ++s) {
+    const MjpcNewtonGroup& g = gs.slot[s];
+    l.rows += nrep_of(g.condim) * g.p;
+    stage = stage > g.p * (6 * g.condim + 3) ? stage
+                                              : g.p * (6 * g.condim + 3);
   }
-  const float* gd = gp + kFacetDir[f] * 6;
-  const float s = kFacetSign[f] * __ldg(v.mu + kFacetCol[f] * v.p + p);
-#pragma unroll
-  for (int j = 0; j < 6; ++j) gf[j] = __ldg(gp + j) + s * __ldg(gd + j);
+  l.jar = l.rows * stride;
+  l.dv = l.jar + l.rows;
+  l.eq = l.dv + l.rows;
+  l.js = l.eq + l.rows;
+  l.list = l.js + l.rows;
+  l.m = l.list + l.rows;
+  l.scratch = l.m + bucket * stride;
+  l.vec = l.scratch + stage;
+  l.sjar = l.vec + bucket;
+  l.sdv = l.sjar + ns;
+  l.total = l.sdv + ns;
+  return l;
 }
 
-__device__ __forceinline__ float dot6(const float (&a)[6],
-                                      const float (&b)[6]) {
+__device__ __forceinline__ float dot6(const float* a, const float (&b)[6]) {
   float s = 0.f;
 #pragma unroll
   for (int j = 0; j < 6; ++j) s += a[j] * b[j];
   return s;
 }
 
-// w = sum_k dmask[k] x[k] cdofc[k], so that J[f, p] . x = GF[f, p] . w.
-template <int NV>
-__device__ __forceinline__ void point_axis(const float* __restrict__ dm,
-                                           const float* __restrict__ cdofc,
-                                           int nv, const float (&x)[NV],
-                                           float (&w)[6]) {
+// A warp's lanes split into tiles of L, one sample each. Every lane of the
+// warp runs every collective with the full mask (a tile that has finished
+// keeps iterating, frozen, until its warp is done), so that each is one
+// instruction with a mask known at compile time, and a shuffle of width L
+// stays inside its tile. No collective may sit behind a condition that
+// differs between the tiles of a warp.
+template <int L>
+struct Tile {
+  int first;  // the tile's first lane within the warp
+
+  __device__ float shfl(float v, int src) const {
+    return __shfl_sync(0xffffffffu, v, src, L);
+  }
+  // sum over the tile, the same bits on every lane (butterfly)
+  __device__ float sum(float v) const {
 #pragma unroll
-  for (int j = 0; j < 6; ++j) w[j] = 0.f;
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    if (k < nv) {
-      const float mk = __ldg(dm + k);
-      if (mk != 0.f) {
-        const float s = mk * x[k];
-#pragma unroll
-        for (int j = 0; j < 6; ++j) w[j] += s * __ldg(cdofc + k * 6 + j);
-      }
+    for (int o = L / 2; o > 0; o /= 2) {
+      v += __shfl_xor_sync(0xffffffffu, v, o, L);
     }
+    return v;
   }
-}
-
-// The facet's Jacobian row: row[k] = dmask[k] (GF . cdofc[k]).
-template <int NV>
-__device__ __forceinline__ void facet_row(const float* __restrict__ dm,
-                                          const float* __restrict__ cdofc,
-                                          int nv, const float (&gf)[6],
-                                          float (&row)[NV]) {
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    float r = 0.f;
-    if (k < nv) {
-      const float mk = __ldg(dm + k);
-      if (mk != 0.f) {
-        float s = 0.f;
-#pragma unroll
-        for (int j = 0; j < 6; ++j) s += gf[j] * __ldg(cdofc + k * 6 + j);
-        r = mk * s;
-      }
-    }
-    row[k] = r;
+  // bit k: lane k of the tile
+  __device__ unsigned ballot(bool p) const {
+    const unsigned all = __ballot_sync(0xffffffffu, p) >> first;
+    return L == 32 ? all : all & ((1u << (L % 32)) - 1u);
   }
-}
-
-// v[k] for a runtime k without dynamic indexing (keeps v in registers)
-template <int NV>
-__device__ __forceinline__ float pick(const float (&v)[NV], int k) {
-  float out = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (i == k) out = v[i];
-  }
-  return out;
-}
+  __device__ void sync() const { __syncwarp(); }
+};
 
 template <int NV>
-__device__ __forceinline__ void load_row(const float* __restrict__ src,
-                                         int nv, float (&row)[NV]) {
-#pragma unroll
-  for (int i = 0; i < NV; ++i) row[i] = i < nv ? src[i] : 0.f;
-}
-
-template <int NV>
-__device__ __forceinline__ float dot(const float (&u)[NV],
-                                     const float (&v)[NV]) {
-  float s = 0.f;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) s += u[i] * v[i];
-  return s;
-}
-
-// (M x)[i] with M symmetric, its lower triangle stored
-template <int NV>
-__device__ __forceinline__ float sym_dot(const float (&m)[NV][NV], int i,
-                                         const float (&x)[NV]) {
-  float s = 0.f;
-#pragma unroll
-  for (int c = 0; c < NV; ++c) s += (c <= i ? m[i][c] : m[c][i]) * x[c];
-  return s;
-}
-
-// Solve h x = g, h symmetric positive definite (lower triangle read).
-template <int NV>
-__device__ __forceinline__ void chol_solve(float (&h)[NV][NV],
-                                           const float (&g)[NV],
-                                           float (&x)[NV]) {
-  float inv_diag[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    float s = h[j][j];
-#pragma unroll
-    for (int k = 0; k < j; ++k) s -= h[j][k] * h[j][k];
-    const float ljj = sqrtf(fmaxf(s, 1e-30f));
-    h[j][j] = ljj;
-    const float inv = 1.f / ljj;
-    inv_diag[j] = inv;
-#pragma unroll
-    for (int i = j + 1; i < NV; ++i) {
-      float t = h[i][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) t -= h[i][k] * h[j][k];
-      h[i][j] = t * inv;
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    float s = g[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s -= h[i][k] * x[k];
-    x[i] = s * inv_diag[i];
-  }
-#pragma unroll
-  for (int i = NV - 1; i >= 0; --i) {
-    float s = x[i];
-#pragma unroll
-    for (int k = i + 1; k < NV; ++k) s -= h[k][i] * x[k];
-    x[i] = s * inv_diag[i];
-  }
-}
-
-template <int NV>
-__global__ void __launch_bounds__(kThreads) newton_kernel(
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) newton_kernel(
     const float* __restrict__ qm_g, const float* __restrict__ qs_g,
     const float* __restrict__ j_g, const float* __restrict__ aref_g,
     const float* __restrict__ dvec_g, const float* __restrict__ eqf_g,
@@ -265,169 +179,227 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(
     const int* __restrict__ dof_g, const float* __restrict__ sign_g,
     const float* __restrict__ cdofc_g, float* __restrict__ qacc_g,
     float* __restrict__ jard_g, float* __restrict__ jars_g, int batch,
-    int nv, int n, int ns, int cap, float tol,
+    int nv, int n, int ns, int cap, float tol, const Layout lay,
     const __grid_constant__ Groups groups) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
+  constexpr int L = lanes(NV);
+  constexpr int S = NV + 1;
+  extern __shared__ float smem[];
+  const int t = threadIdx.x % L;
+  const Tile<L> tile{static_cast<int>(threadIdx.x % 32) - t};
+  const int slot = threadIdx.x / L;
+  // A tile past the batch's end solves the last sample, frozen from the
+  // start, and writes nothing.
+  const int b_raw = blockIdx.x * (blockDim.x / L) + slot;
+  const bool valid = b_raw < batch;
+  const int b = valid ? b_raw : batch - 1;
 
-  const float* qm_b = qm_g + static_cast<size_t>(b) * nv * nv;
-  float m[NV][NV], qs[NV], qacc[NV];
+  float* sh = smem + static_cast<size_t>(slot) * lay.total;
+  float* jrow = sh;                    // (R, S) rows, zero past nv
+  float* jar = sh + lay.jar;           // (R,) the rows' J qacc - aref
+  float* dv = sh + lay.dv;             // (R,) D
+  float* eq = sh + lay.eq;             // (R,) 1 for an equality row
+  float* js = sh + lay.js;             // (R,) J step
+  int* list = reinterpret_cast<int*>(sh + lay.list);  // the active rows
+  float* m = sh + lay.m;               // (NV, S) M, symmetric
+  float* scratch = sh + lay.scratch;   // G, mu; then the factor (NV, S)
+  float* vec = sh + lay.vec;           // (NV,) qs, then the step
+  float* sjar = sh + lay.sjar;         // (ns,) one-hot jars
+  float* sdv = sh + lay.sdv;           // (ns,) their D
+  const size_t bs = static_cast<size_t>(b);
+  const int R = lay.rows;
+  const bool own = t < NV;             // lane t owns dof t
+
+  // stage the sample
+  const float qs = (t < nv) ? qs_g[bs * nv + t] : 0.f;
+  const float* qm_b = qm_g + bs * nv * nv;
 #pragma unroll
-  for (int r = 0; r < NV; ++r) {
-#pragma unroll
-    for (int c = 0; c <= r; ++c) {
-      m[r][c] = (r < nv) ? qm_b[r * nv + c] : (r == c ? 1.f : 0.f);
-    }
+  for (int i = t; i < NV * NV; i += L) {
+    const int r = i / NV, c = i - r * NV;
+    m[r * S + c] = (r < nv && c < nv)
+                       ? qm_b[c <= r ? r * nv + c : c * nv + r]  // lower
+                       : (r == c ? 1.f : 0.f);
   }
-  load_row<NV>(qs_g + static_cast<size_t>(b) * nv, nv, qs);
-#pragma unroll
-  for (int i = 0; i < NV; ++i) qacc[i] = qs[i];
-
-  const float* jb = j_g + static_cast<size_t>(b) * n * nv;
-  const float* aref = aref_g + static_cast<size_t>(b) * n;
-  const float* dvec = dvec_g + static_cast<size_t>(b) * n;
-  const float* eqf = eqf_g + static_cast<size_t>(b) * n;
-  const float* saref = saref_g + static_cast<size_t>(b) * ns;
-  const float* sdvec = sdvec_g + static_cast<size_t>(b) * ns;
-  const float* cdofc = cdofc_g + static_cast<size_t>(b) * nv * 6;
-  float* jar_d = jard_g + static_cast<size_t>(b) * n;
-  float* jar_s = jars_g + static_cast<size_t>(b) * ns;
-  const int ngroups = groups.count;
-
-  float row[NV], w6[6], gf[6];
-  for (int r = 0; r < n; ++r) {
-    load_row<NV>(jb + r * nv, nv, row);
-    jar_d[r] = dot<NV>(row, qs) - aref[r];
+  if (own) vec[t] = qs;
+  const float* jb = j_g + bs * n * nv;
+  for (int i = t; i < n * NV; i += L) {
+    const int r = i / NV, c = i - r * NV;
+    jrow[r * S + c] = c < nv ? jb[r * nv + c] : 0.f;
   }
-  for (int r = 0; r < ns; ++r) {
-    jar_s[r] = sign_g[r] * pick<NV>(qs, dof_g[r]) - saref[r];
+  for (int r = t; r < n; r += L) {
+    jar[r] = aref_g[bs * n + r];       // J qs is subtracted below
+    dv[r] = dvec_g[bs * n + r];
+    eq[r] = eqf_g[bs * n + r] > 0.5f ? 1.f : 0.f;
   }
-  for (int s = 0; s < ngroups; ++s) {
-    const GroupView v = group_view(groups.slot[s], b);
-    for (int p = 0; p < v.p; ++p) {
-      point_axis<NV>(v.dmask + p * nv, cdofc, nv, qs, w6);
-      for (int f = 0; f < v.nrep; ++f) {
-        facet_factor(v, p, f, gf);
-        v.jar[f * v.p + p] = dot6(gf, w6) - __ldg(v.aref + f * v.p + p);
-      }
-    }
+  for (int r = t; r < ns; r += L) {
+    sjar[r] = saref_g[bs * ns + r];
+    sdv[r] = sdvec_g[bs * ns + r];
   }
-
-  bool prev_exact = false;
-  for (int it = 0; it < cap; ++it) {
-    float e[NV], me[NV], g[NV], h[NV][NV], step[NV];
+  float cd[6];
 #pragma unroll
-    for (int i = 0; i < NV; ++i) e[i] = qacc[i] - qs[i];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      me[i] = sym_dot<NV>(m, i, e);
-      g[i] = me[i];
-#pragma unroll
-      for (int c = 0; c <= i; ++c) h[i][c] = m[i][c] + (i == c ? kDamp : 0.f);
+  for (int j = 0; j < 6; ++j) {
+    cd[j] = (groups.count && t < nv) ? cdofc_g[(bs * nv + t) * 6 + j] : 0.f;
+  }
+  for (int s = 0, base = n; s < groups.count; ++s) {
+    const MjpcNewtonGroup& gr = groups.slot[s];
+    const int p = gr.p, cdim = gr.condim, nrep = nrep_of(cdim);
+    const int ng = p * cdim * 6;
+    for (int i = t; i < ng; i += L) scratch[i] = gr.g[bs * ng + i];
+    for (int i = t; i < 3 * p; i += L) {
+      scratch[ng + i] = gr.mu[bs * 3 * p + i];
     }
-
-    // gradient and Hessian of the active rows
-    for (int r = 0; r < n; ++r) {
-      load_row<NV>(jb + r * nv, nv, row);
-      const float jar = jar_d[r];
-      const float w = (jar < 0.f || eqf[r] > 0.5f) ? dvec[r] : 0.f;
-      const float wj = w * jar;
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        g[i] += row[i] * wj;
-        const float wi = w * row[i];
-#pragma unroll
-        for (int c = 0; c <= i; ++c) h[i][c] += wi * row[c];
-      }
+    for (int i = t; i < nrep * p; i += L) {
+      jar[base + i] = gr.aref[bs * nrep * p + i];
+      dv[base + i] = gr.dvec[bs * p + i % p];
+      eq[base + i] = 0.f;
     }
-    for (int r = 0; r < ns; ++r) {
-      const int k = dof_g[r];
-      const float jar = jar_s[r];
-      const float w = jar < 0.f ? sdvec[r] : 0.f;
-      const float gk = sign_g[r] * (w * jar);
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        if (i == k) {
-          g[i] += gk;
-          h[i][i] += w;
+    tile.sync();
+    if (own) {
+      for (int q = 0; q < p; ++q) {
+        const float dm = t < nv ? __ldg(gr.dmask + q * nv + t) : 0.f;
+        const float* gq = scratch + q * cdim * 6;
+        const float j0 = dm * dot6(gq, cd);
+        if (nrep == 1) {
+          jrow[(base + q) * S + t] = j0;
+          continue;
+        }
+        for (int f = 0; f < nrep; f += 2) {
+          const float jd = dm * dot6(gq + kFacetDir[f] * 6, cd);
+          const float mu = scratch[ng + kFacetCol[f] * p + q];
+          jrow[(base + f * p + q) * S + t] = j0 + kFacetSign[f] * mu * jd;
+          jrow[(base + (f + 1) * p + q) * S + t] =
+              j0 + kFacetSign[f + 1] * mu * jd;
         }
       }
     }
-    for (int s = 0; s < ngroups; ++s) {
-      const GroupView v = group_view(groups.slot[s], b);
-      for (int p = 0; p < v.p; ++p) {
-        const float dv = __ldg(v.dvec + p);
-        if (dv == 0.f) continue;
-        for (int f = 0; f < v.nrep; ++f) {
-          const float jar = v.jar[f * v.p + p];
-          if (!(jar < 0.f)) continue;
-          facet_factor(v, p, f, gf);
-          facet_row<NV>(v.dmask + p * nv, cdofc, nv, gf, row);
-          const float wj = dv * jar;
+    tile.sync();                       // before the next group's G
+    base += nrep * p;
+  }
+  tile.sync();
+  for (int r = t; r < R; r += L) {
+    float s = 0.f;
 #pragma unroll
-          for (int i = 0; i < NV; ++i) {
-            g[i] += row[i] * wj;
-            const float wi = dv * row[i];
-#pragma unroll
-            for (int c = 0; c <= i; ++c) h[i][c] += wi * row[c];
-          }
-        }
-      }
-    }
+    for (int c = 0; c < NV; ++c) s += jrow[r * S + c] * vec[c];
+    jar[r] = s - jar[r];
+  }
+  for (int r = t; r < ns; r += L) {
+    const int k = __ldg(dof_g + r);
+    const float x = (k >= 0 && k < nv) ? vec[k] : 0.f;
+    sjar[r] = __ldg(sign_g + r) * x - sjar[r];
+  }
+  tile.sync();
 
-    chol_solve<NV>(h, g, step);
+  float qacc = qs;
+  bool prev_exact = false, done = !valid;
+  for (int it = 0; it < cap && !__all_sync(0xffffffffu, done); ++it) {
+    // (M e)_t and row t of M + 1e-10 I
+    const float e = qacc - qs;
+    float me = 0.f, h[NV];
+#pragma unroll
+    for (int c = 0; c < NV; ++c) {
+      const float mc = own ? m[t * S + c] : 0.f;
+      me += mc * tile.shfl(e, c);
+      h[c] = mc + (c == t ? kDamp : 0.f);
+    }
+    float g = me;
+
+    // the active rows (jar < 0 or an equality row, D != 0), compacted
+    int nact = 0;
+    for (int base = 0; base < R; base += L) {
+      const int r = base + t;
+      const bool a = r < R && dv[r] != 0.f && (jar[r] < 0.f || eq[r] != 0.f);
+      const unsigned mask = tile.ballot(a);
+      if (a) list[nact + __popc(mask & ((1u << t) - 1u))] = r;
+      nact += __popc(mask);
+    }
+    tile.sync();
+    for (int q = 0; q < nact; ++q) {
+      const int r = list[q];
+      const float* jr = jrow + r * S;
+      const float w = dv[r];
+      const float a = own ? jr[t] : 0.f;
+      g += a * (w * jar[r]);
+      const float wa = w * a;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) h[c] += wa * jr[c];
+    }
+    float hs = 0.f;
+    for (int r = 0; r < ns; ++r) {     // branch-free: a row's loads go together
+      const float jv = sjar[r];
+      const float w = (t < nv && __ldg(dof_g + r) == t && jv < 0.f)
+                          ? sdv[r] : 0.f;
+      g += __ldg(sign_g + r) * (w * jv);
+      hs += w;
+    }
+#pragma unroll
+    for (int c = 0; c < NV; ++c) h[c] += c == t ? hs : 0.f;
+
+    // Cholesky, column by column: lane t ends with row t of the factor
+    float inv_t = 1.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const float d = fmaxf(tile.shfl(h[j], j), 1e-30f);
+      const float inv = rsqrtf(d);     // 1 / L_jj, one hardware rsqrt
+      const float ljj = d * inv;
+      const float lj = t == j ? ljj : h[j] * inv;
+      h[j] = lj;
+      if (t == j) inv_t = inv;
+#pragma unroll
+      for (int k = j + 1; k < NV; ++k) h[k] -= lj * tile.shfl(lj, k);
+    }
+    // L y = g, then L^T step = y (L's columns from shared memory)
+    float acc = g;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const float yj = tile.shfl(acc * inv_t, j);
+      if (t > j) acc -= h[j] * yj;
+    }
+    if (own) {
+#pragma unroll
+      for (int c = 0; c < NV; ++c) scratch[t * S + c] = h[c];
+    }
+    tile.sync();
+    acc *= inv_t;
+#pragma unroll
+    for (int k = NV - 1; k >= 0; --k) {
+      const float xk = tile.shfl(acc * inv_t, k);
+      if (t < k) acc -= scratch[k * S + t] * xk;
+    }
+    const float step = own ? acc * inv_t : 0.f;
 
     // exact line search on the piecewise-quadratic cost
-    float mstep[NV];
+    float ms = 0.f;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) mstep[i] = sym_dot<NV>(m, i, step);
-    const float sme = dot<NV>(step, me);
-    const float sms = dot<NV>(step, mstep);
-    const float eme = dot<NV>(e, me);
-    float pen_d[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < NV; ++c) {
+      ms += (own ? m[t * S + c] : 0.f) * tile.shfl(step, c);
+    }
+    const float sme = tile.sum(step * me);
+    const float sms = tile.sum(step * ms);
+    const float eme = tile.sum(e * me);
+    if (own) vec[t] = step;
+    tile.sync();
+    float pen[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
     float pen_s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    float pen_g[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int r = 0; r < n; ++r) {
-      load_row<NV>(jb + r * nv, nv, row);
-      const float js = dot<NV>(row, step);
-      const float jar = jar_d[r];
-      const bool eq = eqf[r] > 0.5f;
-      const float dv = dvec[r];
+    for (int r = t; r < R; r += L) {
+      float x = 0.f;
+#pragma unroll
+      for (int c = 0; c < NV; ++c) x += jrow[r * S + c] * vec[c];
+      js[r] = x;
+      const float jv = jar[r], w = dv[r];
+      const bool q = eq[r] != 0.f;
 #pragma unroll
       for (int a = 0; a < 5; ++a) {
-        const float jc = jar - kAlphas[a] * js;
-        const float pc = (jc < 0.f || eq) ? dv : 0.f;
-        pen_d[a] += pc * jc * jc;
+        const float jc = jv - kAlphas[a] * x;
+        pen[a] += ((jc < 0.f || q) ? w : 0.f) * jc * jc;
       }
     }
-    for (int r = 0; r < ns; ++r) {
-      const float js = sign_g[r] * pick<NV>(step, dof_g[r]);
-      const float jar = jar_s[r];
-      const float dv = sdvec[r];
+    for (int r = t; r < ns; r += L) {
+      const int k = __ldg(dof_g + r);
+      const float x = (k >= 0 && k < nv) ? __ldg(sign_g + r) * vec[k] : 0.f;
+      const float jv = sjar[r], w = sdv[r];
 #pragma unroll
       for (int a = 0; a < 5; ++a) {
-        const float jc = jar - kAlphas[a] * js;
-        const float pc = jc < 0.f ? dv : 0.f;
-        pen_s[a] += pc * jc * jc;
-      }
-    }
-    for (int s = 0; s < ngroups; ++s) {
-      const GroupView v = group_view(groups.slot[s], b);
-      for (int p = 0; p < v.p; ++p) {
-        const float dv = __ldg(v.dvec + p);
-        if (dv == 0.f) continue;
-        point_axis<NV>(v.dmask + p * nv, cdofc, nv, step, w6);
-        for (int f = 0; f < v.nrep; ++f) {
-          facet_factor(v, p, f, gf);
-          const float js = dot6(gf, w6);
-          const float jar = v.jar[f * v.p + p];
-#pragma unroll
-          for (int a = 0; a < 5; ++a) {
-            const float jc = jar - kAlphas[a] * js;
-            const float pc = jc < 0.f ? dv : 0.f;
-            pen_g[a] += pc * jc * jc;
-          }
-        }
+        const float jc = jv - kAlphas[a] * x;
+        pen_s[a] += (jc < 0.f ? w : 0.f) * jc * jc;
       }
     }
     int best = 0;
@@ -436,7 +408,7 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(
     for (int a = 0; a < 5; ++a) {
       const float al = kAlphas[a];
       const float c = 0.5f * eme - al * sme + 0.5f * al * al * sms
-                      + (0.5f * pen_d[a] + 0.5f * pen_s[a] + 0.5f * pen_g[a]);
+                      + tile.sum(0.5f * pen[a] + 0.5f * pen_s[a]);
       if (a == 0 || c < best_cost) {
         best = a;
         best_cost = c;
@@ -444,71 +416,89 @@ __global__ void __launch_bounds__(kThreads) newton_kernel(
     }
     const float alpha = kAlphas[best];
 
-    // take the step; carry the jars; compare the active sets
-    float qn2 = 0.f, sn2 = 0.f;
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      qacc[i] -= alpha * step[i];
-      qn2 += qacc[i] * qacc[i];
-      sn2 += step[i] * step[i];
-    }
+    // take the step; carry the jars; compare the active sets (a finished
+    // sample stays as it is)
+    const float qnew = qacc - alpha * step;
+    const float qn2 = tile.sum(qnew * qnew);
+    const float sn2 = tile.sum(step * step);
     bool flipped = false;
-    for (int r = 0; r < n; ++r) {
-      load_row<NV>(jb + r * nv, nv, row);
-      const float js = dot<NV>(row, step);
-      const float jar = jar_d[r];
-      const bool eq = eqf[r] > 0.5f;
-      const float jn = jar - alpha * js;
-      flipped |= ((jar < 0.f) || eq) != ((jn < 0.f) || eq);
-      jar_d[r] = jn;
-    }
-    for (int r = 0; r < ns; ++r) {
-      const float js = sign_g[r] * pick<NV>(step, dof_g[r]);
-      const float jar = jar_s[r];
-      const float jn = jar - alpha * js;
-      flipped |= (jar < 0.f) != (jn < 0.f);
-      jar_s[r] = jn;
-    }
-    for (int s = 0; s < ngroups; ++s) {
-      const GroupView v = group_view(groups.slot[s], b);
-      for (int p = 0; p < v.p; ++p) {
-        point_axis<NV>(v.dmask + p * nv, cdofc, nv, step, w6);
-        for (int f = 0; f < v.nrep; ++f) {
-          facet_factor(v, p, f, gf);
-          const float js = dot6(gf, w6);
-          float* jp = v.jar + f * v.p + p;
-          const float jar = *jp;
-          const float jn = jar - alpha * js;
-          flipped |= (jar < 0.f) != (jn < 0.f);
-          *jp = jn;
-        }
+    if (!done) {
+      qacc = qnew;
+      for (int r = t; r < R; r += L) {
+        const float jv = jar[r], jn = jv - alpha * js[r];
+        const bool q = eq[r] != 0.f;
+        flipped |= ((jv < 0.f) || q) != ((jn < 0.f) || q);
+        jar[r] = jn;
+      }
+      for (int r = t; r < ns; r += L) {
+        const int k = __ldg(dof_g + r);
+        const float x = (k >= 0 && k < nv) ? __ldg(sign_g + r) * vec[k] : 0.f;
+        const float jv = sjar[r], jn = jv - alpha * x;
+        flipped |= (jv < 0.f) != (jn < 0.f);
+        sjar[r] = jn;
       }
     }
-    const bool exact = best == 1 && !flipped;
+    // every lane of the warp takes the ballot, whatever its tile's alpha
+    const bool stable = tile.ballot(flipped) == 0u;
+    const bool exact = best == 1 && stable;
     const bool small = sqrtf(sn2) <= tol * (1.f + sqrtf(qn2));
-    const bool done = (exact && prev_exact) || small;
-    prev_exact = exact;
-    if (done) break;
+    if (!done) {
+      done = (exact && prev_exact) || small;
+      prev_exact = exact;
+    }
   }
 
-  float* qacc_b = qacc_g + static_cast<size_t>(b) * nv;
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    if (i < nv) qacc_b[i] = qacc[i];
+  tile.sync();
+  if (!valid) return;
+  if (t < nv) qacc_g[bs * nv + t] = qacc;
+  for (int r = t; r < n; r += L) jard_g[bs * n + r] = jar[r];
+  for (int r = t; r < ns; r += L) jars_g[bs * ns + r] = sjar[r];
+  for (int s = 0, base = n; s < groups.count; ++s) {
+    const MjpcNewtonGroup& gr = groups.slot[s];
+    const int k = nrep_of(gr.condim) * gr.p;
+    for (int i = t; i < k; i += L) gr.jar[bs * k + i] = jar[base + i];
+    base += k;
   }
 }
 
 template <int NV>
-void launch(const float* qm, const float* qs, const float* j,
-            const float* aref, const float* dvec, const float* eqf,
-            const float* s_aref, const float* s_dvec, const int* dof,
-            const float* sign, const float* cdofc, float* qacc,
-            float* jar_d, float* jar_s, int batch, int nv, int n, int ns,
-            int cap, float tol, const Groups& groups, cudaStream_t stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
-  newton_kernel<NV><<<blocks, kThreads, 0, stream>>>(
+int launch(const float* qm, const float* qs, const float* j,
+           const float* aref, const float* dvec, const float* eqf,
+           const float* s_aref, const float* s_dvec, const int* dof,
+           const float* sign, const float* cdofc, float* qacc, float* jar_d,
+           float* jar_s, int batch, int nv, int n, int ns, int cap,
+           float tol, const Groups& groups, cudaStream_t stream) {
+  constexpr int L = lanes(NV);
+  const Layout lay = layout(NV, n, ns, groups);
+  const size_t per = sizeof(float) * static_cast<size_t>(lay.total);
+  int device = 0, limit = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  // whole warps of tiles (the collectives take the full warp)
+  constexpr int kWarpTiles = 32 / L;
+  int tiles = kThreads / L;
+  if (per * tiles > static_cast<size_t>(limit)) {
+    tiles = static_cast<int>(limit / per) / kWarpTiles * kWarpTiles;
+  }
+  if (tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = per * tiles;
+  // as much of the SM's L1 as shared memory as it takes, so that as many
+  // blocks as fit stay resident
+  cudaFuncSetAttribute(newton_kernel<NV>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (batch + tiles - 1) / tiles;
+  newton_kernel<NV><<<blocks, tiles * L, bytes, stream>>>(
       qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cdofc, qacc,
-      jar_d, jar_s, batch, nv, n, ns, cap, tol, groups);
+      jar_d, jar_s, batch, nv, n, ns, cap, tol, lay, groups);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -520,7 +510,9 @@ void launch(const float* qm, const float* qs, const float* j,
 // pointers inside), cdofc (batch, nv, 6) on the device. Writes qacc
 // (batch, nv), jar_d (batch, n), jar_s (batch, ns) and each group's jar.
 // n, ns and a group's p may be 0 (their pointers are then not read).
-// 1 <= nv <= 32. Returns cudaGetLastError() after the launch.
+// 1 <= nv <= 32. Returns the launch's CUDA error code, or
+// cudaErrorInvalidValue for operands it does not take, among them a sample
+// whose shared memory exceeds what a block may hold.
 extern "C" int mjpc_newton_f32(const float* qm, const float* qs,
                                const float* j, const float* aref,
                                const float* dvec, const float* eqf,
@@ -550,9 +542,10 @@ extern "C" int mjpc_newton_f32(const float* qm, const float* qs,
     }
     gs.slot[i] = gr;
   }
-#define MJPC_NEWTON_LAUNCH(NV)                                            \
-  launch<NV>(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cdofc, \
-             qacc, jar_d, jar_s, batch, nv, n, ns, cap, tol, gs, st)
+#define MJPC_NEWTON_LAUNCH(NV)                                             \
+  return launch<NV>(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, \
+                    cdofc, qacc, jar_d, jar_s, batch, nv, n, ns, cap, tol,  \
+                    gs, st)
   if (nv <= 2) MJPC_NEWTON_LAUNCH(2);
   else if (nv <= 4) MJPC_NEWTON_LAUNCH(4);
   else if (nv <= 8) MJPC_NEWTON_LAUNCH(8);
@@ -561,5 +554,4 @@ extern "C" int mjpc_newton_f32(const float* qm, const float* qs,
   else if (nv <= 24) MJPC_NEWTON_LAUNCH(24);
   else MJPC_NEWTON_LAUNCH(32);
 #undef MJPC_NEWTON_LAUNCH
-  return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,10 @@ from mujoco_mpc_tpu_torch.ops import linalg
 
 MAX_NV = 32
 MAX_GROUPS = 4
+# The kernel's compile-time dof buckets, and the shared memory one block
+# may hold on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+NV_BUCKETS = (2, 4, 8, 12, 18, 24, 32)
+SMEM_LIMIT = 232448
 _DAMP = 1e-10
 _ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.0625)
 
@@ -204,6 +208,26 @@ def _entry():
   return fn
 
 
+def kernel_lanes(nv):
+  """Lanes of the tile that solves one sample: the smallest power of two
+  >= nv's bucket (csrc/newton.cu `lanes`)."""
+  bucket = next(b for b in NV_BUCKETS if b >= nv)
+  return max(2, 1 << (bucket - 1).bit_length())
+
+
+def sample_smem_bytes(nv, n, ns, groups=()):
+  """Shared memory the kernel stages one sample into, in bytes, for n
+  dense rows, ns one-hot rows and point groups ((condim, P), ...): its
+  rows (dense, then facet) at a stride of the bucket plus one, five floats
+  per row, M, the factor or (while staging) one group's G and mu, the
+  step, and two floats per one-hot row (csrc/newton.cu `layout`)."""
+  bucket = next(b for b in NV_BUCKETS if b >= nv)
+  rows = n + sum(len(PYRAMID_FACETS[c]) * p for c, p in groups)
+  stage = max([bucket * (bucket + 1)]
+              + [p * (6 * c + 3) for c, p in groups])
+  return 4 * (rows * (bucket + 6) + bucket * (bucket + 2) + stage + 2 * ns)
+
+
 def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
            gargs, condims, dmasks):
   """Refuse what the kernel does not take (it never falls back)."""
@@ -254,6 +278,14 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
                        f'{tuple(t.shape)}')
   if not 1 <= nv <= MAX_NV:
     raise ValueError(f'the kernel takes 1 <= nv <= {MAX_NV}, got {nv}')
+  # a block holds at least one warp of samples
+  warp = 32 // kernel_lanes(nv) * sample_smem_bytes(
+      nv, n, ns, [(c, gargs[1 + 4 * gi].shape[1])
+                  for gi, c in enumerate(condims)])
+  if warp > SMEM_LIMIT:
+    raise ValueError(f'one warp of samples needs {warp} bytes of shared '
+                     f'memory, more than the {SMEM_LIMIT} a block may hold '
+                     f'on Hopper')
   if cap < 0:
     raise ValueError(f'cap must be >= 0, got {cap}')
   if not all(t.is_contiguous() for t in floats + (dof,)):
@@ -266,8 +298,9 @@ def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
   operands and results as newton_reference.
 
   On the CPU, newton_reference; on CUDA, the kernel, which adds one to
-  `newton.launches` per launch and builds each facet row from (G, cdofc,
-  dmask) itself: the (B, nrep*P, nv) facet block never exists. The kernel
+  `newton.launches` per launch and expands each sample's facet rows from
+  (G, cdofc, dmask) into shared memory itself: the (B, nrep*P, nv) facet
+  block never reaches device memory. The kernel
   reads dof only to compare it with 0..nv-1, so an out-of-range dof drops
   the row instead of reaching outside the sample's memory."""
   operands = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign)

@@ -217,3 +217,18 @@ def test_plain_newton_groups_match_pallas_kernel_f32(case):
     np.testing.assert_allclose(g.astype(np.float64),
                                np.asarray(w, np.float64), rtol=2e-3,
                                atol=1e-3)
+
+
+def test_shared_memory_footprint():
+  """The kernel's per-sample shared memory: the Quadruped's shapes (nv 18,
+  24 one-hot rows, one condim-3 group of 20 points) take ~11 KB; at nv 30
+  with 60 one-hot rows, 64 condim-6 points (640 facet rows) fit in one
+  block and 160 points (1,600 rows) do not."""
+  # 80 rows x (18 + 6) + 18 x 20 + max(18 x 19, 20 x 21) + 2 x 24 floats
+  assert newton.sample_smem_bytes(18, 0, 24, [(3, 20)]) == 4 * 2748
+  assert newton.sample_smem_bytes(2, 0, 2) == 4 * (2 * 4 + 2 * 3 + 2 * 2)
+  assert newton.sample_smem_bytes(30, 0, 60, [(6, 64)]) <= newton.SMEM_LIMIT
+  assert newton.sample_smem_bytes(30, 0, 60, [(6, 160)]) > newton.SMEM_LIMIT
+  # a tile per sample: the power of two at or above the bucket
+  assert [newton.kernel_lanes(nv) for nv in (1, 2, 3, 8, 9, 13, 18, 32)] \
+      == [2, 2, 4, 8, 16, 32, 32, 32]
