@@ -7,19 +7,20 @@ Run from the root of a checkout, with no arguments:
 Phases, one line each (any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi);
   2. build: both CUDA kernels from csrc/ with nvcc, for sm_90a, at once;
-     ptxas's registers, stack and spills of B2's nv-2 and nv-18 instances
-     and the shared memory they take;
+     ptxas's registers, stack and spills of every bucket instance of both
+     kernels (any spill fails) and the shared memory they take;
   3. check: each kernel against its plain PyTorch version on the card:
-     3a B1 on random systems; 3b B2 on random dense and one-hot rows,
-     nv 2, 8, 18, 24 and 32;
+     3a B1 on random systems, every n from 1 to 32, B 1, 8192 and 8193;
+     3b B2 on random dense and one-hot rows, nv 2, 8, 18, 24 and 32;
      3c both on the inputs the Cartpole step gives them; 3d B2's contact
      groups (condim 1, 3, 4, 6, and two groups) on random factored
      problems, task-shaped and dense, with the near ties counted by rows
      per dof; 3e both on the inputs the Quadruped step gives them;
   4. timing: kernel, plain version and (B1) torch.linalg's batched
-     Cholesky at both paths' shapes, wall per call (CUDA events, median
-     of 30) and device time (profiler), with each kernel's bound and its
-     device time as a multiple of the bound;
+     Cholesky at both paths' shapes, and B1 at n 24 and 32 (B 4096, random
+     systems), wall per call (CUDA events, median of 30) and device time
+     (profiler), with each kernel's bound and its device time as a
+     multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
      steps, 10 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
@@ -39,6 +40,7 @@ Then one JSON line with the kernels' launches, errors, times and bounds
 import concurrent.futures
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,11 +54,23 @@ CART_QPOS0 = (1.0, 3.14159)
 CART_PLANS = 10
 QUAD_PLANS = 5
 TIME_REPS = 30
+# B1 beyond the paths' sizes: the buckets the mesh-hull hands will use,
+# its plain version there timed over a few calls
+SPD_EXTRA_N = (24, 32)
+SPD_EXTRA_PLAIN_REPS = 3
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+
+
+def smi_line():
+  """The card's name and power limit, as nvidia-smi gives them."""
+  return subprocess.run(
+      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+      capture_output=True, text=True, check=True).stdout.strip().splitlines(
+          )[0]
 
 
 def check(cond, msg):
@@ -83,33 +97,42 @@ def cuda_time_ms(fn, reps=TIME_REPS):
 
 
 def device_us(fn, reps=TIME_REPS, top=0):
-  """Device time of fn() per call in microseconds: the CUDA kernels the
-  profiler saw over `reps` calls, over `reps` (no host time). With `top`,
-  also (device ops per call, [(name, count, us) of the `top` ops with the
-  most device time]). Every fn timed here launches kernels, so a pass in
-  which the profiler saw none (it happened once on an H100, for B1 at
-  n 18) is taken again, up to three passes."""
+  """Device time of fn() per call in microseconds, from the CUDA kernels
+  the profiler saw over `reps` calls (no host time). With `top`, also
+  (device ops per call, [(name, count, us) of the `top` ops with the most
+  device time]). The profiler drops a few kernel records now and then (on
+  an H100 it saw B1's kernel 28 or 29 times in 30 calls, pass after pass;
+  once, late in chip_smoke, far fewer), so each op counts as its mean
+  time over the records it has, times the launches it makes a call
+  (its record count over `reps`, rounded). A pass in which the op with
+  the most device time has fewer records than half the calls is taken
+  again, up to five passes, and then fails."""
   import torch
   from torch.profiler import ProfilerActivity, profile
   fn()
   torch.cuda.synchronize()
-  for _ in range(3):
+  for _ in range(5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
       for _ in range(reps):
         fn()
       torch.cuda.synchronize()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in dev) / reps
-    if total:
+    dev = sorted((e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: -e.self_device_time_total)
+    if dev and 2 * dev[0].count >= reps:
       break
+  check(dev and 2 * dev[0].count >= reps, 'the profiler saw '
+        + (f'{dev[0].key[:60]} {dev[0].count} times' if dev else 'no kernel')
+        + f' over {reps} calls, in five passes')
+  ops = [(e.key, round(e.count / reps),
+          e.self_device_time_total / e.count * round(e.count / reps)
+          if round(e.count / reps) else e.self_device_time_total / reps)
+         for e in dev]
+  total = sum(us for _, _, us in ops)
   if not top:
     return total
-  dev.sort(key=lambda e: -e.self_device_time_total)
-  return (total, sum(e.count for e in dev) // reps,
-          [(e.key, e.count // reps, e.self_device_time_total / reps)
-           for e in dev[:top]])
+  return total, sum(k for _, k, _ in ops), ops[:top]
 
 
 def bound(bytes_, flops):
@@ -220,6 +243,69 @@ def random_spd(gen, bsz, n):
   g = torch.randn((bsz, n, n), generator=gen, device=DEV)
   a = g @ g.transpose(1, 2) / n + torch.eye(n, device=DEV)
   return a.contiguous(), torch.randn((bsz, n), generator=gen, device=DEV)
+
+
+def check_spd_random(gen):
+  """Phase 3a: B1 against its plain version on random systems, every n
+  from 1 to 32 (each bucket's padding rows) at B 1, 8192 and 8193 (a
+  last block and warp that hold one system). cond(a) <= ~10 and n <= 32: f32
+  rounding (the kernel fuses multiply-adds and multiplies by rsqrt where
+  the plain version divides by a square root) stays < 1e-4."""
+  from mujoco_mpc_tpu_torch.ops import linalg, spd_solve
+  worst = 0.0
+  for n in range(1, 33):
+    for bsz in (1, CART_SAMPLES, CART_SAMPLES + 1):
+      a, b = random_spd(gen, bsz, n)
+      _, err = errors(spd_solve.solve_spd(a, b), linalg.solve_spd(a, b))
+      check(err <= 1e-4, f'chol_solve vs plain, n {n} B {bsz}: {err:.3g} '
+            f'> 1e-4')
+      worst = max(worst, err)
+  print(f'phase 3a chol_solve vs plain, every n in 1..32, B 1/{CART_SAMPLES}'
+        f'/{CART_SAMPLES + 1}: max rel err {worst:.3g} (tol 1e-4)')
+
+
+def check_spd_inputs(args, tol, what):
+  """B1 against its plain version on a step's (qM, rhs): (max abs error,
+  max relative error), the latter within `tol`."""
+  from mujoco_mpc_tpu_torch.ops import linalg, spd_solve
+  err_abs, err = errors(spd_solve.solve_spd(*args), linalg.solve_spd(*args))
+  check(err <= tol, f'chol_solve on {what} inputs: {err:.3g} > {tol:g}')
+  return err_abs, err
+
+
+def library_spd(a, b):
+  """torch.linalg's batched Cholesky and solve: B1's yardstick, never
+  called by the port."""
+  import torch
+  factor, _ = torch.linalg.cholesky_ex(a)
+  return torch.cholesky_solve(b[..., None], factor)[..., 0]
+
+
+def time_spd(args, plain_reps=None):
+  """B1's wall (CUDA events) and device (profiler) times on (a, b), its
+  plain version's (over `plain_reps` calls: at n 24 and 32 one call is
+  ~5,000-11,000 launches) and the library call's, and its bound."""
+  from mujoco_mpc_tpu_torch.ops import linalg, spd_solve
+  fns = {'chol_solve': lambda: spd_solve.solve_spd(*args),
+         'chol_plain': lambda: linalg.solve_spd(*args),
+         'chol_library': lambda: library_spd(*args)}
+  reps = {k: plain_reps if k == 'chol_plain' and plain_reps else TIME_REPS
+          for k in fns}
+  wall = {k: cuda_time_ms(f, reps[k]) for k, f in fns.items()}
+  dev = {k: device_us(f, reps[k]) for k, f in fns.items()}
+  return wall, dev, spd_bound(args[0]), reps['chol_plain']
+
+
+def spd_timing_line(wall, dev, bound_, plain_reps, a):
+  b_ms, by = bound_
+  return (f'chol_solve B {a.shape[0]} n {a.shape[1]}: kernel '
+          f'{wall["chol_solve"] * 1e3:.1f} / {dev["chol_solve"]:.1f} us, '
+          f'plain{"" if plain_reps == TIME_REPS else f" ({plain_reps} calls)"}'
+          f' {wall["chol_plain"] * 1e3:.1f} / {dev["chol_plain"]:.1f} '
+          f'us, torch.linalg.cholesky_ex + cholesky_solve '
+          f'{wall["chol_library"] * 1e3:.1f} / {dev["chol_library"]:.1f} '
+          f'us, bound {b_ms * 1e3:.2f} us ({by}); kernel device time '
+          f'{dev["chol_solve"] / (b_ms * 1e3):.1f}x its bound')
 
 
 def random_newton(gen, bsz, nv, n, ns):
@@ -436,12 +522,44 @@ def newton_smem():
   return out
 
 
-def newton_ptxas(log_path):
-  """ptxas -v's registers, stack and spills of B2's nv-2 and nv-18
-  instances, with the shared memory they take."""
-  return [f'nv-{nv} instance: '
-          + ' | '.join(ptxas_report(log_path, f'newton_kernelILi{nv}E'))
-          + '; ' + text for nv, text in newton_smem()]
+_SPILLS = re.compile(r'(\d+) bytes spill stores, (\d+) bytes spill loads')
+
+
+def ptxas_lines(name, lib):
+  """Phase 2's report on kernel `name` ('chol_solve' or 'newton') built
+  into `lib`: a line per bucket instance with ptxas -v's registers, stack
+  frame and spills (from the build log beside `lib`) and the shared
+  memory it takes; and the bytes all instances spill. Fails if an
+  instance has no report."""
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  with open(lib + '.log') as f:
+    log = f.read().splitlines()
+  if name == 'chol_solve':
+    kernel, label, buckets = 'chol_solve_kernel', 'N', spd_solve.N_BUCKETS
+    smem = lambda nb: (  # noqa: E731
+        f'; shared memory {spd_solve.block_smem_bytes(nb)} bytes a block of '
+        f'{spd_solve.THREADS // spd_solve.kernel_lanes(nb)} systems')
+  else:
+    kernel, label, buckets = 'newton_kernel', 'nv', newton.NV_BUCKETS
+    smem = lambda nb: ''  # noqa: E731
+  out, spilled = [], 0
+  for nb in buckets:
+    found = []
+    for i, line in enumerate(log):
+      if 'Compiling entry function' in line and f'{kernel}ILi{nb}E' in line:
+        for follow in log[i + 1:]:
+          if 'Compiling entry function' in follow:
+            break
+          if 'stack frame' in follow or 'Used' in follow:
+            found.append(follow.split(' : ', 1)[-1].strip())
+    check(found, f'no ptxas report for {kernel}<{nb}> in {lib}.log')
+    spilled += sum(int(x) for f in found for m in [_SPILLS.search(f)] if m
+                   for x in m.groups())
+    out.append(f'ptxas -v, {name} {label}-{nb} instance: '
+               + ' | '.join(found) + smem(nb))
+  if name == 'newton':
+    out += [f'newton {text}' for _, text in newton_smem()]
+  return out, spilled
 
 
 def errors(got, want):
@@ -628,7 +746,7 @@ def main():
                      'this script needs an NVIDIA GPU')
   sys.path.insert(0, ROOT)
   try:
-    from mujoco_mpc_tpu_torch.ops import cuda_build, linalg, spd_solve
+    from mujoco_mpc_tpu_torch.ops import cuda_build
     from mujoco_mpc_tpu_torch.physics.model import make_data
     from mujoco_mpc_tpu_torch.tasks import registry
   except ImportError as e:
@@ -639,12 +757,9 @@ def main():
   torch.backends.cudnn.allow_tf32 = False
 
   # 1. device
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip().splitlines()
   print('phase 1 device:', torch.cuda.get_device_name(0),
         f'(torch {torch.__version__}, CUDA {torch.version.cuda}), nvidia-smi:')
-  print(smi[0])
+  print(smi_line())
 
   # 2. build, both sources at once (nvcc is one process per file)
   t0 = time.perf_counter()
@@ -655,31 +770,23 @@ def main():
     cuda_build.load(name)
   print(f'phase 2 build: chol_solve.cu + newton.cu with nvcc for sm_90a in '
         f'{time.perf_counter() - t0:.1f} s')
-  for line in newton_ptxas(libs['newton'] + '.log'):
-    print('phase 2 ptxas -v, newton ' + line)
+  for name in kernels:
+    lines, spilled = ptxas_lines(name, libs[name])
+    for line in lines:
+      print('phase 2 ' + line)
+    check(spilled == 0, f'{name}: an instance spills ({spilled} bytes of '
+          f'spill stores and loads in all)')
 
   # 3. kernels vs plain versions, float32 on the card
   gen = torch.Generator(device=DEV).manual_seed(0)
-  worst_spd = 0.0
-  for n in (2, 8, 18, 24, 32):
-    for bsz in (CART_SAMPLES, CART_SAMPLES + 1):
-      a, b = random_spd(gen, bsz, n)
-      _, err = errors(spd_solve.solve_spd(a, b), linalg.solve_spd(a, b))
-      worst_spd = max(worst_spd, err)
-  # cond(a) <= ~10 and n <= 32: f32 rounding (kernel fuses multiply-adds
-  # and multiplies by 1/L_ii where the plain version divides) < 1e-4
-  check(worst_spd <= 1e-4, f'chol_solve vs plain: {worst_spd:.3g} > 1e-4')
-  print(f'phase 3a chol_solve vs plain, n in 2/8/18/24/32, B 8192/8193: max '
-        f'rel err {worst_spd:.3g} (tol 1e-4)')
+  check_spd_random(gen)
 
   check_newton_random(gen)
 
   cart = registry.get_task('Cartpole', device=DEV)
   spd_in, (newton_in, _, _, _) = solver_inputs(cart, cartpole_states(cart,
                                                                      gen))
-  spd_abs, spd_err = errors(spd_solve.solve_spd(*spd_in),
-                            linalg.solve_spd(*spd_in))
-  check(spd_err <= 1e-5, f'chol_solve on Cartpole inputs: {spd_err:.3g}')
+  spd_abs, spd_err = check_spd_inputs(spd_in, 1e-5, 'Cartpole')
   cart_cap = cart.model.opt.iterations
   newton_abs, newton_err, cart_active = check_newton_cartpole(newton_in,
                                                               cart_cap)
@@ -696,10 +803,7 @@ def main():
   quad_cap = quad.model.opt.iterations
   q_spd_in, (q_args, q_gargs, q_condims, q_dmasks) = solver_inputs(
       quad, quadruped_states(quad, gen))
-  q_spd_abs, q_spd_err = errors(spd_solve.solve_spd(*q_spd_in),
-                                linalg.solve_spd(*q_spd_in))
-  check(q_spd_err <= 1e-4, f'chol_solve on Quadruped inputs: '
-        f'{q_spd_err:.3g} > 1e-4')
+  q_spd_abs, q_spd_err = check_spd_inputs(q_spd_in, 1e-4, 'Quadruped')
   q_kw = dict(cap=quad_cap, tol=1e-5, condims=q_condims, dmasks=q_dmasks)
   q_newton_abs, q_line = check_newton_quadruped(q_args, q_gargs, q_kw)
   print(f'phase 3e Quadruped step inputs (B {QUAD_SAMPLES}, condims '
@@ -707,10 +811,6 @@ def main():
         f'{q_spd_err:.3g} (tol 1e-4); {q_line}')
 
   # 4. timing at both paths' shapes
-  def library_spd(a, b):
-    factor, _ = torch.linalg.cholesky_ex(a)
-    return torch.cholesky_solve(b[..., None], factor)[..., 0]
-
   kern = {}
   for path, spd_args, n_args, n_gargs, n_kw, n_label in (
       ('cartpole', spd_in, newton_in, (), dict(cap=cart_cap, tol=1e-5),
@@ -718,28 +818,20 @@ def main():
       ('quadruped', q_spd_in, q_args, q_gargs, q_kw,
        f'B {QUAD_SAMPLES} nv 18 ns 24 one condim-3 group P 20 cap '
        f'{quad_cap}')):
-    fns = {
-        'chol_solve': lambda a=spd_args: spd_solve.solve_spd(*a),
-        'chol_plain': lambda a=spd_args: linalg.solve_spd(*a),
-        'chol_library': lambda a=spd_args: library_spd(*a)}
-    wall = {k: cuda_time_ms(f) for k, f in fns.items()}
-    dev = {k: device_us(f) for k, f in fns.items()}
-    spd_b, spd_by = spd_bound(spd_args[0])
+    spd_times = time_spd(spd_args)
     n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw)
-    wall.update(n_wall)
-    dev.update(n_dev)
-    kern[path] = dict(wall=wall, dev=dev, spd_bound=(spd_b, spd_by),
+    kern[path] = dict(wall={**spd_times[0], **n_wall},
+                      dev={**spd_times[1], **n_dev}, spd_bound=spd_times[2],
                       newton_bound=n_bound)
     print(f'phase 4 timing {path} per call, wall (median of {TIME_REPS}, '
-          f'CUDA events) / device only (profiler): chol_solve B '
-          f'{spd_args[0].shape[0]} n {spd_args[0].shape[1]}: kernel '
-          f'{wall["chol_solve"] * 1e3:.1f} / {dev["chol_solve"]:.1f} us, '
-          f'plain {wall["chol_plain"] * 1e3:.1f} / {dev["chol_plain"]:.1f} '
-          f'us, torch.linalg.cholesky_ex + cholesky_solve '
-          f'{wall["chol_library"] * 1e3:.1f} / {dev["chol_library"]:.1f} '
-          f'us, bound {spd_b * 1e3:.2f} us ({spd_by}); kernel device time '
-          f'{dev["chol_solve"] / (spd_b * 1e3):.1f}x its bound; '
+          f'CUDA events) / device only (profiler): '
+          + spd_timing_line(*spd_times, spd_args[0]) + '; '
           + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters))
+  for n in SPD_EXTRA_N:
+    spd_args = random_spd(gen, QUAD_SAMPLES, n)
+    print(f'phase 4 timing, random systems, per call, wall / device only: '
+          + spd_timing_line(*time_spd(spd_args, SPD_EXTRA_PLAIN_REPS),
+                            spd_args[0]))
 
   # 5-7. Cartpole
   d0 = make_data(cart.model).replace(qpos=torch.tensor([CART_QPOS0],
@@ -811,22 +903,6 @@ def main():
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))
-
-
-def ptxas_report(log_path, kernel_tag):
-  """ptxas -v's lines for the kernel whose mangled name holds
-  `kernel_tag`: its registers, stack frame and spills."""
-  with open(log_path) as f:
-    lines = f.read().splitlines()
-  out = []
-  for i, line in enumerate(lines):
-    if 'Compiling entry function' in line and kernel_tag in line:
-      for follow in lines[i + 1:]:
-        if 'Compiling entry function' in follow:
-          break
-        if 'stack frame' in follow or 'Used' in follow:
-          out.append(follow.split(' : ', 1)[-1].strip())
-  return out or ['(no ptxas report found)']
 
 
 if __name__ == '__main__':

@@ -5,106 +5,211 @@
 // unrolled Cholesky-Crout factor with the diagonal floored at 1e-30, then
 // forward and back substitution.
 //
-// What bounds it on the card: nothing but launch overhead on the planner's
-// paths. There a = (B, n, n) and b = (B, n) float32 with n = nv of the
-// model: Cartpole n 2, B 8192, ~260 KB moved and ~20 flops per system;
-// Quadruped n 18 (its own bucket), B 4096, ~5.6 MB moved and ~1.6 kflop
-// per system, far below any roofline. Measured there on an NVIDIA H100 80GB
-// HBM3 (700 W power limit): 1.4 us of device time per call, against ~30 us
-// of host time for the wrapper and the launch. At n near 32 the factor no
-// longer fits in registers and spills to local memory (n = 32: 9 KB stack
-// per thread), and the flops (~n^3/6 per system) start to count.
+// What bounds it on the card: a = (B, n, n) and b = (B, n) float32 with
+// n = nv of the model: Cartpole n 2, B 8192, and Quadruped n 18, B 4096.
+// n^3 / 3 + 2 n^2 flops a system (2.6 kflop at n 18) are far below the
+// card's float32 rate, so the bytes bound it: 3.4 MB at n 18 for a's lower
+// triangle, b and x, 1.0 us at 3.35 TB/s. In practice two things add up:
+// the copy of a into shared memory, and then the latency of each system's
+// ~n dependent steps (one column of the factor after the other), which
+// all systems run at once, so that nothing hides it.
 //
-// Design: one thread per system, the factor held in a (N, N) array that is
-// fully unrolled for a compile-time bucket N >= n, so for small n it lives
-// in registers. Dimensions n..N-1 are padded as an identity block, which
-// leaves the first n components bit-identical to an exact-n factorization
-// (the padding only ever adds exact zeros). Each thread reads its own
-// (n, n) row-major block, so at n > 2 a warp's loads are strided, i.e.
-// uncoalesced; the TPU kernel's transposed (n, n, B) layout, batch
-// innermost, is the known fix and is left for a later change. No shared
-// memory, no synchronisation, no allocation; the launch goes on the
-// caller's stream.
+// Design: a tile of L lanes solves one system, L the smallest power of two
+// >= the bucket N but at most 8 (2 for n <= 2, 8 for n >= 5); lane t holds
+// rows t, t + L, ... (R = ceil(N / L) of them), so a warp holds 32 / L
+// systems and a block of 64 threads 64 / L. Each warp first copies the
+// lower triangles of its systems, which are contiguous in a, as one flat
+// range into its slice of shared memory, by asynchronous 4-byte copies
+// that are all in flight at once and take no registers: lane k copies
+// word k, k + 32, ... of the range (the reads coalesce; words above the
+// diagonal are skipped) to row r, column c of its system's (N, N + 1)
+// block (the odd row stride keeps the column reads of the backward solve
+// free of bank conflicts). Each lane then holds its rows in registers,
+// row t + q L up to column (q + 1) L - 1 (the lower triangle and a little
+// more: 80 floats at N 32, not 128); the Cholesky factor runs column by
+// column across the tile, each L_kj shuffled once from the lane that holds
+// row k to the lanes that need it, with rsqrtf for 1 / L_jj, and so does
+// the forward solve; the factor's rows go back to shared memory, where the
+// backward solve reads L's columns. A tile of 8 lanes, not 32, for 18
+// rows: each shuffle then serves four systems of the warp, and no lane is
+// left without a row (a 32-lane tile idles 14). b is read (before the
+// copy is waited for) and x written directly, one element a row: the
+// tiles of a warp are consecutive systems, so those accesses coalesce as
+// they are. Dimensions n..N-1 are padded with an identity block (b = 0),
+// which leaves the first n components exactly as an exact-n factorization
+// gives them.
+// Every collective (shuffle, __syncwarp) takes the full warp and sits
+// behind no condition, and every tile does the same fixed work: a tile
+// past the end of the batch solves an identity system and writes nothing.
+// Only the warp synchronises, never the block.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 64;
 
+// lanes of the tile that solves one system: the smallest power of two
+// >= N, at least 2 and at most 8; lane t holds rows t, t + L, ...
+__host__ __device__ constexpr int lanes(int n) {
+  return n <= 2 ? 2 : n <= 4 ? 4 : 8;
+}
+
+// shared memory a block takes, in floats: kThreads / L systems of
+// (N, N + 1)
+__host__ __device__ constexpr int block_floats(int N) {
+  return kThreads / lanes(N) * N * (N + 1);
+}
+
 template <int N>
 __global__ void __launch_bounds__(kThreads)
 chol_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
                   float* __restrict__ x, int batch, int n) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= batch) return;
-  const float* as = a + static_cast<size_t>(s) * n * n;
-  const float* bs = b + static_cast<size_t>(s) * n;
+  constexpr int L = lanes(N);
+  constexpr int R = (N + L - 1) / L;     // rows a lane holds
+  constexpr int S = N + 1;               // row stride in shared memory
+  constexpr int kTiles = 32 / L;         // systems a warp
+  static_assert(block_floats(N) * sizeof(float) <= 48 * 1024,
+                "static shared memory is limited to 48 KB");
+  __shared__ float smem[block_floats(N)];
 
-  float l[N][N];
+  const int lane = threadIdx.x % 32;
+  const int t = lane % L;
+  const int warp = threadIdx.x / 32;
+  const long long first = (static_cast<long long>(blockIdx.x) * kThreads
+                           / 32 + warp) * kTiles;   // the warp's 1st system
+  const long long sys = first + lane / L;
+  const bool valid = sys < batch;
+  float* wsh = smem + warp * kTiles * N * S;
+  float* tsh = wsh + (lane / L) * N * S;
+
+  // b, one element a row, read before the copy waits
+  float acc[R], inv[R];
 #pragma unroll
-  for (int r = 0; r < N; ++r) {
+  for (int q = 0; q < R; ++q) {
+    const int i = t + q * L;
+    acc[q] = valid && i < n ? __ldg(b + sys * n + i) : 0.f;
+    inv[q] = 1.f;
+  }
+
+  // copy the lower triangles of the warp's systems, all copies in flight
+  // at once: word e of the flat range is system e / n^2, row (e % n^2) / n,
+  // column e % n, and (s, r, c) advance by 32 words a step
+  const int nn = n * n;
+  const long long left = batch - first;
+  const int words = static_cast<int>((left < kTiles ? left : kTiles) * nn);
+  const float* src = a + first * nn;
+  const int ds = 32 / nn, dr = 32 % nn / n, dc = 32 % n;
+  int s = lane / nn, r = lane % nn / n, c = lane % n;
+  for (int e = lane; e < words; e += 32) {
+    if (c <= r) {
+      __pipeline_memcpy_async(wsh + s * N * S + r * S + c, src + e, 4);
+    }
+    c += dc;
+    r += dr;
+    s += ds;
+    if (c >= n) {
+      c -= n;
+      ++r;
+    }
+    if (r >= n) {
+      r -= n;
+      ++s;
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+
+  // h[q]: row t + q L of the matrix, its columns k < (q + 1) L (the lower
+  // triangle and a little more); an identity row past n
+  float h[R][R * L];
 #pragma unroll
-    for (int c = 0; c <= r; ++c) {
-      l[r][c] = r < n ? as[r * n + c] : (r == c ? 1.f : 0.f);
+  for (int q = 0; q < R; ++q) {
+    const int i = t + q * L;
+#pragma unroll
+    for (int k = 0; k < N && k < (q + 1) * L; ++k) {
+      h[q][k] = (valid && i < n && k <= i) ? tsh[i * S + k]
+                                           : (k == i ? 1.f : 0.f);
     }
   }
 
-  // Cholesky-Crout, column by column, in place on the lower triangle
-  float inv_diag[N];
+  // Cholesky, column by column: h ends as the lane's rows of the factor
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    float sjj = l[j][j];
+    const float d = fmaxf(__shfl_sync(0xffffffffu, h[j / L][j], j % L, L),
+                          1e-30f);
+    const float inv_j = rsqrtf(d);       // 1 / L_jj, one hardware rsqrt
+    float lj[R];
 #pragma unroll
-    for (int k = 0; k < j; ++k) sjj -= l[j][k] * l[j][k];
-    const float ljj = sqrtf(fmaxf(sjj, 1e-30f));
-    l[j][j] = ljj;
-    const float inv = 1.f / ljj;
-    inv_diag[j] = inv;
+    for (int q = 0; q < R; ++q) {
+      if ((q + 1) * L > j) {
+        const int i = t + q * L;
+        lj[q] = i == j ? d * inv_j : h[q][j] * inv_j;
+        h[q][j] = lj[q];
+        if (i == j) inv[q] = inv_j;
+      }
+    }
 #pragma unroll
-    for (int i = j + 1; i < N; ++i) {
-      float sij = l[i][j];
+    for (int k = j + 1; k < N; ++k) {
+      const float lkj = __shfl_sync(0xffffffffu, lj[k / L], k % L, L);
 #pragma unroll
-      for (int k = 0; k < j; ++k) sij -= l[i][k] * l[j][k];
-      l[i][j] = sij * inv;
+      for (int q = 0; q < R; ++q) {
+        if ((q + 1) * L > k) h[q][k] -= lj[q] * lkj;
+      }
     }
   }
-
-  // L y = b, then L^T x = y (x overwrites y)
-  float y[N];
+  // L y = b, then L^T x = y (L's columns from shared memory)
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    float si = i < n ? bs[i] : 0.f;
+  for (int j = 0; j < N; ++j) {
+    const float yj = __shfl_sync(0xffffffffu, acc[j / L] * inv[j / L], j % L,
+                                 L);
 #pragma unroll
-    for (int k = 0; k < i; ++k) si -= l[i][k] * y[k];
-    y[i] = si * inv_diag[i];
+    for (int q = 0; q < R; ++q) {
+      if ((q + 1) * L > j && t + q * L > j) acc[q] -= h[q][j] * yj;
+    }
   }
 #pragma unroll
-  for (int i = N - 1; i >= 0; --i) {
-    float si = y[i];
+  for (int q = 0; q < R; ++q) {
+    const int i = t + q * L;
+    if (i < N) {
 #pragma unroll
-    for (int k = i + 1; k < N; ++k) si -= l[k][i] * y[k];
-    y[i] = si * inv_diag[i];
+      for (int k = 0; k < N && k < (q + 1) * L; ++k) tsh[i * S + k] = h[q][k];
+    }
+    acc[q] *= inv[q];
   }
-
-  float* xs = x + static_cast<size_t>(s) * n;
+  __syncwarp();
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (i < n) xs[i] = y[i];
+  for (int k = N - 1; k >= 0; --k) {
+    const float xk = __shfl_sync(0xffffffffu, acc[k / L] * inv[k / L], k % L,
+                                 L);
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int i = t + q * L;
+      if (q * L < k && i < k) acc[q] -= tsh[k * S + i] * xk;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    const int i = t + q * L;
+    if (valid && i < n) x[sys * n + i] = acc[q] * inv[q];
   }
 }
 
 template <int N>
 void launch(const float* a, const float* b, float* x, int batch, int n,
             cudaStream_t stream) {
-  const int blocks = (batch + kThreads - 1) / kThreads;
+  constexpr int kSystems = kThreads / lanes(N);
+  const int blocks = (batch + kSystems - 1) / kSystems;
   chol_solve_kernel<N><<<blocks, kThreads, 0, stream>>>(a, b, x, batch, n);
 }
 
 }  // namespace
 
 // a (batch, n, n), b (batch, n), x (batch, n): contiguous float32 on the
-// device, 1 <= n <= 32. Returns cudaGetLastError() after the launch.
+// device, 1 <= n <= 32. The factor uses a's lower triangle only. Returns
+// cudaGetLastError() after the launch.
 extern "C" int mjpc_chol_solve_f32(const float* a, const float* b, float* x,
                                    int batch, int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);

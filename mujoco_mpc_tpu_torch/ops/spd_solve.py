@@ -8,7 +8,8 @@ PyTorch version is ops/linalg.solve_spd.
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, and anything the kernel cannot take raises. There is
 no size gate: the TPU's MIN_PALLAS_N = 12 (:28) was a TPU measurement, and
-the card's own gate, if any, is for a later change to measure.
+on the card the kernel takes every n from 1 to 32 (a gate that sent small
+n to the plain version or a library call would be a fallback).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ from mujoco_mpc_tpu_torch.ops import cuda_build
 from mujoco_mpc_tpu_torch.ops import linalg
 
 MAX_N = 32
+# the kernel's compile-time sizes: n runs in the smallest bucket >= n
+N_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 18, 24, 32)
+THREADS = 64
 
 
 @functools.lru_cache(maxsize=None)
@@ -31,6 +35,27 @@ def _entry():
   fn.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, p]
   fn.restype = ctypes.c_int
   return fn
+
+
+def _bucket(n: int) -> int:
+  if not 1 <= n <= MAX_N:
+    raise ValueError(f'the kernel takes 1 <= n <= {MAX_N}, got {n}')
+  return next(k for k in N_BUCKETS if k >= n)
+
+
+def kernel_lanes(n: int) -> int:
+  """Lanes of the tile that solves one system: the smallest power of two
+  >= n's bucket, at least 2 and at most 8 (csrc/chol_solve.cu `lanes`);
+  a lane holds ceil(bucket / lanes) rows."""
+  return min(8, max(2, 1 << (_bucket(n) - 1).bit_length()))
+
+
+def block_smem_bytes(n: int) -> int:
+  """Static shared memory a block of the kernel takes, in bytes: THREADS
+  / L systems, each an (N, N + 1) float32 block for the bucket N
+  (csrc/chol_solve.cu `block_floats`)."""
+  bucket = _bucket(n)
+  return 4 * THREADS // kernel_lanes(n) * bucket * (bucket + 1)
 
 
 def _check(a: torch.Tensor, b: torch.Tensor) -> None:
@@ -44,8 +69,7 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
      or tuple(b.shape) != tuple(a.shape[:2]):
     raise ValueError(f'expected a (B, n, n), b (B, n); got {tuple(a.shape)}'
                      f', {tuple(b.shape)}')
-  if not 1 <= a.shape[-1] <= MAX_N:
-    raise ValueError(f'the kernel takes 1 <= n <= {MAX_N}, got {a.shape[-1]}')
+  _bucket(a.shape[-1])
   if not (a.is_contiguous() and b.is_contiguous()):
     raise ValueError('the kernel takes contiguous tensors')
 

@@ -204,14 +204,23 @@ def _malformed(case):
 @pytest.mark.parametrize('args,error', [
     ((_meta(8, 3, 3, dtype=torch.float64), _meta(8, 3, dtype=torch.float64)),
      TypeError),
+    ((_meta(8, 3, 3, dtype=torch.float16), _meta(8, 3, dtype=torch.float16)),
+     TypeError),
+    ((_meta(8, 0, 0), _meta(8, 0)), ValueError),
     ((_meta(8, 33, 33), _meta(8, 33)), ValueError),
     ((_meta(8, 3, 3), _meta(8, 4)), ValueError),
     ((_meta(8, 3, 3).transpose(1, 2), _meta(8, 3)), ValueError),
+    ((_meta(8, 3, 3), _meta(8, 6)[:, ::2]), ValueError),
     ((torch.zeros(8, 3, 3), _meta(8, 3)), ValueError),
 ])
-def test_spd_wrapper_refuses(no_plain, args, error):
+def test_spd_wrapper_refuses(no_plain, monkeypatch, args, error):
+  """What the kernel cannot take is refused before nvcc is reached."""
+  built = []
+  monkeypatch.setattr(cuda_build, 'load', built.append)
+  spd_solve._entry.cache_clear()
   with pytest.raises(error):
     spd_solve.solve_spd(*args)
+  assert built == []
 
 
 @pytest.mark.parametrize('kwargs,error', [

@@ -5,18 +5,17 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/newton_check.py [timing]
 
 It builds csrc/newton.cu only and prints ptxas's register, stack and
-spill report for each nv bucket, then runs chip_smoke.py's B2 checks
-against the plain version (phases 3b-3e: random dense and one-hot rows,
-the Cartpole step's inputs, random contact groups, the Quadruped step's
-inputs) and phase 4's B2 timing at both paths' shapes, with the bound and
-the card's name and power limit. Any failed check exits non-zero. With
-`timing` it skips the checks (about 6 minutes of plain-version runs) and
-only builds, reports and times.
+spill report for each nv bucket (a spill fails the run at its end), then
+runs chip_smoke.py's B2 checks against the plain version (phases 3b-3e:
+random dense and one-hot rows, the Cartpole step's inputs, random contact
+groups, the Quadruped step's inputs) and phase 4's B2 timing at both
+paths' shapes, with the bound and the card's name and power limit. Any
+failed check exits non-zero. With `timing` it skips the checks (about 6
+minutes of plain-version runs) and only builds, reports and times.
 """
 
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -50,20 +49,14 @@ def kernel_us(fn, reps=20):
 def main():
   if not torch.cuda.is_available():
     raise SystemExit('newton_check: no CUDA device')
-  smi = subprocess.run(
-      ['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-      capture_output=True, text=True, check=True).stdout.strip()
-  print(smi.splitlines()[0], f'(torch {torch.__version__})')
+  print(cs.smi_line(), f'(torch {torch.__version__})')
   torch.backends.cuda.matmul.allow_tf32 = False
   t0 = time.perf_counter()
-  log = cuda_build.build('newton') + '.log'
+  lib = cuda_build.build('newton')
   cuda_build.load('newton')
   print(f'build: newton.cu in {time.perf_counter() - t0:.1f} s')
-  for nv in newton.NV_BUCKETS:
-    print(f'ptxas -v, nv-{nv} instance: ' + ' | '.join(
-        cs.ptxas_report(log, f'newton_kernelILi{nv}E')))
-  for _, text in cs.newton_smem():
-    print(text)
+  lines, spilled = cs.ptxas_lines('newton', lib)
+  print('\n'.join(lines))
 
   checks = sys.argv[1:] != ['timing']
   gen = torch.Generator(device=cs.DEV).manual_seed(0)
@@ -106,6 +99,7 @@ def main():
     print(f'newton device us by cap (CUDA events behind a busy stream), '
           f'{label}: ' + ', '.join(f'{c}: {us:.1f}'
                                    for c, us in enumerate(times)))
+  cs.check(spilled == 0, f'newton: the instances spill {spilled} bytes')
   done = 'all checks passed' if checks else 'timed'
   print(f'newton_check: {done} in {time.perf_counter() - t0:.1f} s')
 
