@@ -15,12 +15,17 @@ Phases, one line each (any failure exits non-zero):
      3c both on the inputs the Cartpole step gives them; 3d B2's contact
      groups (condim 1, 3, 4, 6, and two groups) on random factored
      problems, task-shaped and dense, with the near ties counted by rows
-     per dof; 3e both on the inputs the Quadruped step gives them;
+     per dof; 3e both on the inputs the Quadruped step gives them; 3f
+     both on the inputs the Humanoid Track step gives them (B1 on both of
+     its systems, qM and the Euler system with the joint damping, B2 in
+     its nv-24 bucket), from states as deep in the floor as a step goes
+     and from far deeper ones, held to 3d's rule for dense problems;
   4. timing: kernel, plain version and (B1) torch.linalg's batched
-     Cholesky at both paths' shapes, and B1 at n 24 and 32 (B 4096, random
-     systems), wall per call (CUDA events, median of 30) and device time
-     (profiler), with each kernel's bound and its device time as a
-     multiple of the bound;
+     Cholesky at the three paths' shapes, and B1 at n 24 and 32 (B 4096,
+     random systems), wall per call (CUDA events, median of 30; the plain
+     versions at the Humanoid shapes and B1's at n 24 and 32 over 3 calls)
+     and device time (profiler), with each kernel's bound and its device
+     time as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
      steps, 10 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
@@ -31,10 +36,15 @@ Phases, one line each (any failure exits non-zero):
      timed plans from `home`, checked and profiled as in phase 5;
   9. Quadruped golden: the bounds of bench.py's fused_newton_golden;
   10. Quadruped plan-act: synchronous MPC at 128 candidates, 25 plans of
-     4 steps, the task's transition on.
+     4 steps, the task's transition on;
+  11. Humanoid Track main path: 512 candidates x 41 steps, 10 knots, 5
+     timed plans from `home` (the clip's first pose), checked and profiled
+     as in phase 5 (bench.py's humanoid_track_ps512);
+  12. Humanoid Track golden: the bounds of phase 9;
+  13. Humanoid Track plan-act: as phase 10.
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": both), and as the last line
-{"ok": true, "device": {...}}.
+(top-level keys: the Quadruped path; "paths": all three), and as the last
+line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -49,10 +59,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CART_SAMPLES = 8192
 QUAD_SAMPLES = 4096
+HUMAN_SAMPLES = 512
 SPLINE_POINTS = 10
 CART_QPOS0 = (1.0, 3.14159)
 CART_PLANS = 10
 QUAD_PLANS = 5
+HUMAN_PLANS = 5
+# the plain versions at the Humanoid shapes, timed over a few calls: B1's
+# unrolls ~5,000 launches a call at n 23, B2's ~6 times as many
+HUMAN_PLAIN_REPS = 3
 TIME_REPS = 30
 # B1 beyond the paths' sizes: the buckets the mesh-hull hands will use,
 # its plain version there timed over a few calls
@@ -96,19 +111,32 @@ def cuda_time_ms(fn, reps=TIME_REPS):
   return statistics.median(times)
 
 
-def device_us(fn, reps=TIME_REPS, top=0):
+def device_us(fn, reps=TIME_REPS, top=0, kernel=None):
   """Device time of fn() per call in microseconds, from the CUDA kernels
   the profiler saw over `reps` calls (no host time). With `top`, also
   (device ops per call, [(name, count, us) of the `top` ops with the most
-  device time]). The profiler drops a few kernel records now and then (on
-  an H100 it saw B1's kernel 28 or 29 times in 30 calls, pass after pass;
-  once, late in chip_smoke, far fewer), so each op counts as its mean
-  time over the records it has, times the launches it makes a call
-  (its record count over `reps`, rounded). A pass in which the op with
-  the most device time has fewer records than half the calls is taken
-  again, up to five passes, and then fails."""
+  device time]). The profiler drops kernel records of the hand kernels
+  (on an H100 it kept 28 or 29 of 30 of B1's, pass after pass; in other
+  processes 7 of 30 of B1's at n 32 and 11 of 30 of B2's at the Humanoid
+  shapes, in every pass), so each op counts as its mean time over the
+  records it has, times the launches it makes a call: its record count
+  over `reps`, rounded, or for `kernel`, the name of a hand kernel that
+  fn launches once a call, one. A pass in which the op with the most
+  device time (with `kernel`, that kernel) has too few records to count
+  (fewer than half the calls; with `kernel`, none) is taken again, up to
+  five passes, and then fails; a line says how many records of `kernel`
+  the profiler kept when it kept fewer than the calls."""
   import torch
   from torch.profiler import ProfilerActivity, profile
+
+  def launches(e):
+    return 1 if kernel and kernel in e.key else round(e.count / reps)
+
+  def counted(dev):
+    if kernel:
+      return [e for e in dev if kernel in e.key]
+    return dev[:1] if dev and 2 * dev[0].count >= reps else []
+
   fn()
   torch.cuda.synchronize()
   for _ in range(5):
@@ -120,14 +148,18 @@ def device_us(fn, reps=TIME_REPS, top=0):
     dev = sorted((e for e in prof.key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA),
                  key=lambda e: -e.self_device_time_total)
-    if dev and 2 * dev[0].count >= reps:
+    if counted(dev):
       break
-  check(dev and 2 * dev[0].count >= reps, 'the profiler saw '
-        + (f'{dev[0].key[:60]} {dev[0].count} times' if dev else 'no kernel')
+  check(counted(dev), 'the profiler saw '
+        + (f'no {kernel}' if kernel else
+           f'{dev[0].key[:60]} {dev[0].count} times' if dev else 'no kernel')
         + f' over {reps} calls, in five passes')
-  ops = [(e.key, round(e.count / reps),
-          e.self_device_time_total / e.count * round(e.count / reps)
-          if round(e.count / reps) else e.self_device_time_total / reps)
+  if kernel and counted(dev)[0].count < reps:
+    print(f'device_us: the profiler kept {counted(dev)[0].count} of {reps} '
+          f'records of {kernel}')
+  ops = [(e.key, launches(e),
+          e.self_device_time_total / e.count * launches(e)
+          if launches(e) else e.self_device_time_total / reps)
          for e in dev]
   total = sum(us for _, _, us in ops)
   if not top:
@@ -292,7 +324,9 @@ def time_spd(args, plain_reps=None):
   reps = {k: plain_reps if k == 'chol_plain' and plain_reps else TIME_REPS
           for k in fns}
   wall = {k: cuda_time_ms(f, reps[k]) for k, f in fns.items()}
-  dev = {k: device_us(f, reps[k]) for k, f in fns.items()}
+  dev = {k: device_us(f, reps[k], kernel='chol_solve_kernel'
+                      if k == 'chol_solve' else None)
+         for k, f in fns.items()}
   return wall, dev, spd_bound(args[0]), reps['chol_plain']
 
 
@@ -382,13 +416,14 @@ def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
 # one <= 1e-3; on problems shaped like a task's (`share`), at most 1% may
 # be outside the tolerance.
 def newton_ok(label, bsz, nbad, gap, bad_gap, share=True):
-  if share:
-    check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
-          f'disagree, more than 1%')
   check(gap <= 1e-3, f'newton ({label}, B {bsz}): relative cost gap '
         f'{gap:.3g} > 1e-3')
   check(bad_gap <= 1e-5, f'newton ({label}, B {bsz}): a sample outside '
         f'the tolerance has relative cost gap {bad_gap:.3g} > 1e-5')
+  if share:
+    check(nbad <= bsz // 100, f'newton ({label}, B {bsz}): {nbad} samples '
+          f'disagree, more than 1% (each a near tie: their relative cost '
+          f'gaps <= {bad_gap:.3g})')
 
 
 def newton_line(nbad, bsz, gap, bad_gap, share=True):
@@ -466,59 +501,92 @@ def check_newton_groups(gen):
             for (r, sh), (nb, b) in sorted(ties.items())))
 
 
-def check_newton_quadruped(args, gargs, kw):
-  """Phase 3e's B2 part on the Quadruped step's inputs: (max abs error,
-  the line's text)."""
+def check_newton_task(label, args, gargs, kw, share=True):
+  """Phases 3e and 3f's B2 part on a task step's inputs: (max abs error,
+  the line's text, with the rows per dof and the share of the points in
+  contact, by which phase 3d counts the near ties). `share` as in
+  newton_ok: False for states far deeper in contact than a step reaches,
+  which are held to the near-tie rule of phase 3d's dense problems."""
   from mujoco_mpc_tpu_torch.ops import newton
+  bsz, nv = args[1].shape
   nbad, gap, err_abs, bad_gap = compare_newton(args, gargs, **kw)
-  newton_ok('Quadruped inputs', QUAD_SAMPLES, nbad, gap, bad_gap)
+  newton_ok(f'{label} inputs', bsz, nbad, gap, bad_gap, share)
   want = newton.newton_reference(*args, *gargs, **kw)
   in_contact = int((gargs[3] > 0).sum())
   facets = int(((want[3] < 0) & (gargs[3][:, None, :] > 0)).sum())
   violated = int((args[7] > 0).sum())
   limits = int(((want[2] < 0) & (args[7] > 0)).sum())
+  rows = args[2].shape[1] + args[6].shape[1] + sum(
+      len(newton.PYRAMID_FACETS[c]) * g.shape[-1]
+      for c, g in zip(kw['condims'], gargs[3::4]))
   return err_abs, (
-      f'{in_contact} points in contact, {facets} of their facets active at '
-      f'the solution; {violated} limit rows violated, {limits} active at the'
-      f' solution; newton cap {kw["cap"]}: '
-      f'{newton_line(nbad, QUAD_SAMPLES, gap, bad_gap)}')
+      f'{in_contact} points in contact ({in_contact / gargs[3].numel():.3f}'
+      f' of all), {facets} of their facets active at the solution; '
+      f'{violated} limit rows violated, {limits} active at the solution; '
+      f'{rows / nv:.1f} rows per dof; newton cap {kw["cap"]}: '
+      f'{newton_line(nbad, bsz, gap, bad_gap, share)}')
 
 
-def time_newton(args, gargs, kw):
+def time_newton(args, gargs, kw, plain_reps=None):
   """Phase 4's B2 part: wall (CUDA events) and device (profiler) times of
-  the kernel and its plain version, and the bound for these inputs."""
+  the kernel and its plain version (over `plain_reps` calls), and the
+  bound for these inputs."""
   from mujoco_mpc_tpu_torch.ops import newton
   fns = {'newton': lambda: newton.newton(*args, *gargs, **kw),
          'newton_plain': lambda: newton.newton_reference(*args, *gargs,
                                                          **kw)}
-  wall = {k: cuda_time_ms(f) for k, f in fns.items()}
-  dev = {k: device_us(f) for k, f in fns.items()}
+  reps = {k: plain_reps if k == 'newton_plain' and plain_reps else TIME_REPS
+          for k in fns}
+  wall = {k: cuda_time_ms(f, reps[k]) for k, f in fns.items()}
+  dev = {k: device_us(f, reps[k], kernel='newton_kernel'
+                      if k == 'newton' else None)
+         for k, f in fns.items()}
   b_ms, by, iters = newton_bound(args, gargs, kw.get('condims', ()),
                                  kw.get('dmasks', ()), kw['cap'], kw['tol'])
   return wall, dev, (b_ms, by), iters
 
 
-def newton_timing_line(label, wall, dev, bound_, iters):
+def newton_timing_line(label, wall, dev, bound_, iters, plain_reps=None):
   b_ms, by = bound_
   return (f'newton {label}: kernel {wall["newton"] * 1e3:.1f} / '
-          f'{dev["newton"]:.1f} us, plain {wall["newton_plain"] * 1e3:.1f} / '
+          f'{dev["newton"]:.1f} us, plain'
+          f'{f" ({plain_reps} calls)" if plain_reps else ""} '
+          f'{wall["newton_plain"] * 1e3:.1f} / '
           f'{dev["newton_plain"]:.1f} us, bound {b_ms * 1e3:.2f} us ({by}; '
           f'{iters:.2f} iterations per sample); kernel device time '
           f'{dev["newton"] / (b_ms * 1e3):.1f}x its bound')
 
 
+def resident_blocks(nv, threads, smem):
+  """Blocks of B2's nv-bucket instance that one SM holds at once, with
+  `threads` threads and `smem` bytes of dynamic shared memory a block (the
+  CUDA occupancy calculator, through the kernel's library)."""
+  import ctypes
+  from mujoco_mpc_tpu_torch.ops import cuda_build
+  blocks = ctypes.c_int(0)
+  cuda_build.check(cuda_build.load('newton').mjpc_newton_blocks_per_sm(
+      nv, threads, smem, ctypes.byref(blocks)), 'newton occupancy')
+  return blocks.value
+
+
 def newton_smem():
-  """[(nv, text)]: the dynamic shared memory B2 takes at the two paths'
-  shapes (the kernel sizes it at launch, 128 threads a block)."""
+  """[(nv, text)]: the dynamic shared memory B2 takes at the three paths'
+  shapes (the kernel sizes it at launch, 128 threads a block) and the
+  samples an SM then holds. The Humanoid's block is the first a task
+  takes past 48 KB, through the kernel's opt-in attribute."""
   from mujoco_mpc_tpu_torch.ops import newton
   out = []
   for nv, shape, smem in (
       (2, 'Cartpole nv 2 ns 2', newton.sample_smem_bytes(2, 0, 2)),
       (18, 'Quadruped nv 18 ns 24, condim-3 P 20',
-       newton.sample_smem_bytes(18, 0, 24, [(3, 20)]))):
+       newton.sample_smem_bytes(18, 0, 24, [(3, 20)])),
+      (23, 'Humanoid nv 23 ns 34, condim-3 P 25',
+       newton.sample_smem_bytes(23, 0, 34, [(3, 25)]))):
     tiles = 128 // newton.kernel_lanes(nv)
+    blocks = resident_blocks(nv, 128, tiles * smem)
     out.append((nv, f'dynamic shared memory at {shape}: {smem} bytes a '
-                f'sample, {tiles * smem} a block of {tiles}'))
+                f'sample, {tiles * smem} a block of {tiles}; {blocks} '
+                f'blocks, {blocks * tiles} samples resident per SM'))
   return out
 
 
@@ -616,6 +684,42 @@ def quadruped_states(spec, gen):
   ctrl = lo + (hi - lo) * torch.rand((b, m.nu), generator=gen, device=DEV)
   return make_data(m, b).replace(qpos=qpos, qvel=0.5 * r(b, m.nv),
                                  ctrl=ctrl)
+
+
+def humanoid_states(spec, gen, deep=False):
+  """512 states around `home` (the clip's first pose, its feet ~0.2 m
+  above the floor), tilted, the hinges spread by 0.4 rad, some past their
+  limits, and the torso lowered by 0.2-0.3 m, so that the feet go up to
+  ~0.1 m into the floor as a rollout's landing takes them (the
+  Quadruped's states go 8 cm deep); `deep`: by 0.15-0.75 m, so that feet,
+  shins and at the deepest the pelvis go far into it, deeper than a step
+  reaches."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.utils import math as tm
+  m, b = spec.model, HUMAN_SAMPLES
+  r = lambda *s: torch.randn(s, generator=gen, device=DEV)  # noqa: E731
+  qpos = m.keyframe_qpos('home').expand(b, -1).clone()
+  lowered = torch.rand(b, generator=gen, device=DEV)
+  qpos[:, 2] -= 0.15 + 0.6 * lowered if deep else 0.2 + 0.1 * lowered
+  qpos[:, 3:7] = tm.quat_normalize(qpos[:, 3:7] + 0.1 * r(b, 4))
+  qpos[:, 7:] += 0.4 * r(b, m.nq - 7)
+  lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  ctrl = lo + (hi - lo) * torch.rand((b, m.nu), generator=gen, device=DEV)
+  return make_data(m, b).replace(qpos=qpos, qvel=0.5 * r(b, m.nv),
+                                 ctrl=ctrl)
+
+
+def euler_inputs(spec, d):
+  """B1's second system of a step from states d: M + h diag(damping) and
+  qfrc_smooth + qfrc_constraint, as physics/forward.py _euler solves it
+  (the forward pass runs both kernels)."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  m = spec.model
+  d = fwd.forward(m, d)
+  return ((d.qM + m.opt.timestep * torch.diag(m.dof_damping)).contiguous(),
+          (d.qfrc_smooth + d.qfrc_constraint).contiguous())
 
 
 def main_path(spec, d0, samples, reps, gen):
@@ -805,28 +909,55 @@ def main():
       quad, quadruped_states(quad, gen))
   q_spd_abs, q_spd_err = check_spd_inputs(q_spd_in, 1e-4, 'Quadruped')
   q_kw = dict(cap=quad_cap, tol=1e-5, condims=q_condims, dmasks=q_dmasks)
-  q_newton_abs, q_line = check_newton_quadruped(q_args, q_gargs, q_kw)
+  q_newton_abs, q_line = check_newton_task('Quadruped', q_args, q_gargs,
+                                          q_kw)
   print(f'phase 3e Quadruped step inputs (B {QUAD_SAMPLES}, condims '
         f'{q_condims}, P {q_gargs[1].shape[1]}): chol_solve n 18 rel err '
         f'{q_spd_err:.3g} (tol 1e-4); {q_line}')
 
-  # 4. timing at both paths' shapes
+  hum = registry.get_task('Humanoid Track')
+  hum_cap = hum.model.opt.iterations
+  for deep in (False, True):
+    h_states = humanoid_states(hum, gen, deep)
+    s_in, (args, gargs, condims, dmasks) = solver_inputs(hum, h_states)
+    spd_abs_, spd_err_ = check_spd_inputs(s_in, 1e-4, 'Humanoid')
+    _, euler_err = check_spd_inputs(euler_inputs(hum, h_states), 1e-4,
+                                    'Humanoid Euler')
+    kw = dict(cap=hum_cap, tol=1e-5, condims=condims, dmasks=dmasks)
+    newton_abs_, line = check_newton_task('Humanoid', args, gargs, kw,
+                                          share=not deep)
+    print(f'phase 3f Humanoid Track step inputs, '
+          f'{"deep contact" if deep else "task-shaped"} (B {HUMAN_SAMPLES}, '
+          f'condims {condims}, P {gargs[1].shape[1]}, ns {args[6].shape[1]}'
+          f'): chol_solve n {hum.model.nv} rel err qM {spd_err_:.3g}, Euler '
+          f'system {euler_err:.3g} (tol 1e-4); {line}')
+    if not deep:    # the inputs phase 4 times and the JSON line reports
+      h_spd_in, h_args, h_gargs, h_kw = s_in, args, gargs, kw
+      h_spd_abs, h_newton_abs = spd_abs_, newton_abs_
+
+  # 4. timing at the three paths' shapes
   kern = {}
-  for path, spd_args, n_args, n_gargs, n_kw, n_label in (
+  for path, spd_args, n_args, n_gargs, n_kw, n_label, plain_reps in (
       ('cartpole', spd_in, newton_in, (), dict(cap=cart_cap, tol=1e-5),
-       f'B {CART_SAMPLES} nv 2 ns 2 cap {cart_cap}'),
+       f'B {CART_SAMPLES} nv 2 ns 2 cap {cart_cap}', None),
       ('quadruped', q_spd_in, q_args, q_gargs, q_kw,
        f'B {QUAD_SAMPLES} nv 18 ns 24 one condim-3 group P 20 cap '
-       f'{quad_cap}')):
-    spd_times = time_spd(spd_args)
-    n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw)
+       f'{quad_cap}', None),
+      ('humanoid_track', h_spd_in, h_args, h_gargs, h_kw,
+       f'B {HUMAN_SAMPLES} nv {hum.model.nv} ns {h_args[6].shape[1]} one '
+       f'condim-3 group P {h_gargs[1].shape[1]} cap {hum_cap}',
+       HUMAN_PLAIN_REPS)):
+    spd_times = time_spd(spd_args, plain_reps)
+    n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw,
+                                                plain_reps)
     kern[path] = dict(wall={**spd_times[0], **n_wall},
                       dev={**spd_times[1], **n_dev}, spd_bound=spd_times[2],
                       newton_bound=n_bound)
     print(f'phase 4 timing {path} per call, wall (median of {TIME_REPS}, '
           f'CUDA events) / device only (profiler): '
           + spd_timing_line(*spd_times, spd_args[0]) + '; '
-          + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters))
+          + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters,
+                               plain_reps))
   for n in SPD_EXTRA_N:
     spd_args = random_spd(gen, QUAD_SAMPLES, n)
     print(f'phase 4 timing, random systems, per call, wall / device only: '
@@ -876,6 +1007,31 @@ def main():
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
 
+  # 11-13. Humanoid Track
+  h_d0 = make_data(hum.model).replace(
+      qpos=hum.model.keyframe_qpos('home')[None])
+  hum_main = main_path(hum, h_d0, HUMAN_SAMPLES, HUMAN_PLANS, gen)
+  print_main_path(11, 'Humanoid Track', HUMAN_SAMPLES, HUMAN_PLANS, hum_main)
+  hum_cpu = registry.get_task('Humanoid Track', device='cpu')
+  h_d0_cpu = make_data(hum_cpu.model).replace(
+      qpos=hum_cpu.model.keyframe_qpos('home')[None])
+  # both plans run in float32, so a sample time on a clip frame boundary
+  # floors to the same frame on the card and the CPU; the bounds absorb
+  # what the kernels' rounding moves over 41 steps of contact
+  br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+      hum, hum_cpu, h_d0, h_d0_cpu, gen, 0.2)
+  print(f'phase 12 golden: Humanoid Track 256-candidate plan best_return '
+        f'card {br_gpu:.6g} vs CPU plain {br_cpu:.6g}: rel err {rel:.3g} '
+        f'(tol 0.02); winner card {win_gpu} vs CPU {win_cpu} (match '
+        f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
+        f'(tol 0.05)')
+  samples = max(int(hum.config.get('sampling_trajectories', 128)), 128)
+  steps, sim_t, wall, rtf, mean, last = plan_act(hum, h_d0, samples, 100, 3)
+  print(f'phase 13 plan-act: Humanoid Track {steps} steps ({sim_t:.2f} s '
+        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
+        f'{mean:.4g}, last {last:.4g}')
+
   def entry(name, path, launches, err):
     k = kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -891,12 +1047,15 @@ def main():
   for name, source, replaces, errs in (
       ('chol_solve', 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
        'mujoco_mpc_tpu/ops/pallas_linalg.py:90',
-       {'cartpole': spd_abs, 'quadruped': q_spd_abs}),
+       {'cartpole': spd_abs, 'quadruped': q_spd_abs,
+        'humanoid_track': h_spd_abs}),
       ('newton', 'mujoco_mpc_tpu_torch/csrc/newton.cu',
        'mujoco_mpc_tpu/ops/pallas_newton.py:750',
-       {'cartpole': newton_abs, 'quadruped': q_newton_abs})):
+       {'cartpole': newton_abs, 'quadruped': q_newton_abs,
+        'humanoid_track': h_newton_abs})):
     paths = {p: entry(name, p, r['launches'], errs[p])
-             for p, r in (('cartpole', cart_main), ('quadruped', quad_main))}
+             for p, r in (('cartpole', cart_main), ('quadruped', quad_main),
+                          ('humanoid_track', hum_main))}
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

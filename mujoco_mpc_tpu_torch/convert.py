@@ -9,10 +9,12 @@ tools/export_torch_snapshot.py writes them (it may import JAX; this
 module never does) into mujoco_mpc_tpu_torch/assets/<task>.npz.
 
 Snapshot layout: arrays 'model/<field>' (physics/model.py ARRAY_FIELDS
-and 'opt.<field>'), 'params/<field>' (TaskParams), and 'static', one JSON
-string: {'name', 'model': {static Model fields}, 'task': {term_names,
-norm_types, term_dims, config, weight_ranges, residual_param_names,
-residual_param_ranges}}.
+and 'opt.<field>'), 'params/<field>' (TaskParams), 'task/<name>' (arrays
+a task keeps beside its model and parameters, such as Humanoid Track's
+marker clip; tasks/registry.py hands them to the task's maker), and
+'static', one JSON string: {'name', 'model': {static Model fields},
+'task': {term_names, norm_types, term_dims, config, weight_ranges,
+residual_param_names, residual_param_ranges}}.
 """
 
 from __future__ import annotations
@@ -45,23 +47,28 @@ def params_from_arrays(arrays: dict, device='cuda',
       for k in PARAM_FIELDS})
 
 
+def group(arrays: dict, prefix: str) -> dict:
+  """The snapshot arrays under `prefix` ('model/', 'params/', 'task/'),
+  keyed by their names without it."""
+  return {k[len(prefix):]: v for k, v in arrays.items()
+          if k.startswith(prefix)}
+
+
 def spec_from_arrays(arrays: dict, static: dict, residual_fn, device='cuda',
                      dtype=torch.float32) -> base.TaskSpec:
   """TaskSpec from a snapshot's arrays and static dict (layout above)."""
-  def sub(prefix):
-    return {k[len(prefix):]: v for k, v in arrays.items()
-            if k.startswith(prefix)}
-
   task = static['task']
   tup = lambda xs: tuple(tuple(x) for x in xs)  # noqa: E731
   return base.TaskSpec(
       name=static['name'],
-      model=model_from_arrays(sub('model/'), static['model'], device, dtype),
+      model=model_from_arrays(group(arrays, 'model/'), static['model'],
+                              device, dtype),
       term_names=tuple(task['term_names']),
       norm_types=tuple(task['norm_types']),
       term_dims=tuple(task['term_dims']),
       residual_fn=residual_fn,
-      default_params=params_from_arrays(sub('params/'), device, dtype),
+      default_params=params_from_arrays(group(arrays, 'params/'), device,
+                                        dtype),
       config=dict(task['config']),
       weight_ranges=tup(task['weight_ranges']),
       residual_param_names=tuple(task['residual_param_names']),

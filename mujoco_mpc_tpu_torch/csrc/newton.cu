@@ -461,6 +461,23 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) newton_kernel(
   }
 }
 
+// The kernel instance's attributes for blocks of `smem` bytes of dynamic
+// shared memory: as much of the SM's L1 as shared memory as it takes, so
+// that as many blocks as fit stay resident, and past 48 KB the opt-in to
+// it. Returns a CUDA error code.
+template <int NV>
+int set_attributes(int smem) {
+  cudaFuncSetAttribute(newton_kernel<NV>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (smem > 48 * 1024) {
+    return static_cast<int>(cudaFuncSetAttribute(
+        newton_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem));
+  }
+  return 0;
+}
+
 template <int NV>
 int launch(const float* qm, const float* qs, const float* j,
            const float* aref, const float* dvec, const float* eqf,
@@ -483,17 +500,8 @@ int launch(const float* qm, const float* qs, const float* j,
   }
   if (tiles < 1) return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes = per * tiles;
-  // as much of the SM's L1 as shared memory as it takes, so that as many
-  // blocks as fit stay resident
-  cudaFuncSetAttribute(newton_kernel<NV>,
-                       cudaFuncAttributePreferredSharedMemoryCarveout,
-                       cudaSharedmemCarveoutMaxShared);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        newton_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int err = set_attributes<NV>(static_cast<int>(bytes));
+  if (err != 0) return err;
   const int blocks = (batch + tiles - 1) / tiles;
   newton_kernel<NV><<<blocks, tiles * L, bytes, stream>>>(
       qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cdofc, qacc,
@@ -501,7 +509,31 @@ int launch(const float* qm, const float* qs, const float* j,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int NV>
+int blocks_per_sm(int threads, int smem, int* blocks) {
+  const int err = set_attributes<NV>(smem);
+  if (err != 0) return err;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, newton_kernel<NV>, threads, static_cast<size_t>(smem)));
+}
+
 }  // namespace
+
+// The blocks of `threads` threads and `smem` bytes of dynamic shared
+// memory that one SM of the current device holds at once, for nv's bucket
+// instance, with the attributes launch() sets (the CUDA occupancy
+// calculator's answer, written to *blocks). Returns a CUDA error code.
+extern "C" int mjpc_newton_blocks_per_sm(int nv, int threads, int smem,
+                                         int* blocks) {
+  if (nv < 1 || nv > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (nv <= 2) return blocks_per_sm<2>(threads, smem, blocks);
+  if (nv <= 4) return blocks_per_sm<4>(threads, smem, blocks);
+  if (nv <= 8) return blocks_per_sm<8>(threads, smem, blocks);
+  if (nv <= 12) return blocks_per_sm<12>(threads, smem, blocks);
+  if (nv <= 18) return blocks_per_sm<18>(threads, smem, blocks);
+  if (nv <= 24) return blocks_per_sm<24>(threads, smem, blocks);
+  return blocks_per_sm<32>(threads, smem, blocks);
+}
 
 // qm (batch, nv, nv), qs (batch, nv), j (batch, n, nv), aref/dvec/eqf
 // (batch, n), s_aref/s_dvec (batch, ns): contiguous float32 on the device;

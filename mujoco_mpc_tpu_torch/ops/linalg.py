@@ -8,8 +8,10 @@ CUDA kernel in ops/spd_solve.py.
 
 JAX switches to a blocked factorization above n = 24 (linalg.py:59) and to
 XLA's own above n = 128; both compute the same factorization in another
-order. The port unrolls for every n: planner models have nv <= 32 here,
-and the CUDA kernel takes every batched solve on the card.
+order. The port unrolls for every n. On the card the CUDA kernel takes
+every batched solve up to n = 32, and the wrappers refuse a larger n
+(ops/spd_solve.py, ops/newton.py): planner models reach nv 87 (Cube
+Solving), and their design lands with the mesh-hull slice (ROADMAP A7).
 """
 
 from __future__ import annotations

@@ -57,6 +57,8 @@ def fwd_actuation(m: Model, d: Data) -> Data:
 
 
 def fwd_acceleration(m: Model, d: Data) -> Data:
+  if m.nv == 0:   # a static scene: nothing to solve
+    return d
   qfrc_smooth = (d.qfrc_passive - d.qfrc_bias + d.qfrc_actuator
                  + d.qfrc_applied + smooth.xfrc_accumulate(m, d))
   qfrc = qfrc_smooth + d.qfrc_constraint

@@ -6,7 +6,8 @@ subtree_linvel :35, _descendants :53, subtree_angmom :72, _static_geoms
 bodies at once, weighted by the subtree's 0/1 body mask, where JAX loops
 over the static body list.
 
-Not ported yet: the state helpers, raycast and mesh rays (ROADMAP A8),
+Not ported yet: site_linvel (Humanoid Track's CMU branch, which waits for
+the clip files), the state helpers, raycast and mesh rays (ROADMAP A8),
 and ground_height over height fields (A7), which raises.
 """
 
@@ -20,10 +21,12 @@ from mujoco_mpc_tpu_torch.physics.model import Data, GeomType, Model
 from mujoco_mpc_tpu_torch.utils import math as tm
 
 
-def point_velocity(m: Model, d: Data, bodyid: int,
+def point_velocity(m: Model, d: Data, bodyid,
                    point: torch.Tensor) -> torch.Tensor:
-  """World linear velocity (B, 3) of a point (B, 3) attached to a body."""
-  origin = d.subtree_com[:, m.body_rootid[bodyid]]
+  """World linear velocity (B, 3) of a point (B, 3) attached to a body;
+  with a LongTensor of k body ids, (B, k, 3) of points (B, k, 3) (JAX
+  stacks one call per body)."""
+  origin = d.subtree_com[:, m.idx.body_rootid[bodyid]]
   w = d.cvel[:, bodyid, :3]
   return d.cvel[:, bodyid, 3:] + tm.cross(w, point - origin)
 

@@ -1,12 +1,14 @@
 """Task registry: built-in tasks, loaded from model snapshots.
 
-Port of mujoco_mpc_tpu/tasks/registry.py: the Cartpole entry (:114-129)
-and Quadruped Flat (_make_quadruped :354-699, registered at :702). The
-JAX registry compiles models/*.xml with `mujoco`; the port loads the
-compiled model and task parameters from mujoco_mpc_tpu_torch/assets/
-(written by tools/export_torch_snapshot.py), so it runs where neither
-`mujoco` nor JAX is installed. Residuals are batch-first; a transition
-takes the B = 1 simulation state.
+Port of mujoco_mpc_tpu/tasks/registry.py: the Cartpole entry (:114-129),
+Quadruped Flat (_make_quadruped :354-699, registered at :702), Humanoid
+Stand and Walk (_make_humanoid :722-765, registered at :767-782) and
+Humanoid Track (:1381-1508, its procedural clip). The JAX registry
+compiles models/*.xml with `mujoco`; the port loads the compiled model,
+the task parameters and the task's own arrays (Track's clip) from
+mujoco_mpc_tpu_torch/assets/ (written by tools/export_torch_snapshot.py),
+so it runs where neither `mujoco` nor JAX is installed. Residuals are
+batch-first; a transition takes the B = 1 simulation state.
 
 Tasks load on the card unless the caller asks for another device
 (`device='cpu'` in the tests); with no CUDA device the default raises.
@@ -30,7 +32,7 @@ ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), 'assets')
 
 
-def _cartpole(spec: base.TaskSpec):
+def _cartpole(spec: base.TaskSpec, task: dict):
   def residual(m, d, rp):
     """Reference: mjpc/tasks/cartpole/cartpole.cc Residual."""
     return torch.stack([
@@ -117,7 +119,7 @@ def _flip_angle(t):
                                           torch.full_like(t, 2 * np.pi)))))
 
 
-def _quadruped(spec: base.TaskSpec):
+def _quadruped(spec: base.TaskSpec, task: dict):
   """Quadruped locomotion with the reference's modes Quadruped / Biped /
   Walk / Scramble / Flip, automatic gait switching and the backflip
   trajectory; the mode state lives in hidden residual-param slots that
@@ -352,9 +354,135 @@ def _quadruped(spec: base.TaskSpec):
   return residual, transition
 
 
-# task name -> (snapshot file, spec -> (residual_fn, transition_fn))
+# ---------------------------------------------------------------------------
+# Humanoid Stand / Walk (reference: mjpc/tasks/humanoid/humanoid.cc),
+# registry.py :722-782. Walk's default speed goal (residual_params[1] = 1)
+# travels in its snapshot's parameters.
+# ---------------------------------------------------------------------------
+
+
+def _humanoid(spec: base.TaskSpec, task: dict, walk: bool):
+  m = spec.model
+  torso, head = m.body('torso'), m.site('head_site')
+  feet = torch.tensor([m.site('right_foot_site'), m.site('left_foot_site')],
+                      device=m.device)
+  e_z = torch.tensor([0.0, 0.0, 1.0], device=m.device, dtype=m.dtype)
+
+  def residual(m, d, rp):
+    foot_pos = d.site_xpos[:, feet]                               # (B, 2, 3)
+    avg_foot_z = foot_pos[..., 2].mean(1)
+    # Height: head height above the feet vs the goal
+    r_height = (d.site_xpos[:, head, 2] - avg_foot_z - rp[0])[:, None]
+    # Balance: capture point vs the feet's centroid
+    com = d.subtree_com[:, torso]
+    com_vel = support.subtree_linvel(m, d, torso)
+    fall_time = torch.sqrt(torch.clamp(com[:, 2] - avg_foot_z, min=0.01)
+                           / 9.81)
+    capture = com[:, :2] + fall_time[:, None] * com_vel[:, :2]
+    r_balance = capture - foot_pos[..., :2].mean(1)
+    # CoM Vel.: the commanded forward speed (0 for Stand)
+    r_comvel = com_vel[:, :2]
+    if walk:
+      fwd_vec = d.xmat[:, torso, :2, 0]
+      fwd_vec = fwd_vec / torch.clamp(
+          torch.linalg.vector_norm(fwd_vec, dim=-1, keepdim=True), min=1e-6)
+      r_comvel = r_comvel - rp[1] * fwd_vec
+    # Upright: torso z axis vs world up
+    r_upright = d.xmat[:, torso, :, 2] - e_z
+    return torch.cat([r_height, r_balance, r_comvel, 0.1 * d.qvel[:, 6:],
+                      d.ctrl, r_upright], -1)
+
+  return residual, None
+
+
+# ---------------------------------------------------------------------------
+# Humanoid Track (reference: mjpc/tasks/humanoid/tracking/tracking.cc),
+# registry.py :1270-1508: body markers tracked along a clip baked at 30
+# fps, linear interpolation between its frames on each sample's time.
+# ---------------------------------------------------------------------------
+
+_TRACK_FPS = 30.0
+_TRACK_MARKERS = (
+    'torso', 'pelvis', 'right_thigh', 'right_shin', 'right_foot',
+    'left_thigh', 'left_shin', 'left_foot', 'right_upper_arm',
+    'right_lower_arm', 'left_upper_arm', 'left_lower_arm')
+
+
+def _humanoid_track(spec: base.TaskSpec, task: dict):
+  """The procedural branch of the JAX task, which runs where the
+  reference's CMU clips are absent: the 12 bodies of _TRACK_MARKERS track
+  the clip's marker table (task['markers'] (frames, 12, 3), float32 as JAX
+  holds it, :1433) inside the window of clip `_clip` (task['starts'],
+  task['lengths']), with the clip time restarted by the transition on a
+  rewind of the simulation time."""
+  if 'marker_sites' in task:
+    raise NotImplementedError(
+        'Humanoid Track on the CMU clips (marker sites, site_linvel) is not '
+        'ported yet: it waits for the CMU clip files in the repository '
+        '(ROADMAP, Queue A item 1)')
+  m = spec.model
+  idx = {n: i for i, n in enumerate(spec.residual_param_names)}
+  # JAX's float32 table, promoted to the model's dtype in the residual
+  markers = torch.as_tensor(np.asarray(task['markers'], np.float32),
+                            device=m.device).to(m.dtype)
+  starts = torch.as_tensor(np.asarray(task['starts']), device=m.device,
+                           dtype=torch.long)
+  lengths = torch.as_tensor(np.asarray(task['lengths']), device=m.device,
+                            dtype=torch.long)
+  bodies = torch.tensor([m.body(b) for b in _TRACK_MARKERS],
+                        device=m.device)
+
+  def frames(t, clip):
+    """Reference ComputeInterpolationValues (tracking.cc:28-39) in the
+    clip's window (:57-66): the bracketing frames and the weight of the
+    later one, per sample. On a time that sits on a frame boundary, f32
+    on the card and f64 on the CPU may floor to neighbouring frames."""
+    start = starts[clip].to(m.dtype)
+    last = (starts[clip] + lengths[clip] - 1).to(m.dtype)
+    ft = torch.minimum(torch.maximum(t * _TRACK_FPS + start, start), last)
+    i0 = torch.floor(ft)
+    return i0.long(), torch.minimum(i0 + 1, last).long(), ft - i0
+
+  def residual(m, d, rp):
+    bsz = d.qpos.shape[0]
+    clip = torch.clamp(torch.round(rp[idx['_clip']]).long(), 0,
+                       starts.shape[0] - 1)
+    i0, i1, a = frames(d.time - rp[idx['_ref_time']], clip)
+    m0, m1 = markers[i0], markers[i1]                     # (B, nmark, 3)
+    target = (1.0 - a)[:, None, None] * m0 + a[:, None, None] * m1
+    cur = d.xpos[:, bodies]
+    cur_v = support.point_velocity(m, d, bodies, cur)
+    avg_t, avg_c = target.mean(1, keepdim=True), cur.mean(1, keepdim=True)
+    r_avg = (avg_t - avg_c)[:, 0]
+    r_pos = ((target - avg_t) - (cur - avg_c)).reshape(bsz, -1)
+    # finite-difference marker velocity of the unweighted bracketing
+    # frames (tracking.cc:189-210)
+    r_vel = ((m1 - m0) * _TRACK_FPS - cur_v).reshape(bsz, -1)
+    return torch.cat([d.qvel[:, 6:], d.ctrl, r_avg, r_pos, r_vel], -1)
+
+  def transition(m, d, params, generator):
+    """Reference-time handling (tracking.cc TransitionLocked): when the
+    simulation time went back (a reset or rewind), the clip restarts from
+    the current time."""
+    rp = params.residual_params.clone()
+    time = d.time[0]
+    ref, last = idx['_ref_time'], idx['_last_time']
+    rp[ref] = torch.where(time < rp[last], time, rp[ref])
+    rp[last] = time
+    return d, params.replace(residual_params=rp)
+
+  return residual, transition
+
+
+# task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
+# transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
-         'Quadruped Flat': ('quadruped_flat.npz', _quadruped)}
+         'Quadruped Flat': ('quadruped_flat.npz', _quadruped),
+         'Humanoid Track': ('humanoid_track.npz', _humanoid_track),
+         'Humanoid Stand': ('humanoid_stand.npz',
+                            functools.partial(_humanoid, walk=False)),
+         'Humanoid Walk': ('humanoid_walk.npz',
+                           functools.partial(_humanoid, walk=True))}
 
 
 def task_names():
@@ -369,6 +497,7 @@ def get_task(name: str, device='cuda', dtype=torch.float32) -> base.TaskSpec:
   arrays, static = convert.load_snapshot(os.path.join(ASSETS, fname))
   spec = convert.spec_from_arrays(arrays, static, None, device=device,
                                   dtype=dtype)
-  residual_fn, transition_fn = make_fns(spec)
+  residual_fn, transition_fn = make_fns(spec,
+                                        convert.group(arrays, 'task/'))
   return dataclasses.replace(spec, residual_fn=residual_fn,
                              transition_fn=transition_fn)

@@ -1,8 +1,8 @@
 """Package-level checks of the PyTorch port.
 
-* Every module of mujoco_mpc_tpu_torch imports, and the Cartpole and
-  Quadruped Flat tasks load, with jax, flax, mujoco and the JAX package
-  blocked: the GPU machine has none of them.
+* Every module of mujoco_mpc_tpu_torch imports, and the Cartpole,
+  Quadruped Flat and Humanoid Track tasks load and step, with jax, flax,
+  mujoco and the JAX package blocked: the GPU machine has none of them.
 * Entry points build on the card unless asked for the CPU: without a card
   the default raises.
 * chip_smoke.py refuses to run without a card and prints no result.
@@ -76,6 +76,28 @@ def test_quadruped_loads_without_jax_or_mujoco():
   assert proc.stdout.split() == ['18', '9', '42', '1']
 
 
+def test_humanoid_track_steps_without_jax_or_mujoco():
+  """The Track clip travels in the snapshot: the task loads and one CPU
+  step runs its residual, cost and transition with nothing of JAX or
+  mujoco importable."""
+  proc = _run(BLOCK + (
+      "import torch\n"
+      "from mujoco_mpc_tpu_torch.physics import forward\n"
+      "from mujoco_mpc_tpu_torch.physics.model import make_data\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "spec = registry.get_task('Humanoid Track', device='cpu')\n"
+      "m, p = spec.model, spec.default_params\n"
+      "d = make_data(m).replace(qpos=m.keyframe_qpos('home')[None])\n"
+      "d, p = spec.transition_fn(m, d, p, torch.Generator())\n"
+      "d = forward.forward(m, d)\n"
+      "c = spec.cost(spec.residual_fn(m, d, p.residual_params), p)\n"
+      "d = forward.integrate(m, d)\n"
+      "print(m.nv, len(m.collision_pairs), spec.num_residual,\n"
+      "      int(torch.isfinite(c).all() and torch.isfinite(d.qpos).all()))\n"))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.split() == ['23', '7', '109', '1']
+
+
 def test_get_task_defaults_to_the_card():
   """No quiet CPU fallback: the default device is CUDA, and without a
   card asking for it raises."""
@@ -83,8 +105,9 @@ def test_get_task_defaults_to_the_card():
   if torch.cuda.is_available():
     assert registry.get_task('Quadruped Flat').model.device.type == 'cuda'
   else:
-    with pytest.raises(RuntimeError, match='no CUDA device'):
-      registry.get_task('Quadruped Flat')
+    for name in registry.task_names():
+      with pytest.raises(RuntimeError, match='no CUDA device'):
+        registry.get_task(name)
     with pytest.raises(RuntimeError, match='no CUDA device'):
       convert.params_from_arrays({k: np.zeros(1) for k in
                                   convert.PARAM_FIELDS})
@@ -122,6 +145,14 @@ def test_quadruped_snapshot_is_current():
   _check_snapshot('Quadruped Flat')
 
 
+@pytest.mark.parametrize('name', ['Humanoid Track', 'Humanoid Stand',
+                                  'Humanoid Walk'])
+def test_humanoid_snapshots_are_current(name):
+  """Track's clip arrays ('task/markers', 'task/starts', 'task/lengths')
+  included."""
+  _check_snapshot(name)
+
+
 def test_port_uses_no_compiler_or_jit():
   pkg = os.path.join(ROOT, 'mujoco_mpc_tpu_torch')
   for dirpath, _, files in os.walk(pkg):
@@ -137,7 +168,8 @@ def test_port_uses_no_compiler_or_jit():
 def test_kernels_are_built_for_hopper():
   assert 'arch=compute_90a,code=sm_90a' in cuda_build.NVCC_FLAGS
   for name, entry in (('chol_solve', 'mjpc_chol_solve_f32'),
-                      ('newton', 'mjpc_newton_f32')):
+                      ('newton', 'mjpc_newton_f32'),
+                      ('newton', 'mjpc_newton_blocks_per_sm')):
     with open(os.path.join(cuda_build.CSRC, name + '.cu')) as f:
       assert f'extern "C" int {entry}(' in f.read()
 

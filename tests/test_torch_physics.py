@@ -147,3 +147,36 @@ def test_qacc_matches_mujoco(setup):
     # |qacc| (up to ~1e3 past the limit) the two agree to ~1e-8
     np.testing.assert_allclose(got[i], mjd.qacc, rtol=1e-6, atol=1e-6,
                                err_msg=f'state {i}')
+
+
+STATIC_XML = """<mujoco>
+  <worldbody>
+    <geom type="plane" size="1 1 0.1"/>
+    <body pos="0 0 1"><geom type="sphere" size="0.1"/></body>
+  </worldbody>
+</mujoco>"""
+
+
+def test_static_scene_has_nothing_to_solve(monkeypatch):
+  """nv 0 (a scene with no joints): fwd_acceleration returns its Data
+  unchanged without reaching the SPD solve, as JAX's does
+  (physics/forward.py:59-60), and the forward pass places the bodies as
+  JAX's does."""
+  jm, _ = load_model(xml_string=STATIC_XML, dtype=jnp.float64)
+  m = model_lib.from_arrays(*export.model_snapshot(jm), device='cpu',
+                            dtype=torch.float64)
+  assert m.nv == 0
+
+  def no_solve(*a, **k):
+    raise AssertionError('solved a system at nv 0')
+  monkeypatch.setattr(fwd.spd_solve, 'solve_spd', no_solve)
+  d = fwd.fwd_actuation(m, fwd.fwd_velocity(
+      m, fwd.fwd_position(m, model_lib.make_data(m, 3))))
+  d = smooth.crb(m, d).replace(qfrc_constraint=torch.zeros_like(d.qvel))
+  assert fwd.fwd_acceleration(m, d) is d
+  got = fwd.forward(m, model_lib.make_data(m, 3))
+  want = jfwd.forward(jm, jmake_data(jm, dtype=jnp.float64))
+  for k in ('xpos', 'geom_xpos'):
+    _close(getattr(got, k), np.broadcast_to(getattr(want, k),
+                                            getattr(got, k).shape), k,
+           atol=0)

@@ -7,11 +7,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
 It builds csrc/chol_solve.cu only and prints ptxas's register, stack and
 spill report for every bucket instance (N 1 to 32) with the shared memory
 a block takes, then runs chip_smoke.py's B1 checks against the plain
-version (phase 3a: every n from 1 to 32 at B 1, 8192 and 8193; 3c and 3e:
-the Cartpole and Quadruped steps' inputs, same tolerances) and times the
-kernel, the plain version and torch.linalg's cholesky_ex + cholesky_solve
-at n 2 (B 8192, the Cartpole step's systems), n 18 (B 4096, the
-Quadruped's) and n 24 and 32 (B 4096, random systems), each with its
+version (phase 3a: every n from 1 to 32 at B 1, 8192 and 8193; 3c, 3e and
+3f: the Cartpole, Quadruped and Humanoid Track steps' inputs, same
+tolerances) and times the kernel, the plain version and torch.linalg's
+cholesky_ex + cholesky_solve at n 2 (B 8192, the Cartpole step's
+systems), n 18 (B 4096, the Quadruped's), n 23 (B 512, the Humanoid's)
+and n 24 and 32 (B 4096, random systems), each with its
 bound, beside the card's name and power limit. A failed check exits
 non-zero at once; a spilling instance, after the timing. With `timing` it
 skips the checks.
@@ -48,9 +49,11 @@ def main():
   if checks:
     cs.check_spd_random(gen)
   shapes = []
-  for name, states, tol, phase in (
-      ('Cartpole', cs.cartpole_states, 1e-5, '3c'),
-      ('Quadruped Flat', cs.quadruped_states, 1e-4, '3e')):
+  for name, states, tol, phase, plain_reps in (
+      ('Cartpole', cs.cartpole_states, 1e-5, '3c', cs.TIME_REPS),
+      ('Quadruped Flat', cs.quadruped_states, 1e-4, '3e', cs.TIME_REPS),
+      ('Humanoid Track', cs.humanoid_states, 1e-4, '3f',
+       cs.HUMAN_PLAIN_REPS)):
     task = registry.get_task(name, device=cs.DEV)
     spd_in, _ = cs.solver_inputs(task, states(task, gen))
     if checks:
@@ -58,8 +61,8 @@ def main():
       print(f'phase {phase} {name} step inputs (B {spd_in[0].shape[0]}, n '
             f'{spd_in[0].shape[1]}): chol_solve rel err {err:.3g} (tol '
             f'{tol:g})')
-    shapes.append(spd_in)
-  shapes = [(x, cs.TIME_REPS) for x in shapes] + [
+    shapes.append((spd_in, plain_reps))
+  shapes += [
       (cs.random_spd(gen, cs.QUAD_SAMPLES, n), cs.SPD_EXTRA_PLAIN_REPS)
       for n in cs.SPD_EXTRA_N]
   for spd_in, plain_reps in shapes:

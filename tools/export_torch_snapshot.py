@@ -14,6 +14,7 @@ committed snapshot is stale.
 
 from __future__ import annotations
 
+import inspect
 import json
 import os
 import sys
@@ -55,12 +56,34 @@ def model_snapshot(m):
   return arrays, static
 
 
+def track_arrays(spec):
+  """Humanoid Track's clip, which JAX keeps in its residual's closure
+  (registry.py :1411-1433): the marker table as the residual holds it
+  (float32), the clips' first frames and lengths, and in the CMU branch
+  the marker sites."""
+  res = inspect.getclosurevars(spec.residual_fn).nonlocals
+  window = inspect.getclosurevars(res['_frames']).nonlocals
+  out = {'markers': np.asarray(res['markers_j']),
+         'starts': np.asarray(window['starts']),
+         'lengths': np.asarray(window['lengths'])}
+  if res['marker_sites'] is not None:
+    out['marker_sites'] = np.asarray(res['marker_sites'])
+  return out
+
+
+# task name -> its arrays beside Model and TaskParams ('task/<name>')
+TASK_ARRAYS = {'Humanoid Track': track_arrays}
+
+
 def task_snapshot(spec):
   """(arrays, static) of a JAX TaskSpec (layout: convert.py)."""
   ma, ms = model_snapshot(spec.model)
   arrays = {'model/' + k: v for k, v in ma.items()}
   arrays.update({'params/' + k: np.asarray(getattr(spec.default_params, k))
                  for k in PARAM_FIELDS})
+  if spec.name in TASK_ARRAYS:
+    arrays.update({'task/' + k: v
+                   for k, v in TASK_ARRAYS[spec.name](spec).items()})
   static = {
       'name': spec.name,
       'model': ms,

@@ -72,9 +72,12 @@ def main():
   samples = int(sys.argv[1]) if len(sys.argv) > 1 else 32
   chip_smoke.DEV = 'cpu'
   chip_smoke.CART_SAMPLES = chip_smoke.QUAD_SAMPLES = samples
-  chip_smoke.CART_PLANS = chip_smoke.QUAD_PLANS = 2
+  chip_smoke.HUMAN_SAMPLES = samples
+  chip_smoke.CART_PLANS = chip_smoke.QUAD_PLANS = chip_smoke.HUMAN_PLANS = 2
   chip_smoke.TIME_REPS = 2
-  chip_smoke.device_us = lambda fn, reps=2, top=0: (
+  chip_smoke.HUMAN_PLAIN_REPS = 1
+  chip_smoke.resident_blocks = lambda nv, threads, smem: 0
+  chip_smoke.device_us = lambda fn, reps=2, top=0, kernel=None: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
   run = subprocess.run
   chip_smoke.subprocess = types.SimpleNamespace(run=lambda cmd, **kw: (

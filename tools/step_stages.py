@@ -4,11 +4,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 tools/step_stages.py
 
-For Cartpole (8192 samples at the start state (1.0, 3.14159)) and
-Quadruped Flat (4096 samples at `home`), with random controls in the
-control range, it runs the stages of a rollout step
-(planners/rollout.py: forward, residual and cost, Euler) one after the
-other, each on the output of the one before. Each stage is timed alone:
+For Cartpole (8192 samples at the start state (1.0, 3.14159)), Quadruped
+Flat (4096 samples at `home`) and Humanoid Track (512 samples at `home`,
+the clip's first pose), with random controls in the control range, it
+runs the stages of a rollout step (planners/rollout.py: forward, residual
+and cost, Euler) one after the other, each on the output of the one
+before. Each stage is timed alone:
 wall time per call (median of 30 between two CUDA events, host launch
 overhead included) and device ops and device time per call (profiler, 5
 calls). It prints one table per task, the card's name and power limit
@@ -94,7 +95,8 @@ def main():
     list(pool.map(cuda_build.build, ('chol_solve', 'newton')))
   gen = torch.Generator(device='cuda').manual_seed(0)
   for name, bsz, qpos0 in (('Cartpole', 8192, None),
-                           ('Quadruped Flat', 4096, 'home')):
+                           ('Quadruped Flat', 4096, 'home'),
+                           ('Humanoid Track', 512, 'home')):
     spec = registry.get_task(name)
     m = spec.model
     qpos = (m.keyframe_qpos(qpos0) if qpos0 else
