@@ -19,13 +19,21 @@ Phases, one line each (any failure exits non-zero):
      both on the inputs the Humanoid Track step gives them (B1 on both of
      its systems, qM and the Euler system with the joint damping, B2 in
      its nv-24 bucket), from states as deep in the floor as a step goes
-     and from far deeper ones, held to 3d's rule for dense problems;
+     and from far deeper ones, held to 3d's rule for dense problems; 3g
+     both on the inputs the Shadow Reorient step gives them (B 8192, nv
+     21, 228 facet rows a sample, B2 at one block an SM), 256 samples at
+     qpos0 and the rest from 15 steps of rollouts (held to 3e's rule), or
+     with the cube pressed 0-10 mm into the palm and the fingers spread,
+     deeper than a step goes (held to 3d's rule for dense problems); 3h
+     the contact points the card's step stacks at both sets against the
+     CPU's plain path: the same tied hull vertices at qpos0, depths and
+     positions within f32 tolerance;
   4. timing: kernel, plain version and (B1) torch.linalg's batched
-     Cholesky at the three paths' shapes, and B1 at n 24 and 32 (B 4096,
+     Cholesky at the four paths' shapes, and B1 at n 24 and 32 (B 4096,
      random systems), wall per call (CUDA events, median of 30; the plain
-     versions at the Humanoid shapes and B1's at n 24 and 32 over 3 calls)
-     and device time (profiler), with each kernel's bound and its device
-     time as a multiple of the bound;
+     versions at the Humanoid shapes and B1's at n 24 and 32 over 3 calls,
+     at the Shadow shapes over one) and device time (profiler), with each
+     kernel's bound and its device time as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
      steps, 10 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
@@ -41,9 +49,14 @@ Phases, one line each (any failure exits non-zero):
      timed plans from `home` (the clip's first pose), checked and profiled
      as in phase 5 (bench.py's humanoid_track_ps512);
   12. Humanoid Track golden: the bounds of phase 9;
-  13. Humanoid Track plan-act: as phase 10.
+  13. Humanoid Track plan-act: as phase 10;
+  14. Shadow Reorient main path: 8192 candidates x 31 steps, 10 knots, 5
+     timed plans from qpos0, checked and profiled as in phase 5
+     (bench.py's shadow_ps8192);
+  15. Shadow Reorient golden: the bounds of phase 9;
+  16. Shadow Reorient plan-act: as phase 10.
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all three), and as the last
+(top-level keys: the Quadruped path; "paths": all four), and as the last
 line {"ok": true, "device": {...}}.
 """
 
@@ -60,11 +73,24 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CART_SAMPLES = 8192
 QUAD_SAMPLES = 4096
 HUMAN_SAMPLES = 512
+SHADOW_SAMPLES = 8192
 SPLINE_POINTS = 10
 CART_QPOS0 = (1.0, 3.14159)
 CART_PLANS = 10
 QUAD_PLANS = 5
 HUMAN_PLANS = 5
+SHADOW_PLANS = 5
+# Shadow states at qpos0 itself (phase 3g's first samples): the cube rests
+# unrotated there, and 8 of its hull vertices tie for the floor's 4 points
+SHADOW_QPOS0 = 256
+# phase 3g's task-shaped states: this many planning steps from qpos0
+SHADOW_ROLLOUT_STEPS = 15
+# the plain versions at the Shadow shapes, timed over one call
+SHADOW_PLAIN_REPS = 1
+# phase 3h: contact points on the card against the CPU's, float32 both;
+# positions and depths are O(0.3 m) after a chain of 4 bodies
+POINT_ATOL = 1e-5
+NORMAL_ATOL = 1e-4
 # the plain versions at the Humanoid shapes, timed over a few calls: B1's
 # unrolls ~5,000 launches a call at n 23, B2's ~6 times as many
 HUMAN_PLAIN_REPS = 3
@@ -570,10 +596,11 @@ def resident_blocks(nv, threads, smem):
 
 
 def newton_smem():
-  """[(nv, text)]: the dynamic shared memory B2 takes at the three paths'
+  """[(nv, text)]: the dynamic shared memory B2 takes at the four paths'
   shapes (the kernel sizes it at launch, 128 threads a block) and the
-  samples an SM then holds. The Humanoid's block is the first a task
-  takes past 48 KB, through the kernel's opt-in attribute."""
+  samples an SM then holds. The Humanoid's and Shadow's blocks are past
+  48 KB, through the kernel's opt-in attribute; Shadow's 228 facet rows
+  leave room for one block an SM."""
   from mujoco_mpc_tpu_torch.ops import newton
   out = []
   for nv, shape, smem in (
@@ -581,7 +608,9 @@ def newton_smem():
       (18, 'Quadruped nv 18 ns 24, condim-3 P 20',
        newton.sample_smem_bytes(18, 0, 24, [(3, 20)])),
       (23, 'Humanoid nv 23 ns 34, condim-3 P 25',
-       newton.sample_smem_bytes(23, 0, 34, [(3, 25)]))):
+       newton.sample_smem_bytes(23, 0, 34, [(3, 25)])),
+      (21, 'Shadow nv 21 ns 30, condim-3 P 57',
+       newton.sample_smem_bytes(21, 0, 30, [(3, 57)]))):
     tiles = 128 // newton.kernel_lanes(nv)
     blocks = resident_blocks(nv, 128, tiles * smem)
     out.append((nv, f'dynamic shared memory at {shape}: {smem} bytes a '
@@ -708,6 +737,153 @@ def humanoid_states(spec, gen, deep=False):
   ctrl = lo + (hi - lo) * torch.rand((b, m.nu), generator=gen, device=DEV)
   return make_data(m, b).replace(qpos=qpos, qvel=0.5 * r(b, m.nv),
                                  ctrl=ctrl)
+
+
+def shadow_states(spec, gen, rollout=True):
+  """SHADOW_SAMPLES states of Shadow Reorient from qpos0 (the cube 20 mm
+  above the palm), the first SHADOW_QPOS0 exactly qpos0 at rest. The rest,
+  with `rollout`, are the states the step meets in a plan: from qpos0,
+  SHADOW_ROLLOUT_STEPS steps of the planning model (dt 0.01) under
+  controls drawn uniformly in the control range at each step, which drop
+  the cube onto the palm (~6 steps) and close the fingers on it; without,
+  a construction deeper in contact than a step goes: the cube lowered by
+  20-30 mm, so 0-10 mm into the palm, and tilted by 1-5 degrees about a
+  random axis, the 15 hinges spread uniformly over their ranges, random
+  velocities and controls."""
+  import math
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m, b = spec.model, SHADOW_SAMPLES
+  u = lambda *s: torch.rand(s, generator=gen, device=DEV)  # noqa: E731
+  clo, chi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  if rollout:
+    pm = agent.plan_model(spec)
+    d = make_data(m, b)
+    for _ in range(SHADOW_ROLLOUT_STEPS):
+      d = fwd.step(pm, d.replace(ctrl=clo + (chi - clo) * u(b, m.nu)))
+    qpos, qvel, ctrl = d.qpos.clone(), d.qvel.clone(), d.ctrl.clone()
+  else:
+    qpos = m.qpos0.expand(b, -1).clone()
+    lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
+    qpos[:, 7:] = lo + (hi - lo) * u(b, 15)
+    qpos[:, 2] -= 0.02 + 0.01 * u(b)
+    axis = torch.randn((b, 3), generator=gen, device=DEV)
+    axis = axis / torch.linalg.vector_norm(axis, dim=-1, keepdim=True)
+    half = 0.5 * math.radians(1.0) + 0.5 * math.radians(4.0) * u(b)
+    qpos[:, 3:7] = torch.cat([torch.cos(half)[:, None],
+                              torch.sin(half)[:, None] * axis], -1)
+    qvel = 0.3 * torch.randn((b, m.nv), generator=gen, device=DEV)
+    ctrl = clo + (chi - clo) * u(b, m.nu)
+  rest = slice(0, SHADOW_QPOS0)
+  qpos[rest], qvel[rest], ctrl[rest] = m.qpos0, 0.0, 0.0
+  return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def contact_points(spec, d):
+  """(dist (B, P), pos (B, P, 3), normal (B, P, 3), the hull's world
+  vertices (B, V, 3)) of the step from states d: every condim group's
+  stacked candidate points in JAX's order."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import collision, constraint
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  m = spec.model
+  d = fwd.fwd_position(m, d)
+  groups = constraint._contact_groups(m, d).values()
+  hull = next(iter(m.geom_mesh))
+  return (torch.cat([s.dist for s in groups], 1),
+          torch.cat([s.pos3 for s in groups], 1),
+          torch.cat([s.normal for s in groups], 1),
+          collision._hull_world(m, d, hull)[0])
+
+
+def vertex_ids(pts, sl):
+  """The hull vertex of each candidate in the points `sl` of a vertex
+  choice (the candidate sits halfway into the penetration, pos + dist/2
+  normal is the vertex): (B, len(sl)) indices."""
+  import torch
+  dist, pos, normal, verts = (x.double() for x in pts)
+  v = (pos + 0.5 * dist[..., None] * normal)[:, sl]
+  return torch.argmin(torch.linalg.vector_norm(
+      v[:, :, None] - verts[:, None], dim=-1), -1)
+
+
+def vertex_choices(m):
+  """The points of the model's (one) contact group that are hull vertices
+  chosen by depth: the floor's k deepest (plane-mesh) and the second half
+  of box-mesh (the hull vertices in the box), unrolled or clustered."""
+  from mujoco_mpc_tpu_torch.physics import collision, constraint
+  from mujoco_mpc_tpu_torch.physics.model import GeomType
+  out, start = [], 0
+  for src in m.contact[0].sources:
+    g1, g2 = src.pairs[0]
+    if src.kind == 'pair':
+      n = collision.points_per_pair(m, g1, g2)
+      kind = ({GeomType.PLANE: 'pm', GeomType.BOX: 'bm'}.get(m.geom_type[g1])
+              if m.geom_type[g2] == GeomType.MESH else None)
+    else:
+      _, reps, halves = constraint.CLUSTERS[src.kind]
+      n, kind = len(src.pairs) * reps * halves, src.kind
+    if kind == 'pm':
+      out += range(start, start + n)
+    elif kind == 'bm':
+      out += range(start + n // 2, start + n)
+    start += n
+  return out
+
+
+def check_contact_points(spec, cpu_spec, d):
+  """Phase 3h: the candidate points the card's step stacks from states d
+  against the same step on the CPU through the plain path, float32 both.
+  Every depth agrees within POINT_ATOL (the k-th depth and the largest
+  halfspace distance are continuous through a tie). At the SHADOW_QPOS0
+  samples at qpos0 every position and normal agrees and the chosen hull
+  vertices are the same: an exact tie of 8 vertices that the stable
+  selection resolves to the lower indices on both. Elsewhere a point may
+  differ in position or normal only at an f32 near tie (two vertices or
+  two faces within rounding), at most 0.1% of the points. Returns the
+  line's text."""
+  import dataclasses
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import Data
+  cpu_d = Data(**{f.name: getattr(d, f.name).cpu()
+                  for f in dataclasses.fields(d)
+                  if getattr(d, f.name) is not None})
+  card = [x.cpu() for x in contact_points(spec, d)]
+  cpu = contact_points(cpu_spec, cpu_d)
+  dist_err = float(torch.max(torch.abs(card[0] - cpu[0])))
+  check(dist_err <= POINT_ATOL, f'contact depths, card vs CPU: '
+        f'{dist_err:.3g} > {POINT_ATOL:g}')
+  pos_err = torch.amax(torch.abs(card[1] - cpu[1]), -1)
+  normal_err = torch.amax(torch.abs(card[2] - cpu[2]), -1)
+  off = (pos_err > POINT_ATOL) | (normal_err > NORMAL_ATOL)
+  sl = vertex_choices(spec.model)
+  ids_card, ids_cpu = vertex_ids(card, sl), vertex_ids(cpu, sl)
+  rest = slice(0, SHADOW_QPOS0)
+  check(not bool(off[rest].any()), 'contact points at qpos0, card vs CPU: '
+        f'{int(off[rest].sum())} points outside the tolerance')
+  check(torch.equal(ids_card[rest], ids_cpu[rest]),
+        'the tied hull vertices at qpos0 differ between the card and CPU')
+  low = cpu[3][0, :, 2] == cpu[3][0, :, 2].min()
+  check(bool(low[ids_cpu[0]].all()) and int(low.sum()) == 8,
+        'qpos0 does not tie 8 hull vertices for the floor')
+  n_vertex = int((ids_card != ids_cpu).sum())
+  n_off = int(off.sum())
+  n_off_contact = int((off & ((card[0] < 0) | (cpu[0] < 0))).sum())
+  check(n_off <= off.numel() // 1000, f'contact points, card vs CPU: '
+        f'{n_off} of {off.numel()} differ, more than 0.1%')
+  return (f'{off.shape[1]} points a sample, depths max abs err '
+          f'{dist_err:.3g} (tol {POINT_ATOL:g}); positions '
+          f'{float(pos_err.max()):.3g} and normals '
+          f'{float(normal_err.max()):.3g} max abs err (tol {POINT_ATOL:g}, '
+          f'{NORMAL_ATOL:g}) at all but {n_off} of {off.numel()} points '
+          f'(f32 near ties, bound 0.1%; {n_off_contact} of them in '
+          f'contact); at the {SHADOW_QPOS0} qpos0 '
+          f'samples every point agrees and the floor and palm take hull '
+          f'vertices {ids_cpu[0].tolist()} of the 8 tied ones '
+          f'{torch.nonzero(low)[:, 0].tolist()} on both; {n_vertex} of '
+          f'{ids_cpu.numel()} vertex choices differ elsewhere')
 
 
 def euler_inputs(spec, d):
@@ -860,6 +1036,12 @@ def main():
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
 
+  start = time.perf_counter()
+
+  def elapsed(phases):
+    print(f'elapsed after phases {phases}: '
+          f'{time.perf_counter() - start:.1f} s')
+
   # 1. device
   print('phase 1 device:', torch.cuda.get_device_name(0),
         f'(torch {torch.__version__}, CUDA {torch.version.cuda}), nvidia-smi:')
@@ -935,7 +1117,35 @@ def main():
       h_spd_in, h_args, h_gargs, h_kw = s_in, args, gargs, kw
       h_spd_abs, h_newton_abs = spd_abs_, newton_abs_
 
-  # 4. timing at the three paths' shapes
+  sha = registry.get_task('Shadow Reorient')
+  sha_cpu = registry.get_task('Shadow Reorient', device='cpu')
+  sha_cap = sha.model.opt.iterations
+  for rollout in (True, False):
+    states = shadow_states(sha, gen, rollout)
+    spd_in_, (args, gargs, condims, dmasks) = solver_inputs(sha, states)
+    spd_abs_, spd_err_ = check_spd_inputs(spd_in_, 1e-4, 'Shadow')
+    _, euler_err = check_spd_inputs(euler_inputs(sha, states), 1e-4,
+                                    'Shadow Euler')
+    kw = dict(cap=sha_cap, tol=1e-5, condims=condims, dmasks=dmasks)
+    newton_abs_, line = check_newton_task('Shadow', args, gargs, kw,
+                                          share=rollout)
+    s_shape = (f'nv {sha.model.nv} ns {args[6].shape[1]} one condim-3 '
+               f'group P {gargs[1].shape[1]} cap {sha_cap}')
+    label = (f'task-shaped ({SHADOW_ROLLOUT_STEPS} steps of rollouts from '
+             f'qpos0)' if rollout else 'the cube 0-10 mm into the palm')
+    print(f'phase 3g Shadow Reorient step inputs, {label} (B '
+          f'{SHADOW_SAMPLES}, the first {SHADOW_QPOS0} at qpos0, condims '
+          f'{condims}, {s_shape}): chol_solve n {sha.model.nv} rel err qM '
+          f'{spd_err_:.3g}, Euler system {euler_err:.3g} (tol 1e-4); {line}')
+    print(f'phase 3h Shadow Reorient contact points, {label}, card vs the '
+          f'CPU plain path: ' + check_contact_points(sha, sha_cpu, states))
+    if rollout:    # the inputs phase 4 times and the JSON line reports
+      s_spd_in, s_args, s_gargs, s_kw = spd_in_, args, gargs, kw
+      s_spd_abs, s_newton_abs = spd_abs_, newton_abs_
+
+  elapsed('1-3')
+
+  # 4. timing at the four paths' shapes
   kern = {}
   for path, spd_args, n_args, n_gargs, n_kw, n_label, plain_reps in (
       ('cartpole', spd_in, newton_in, (), dict(cap=cart_cap, tol=1e-5),
@@ -946,7 +1156,9 @@ def main():
       ('humanoid_track', h_spd_in, h_args, h_gargs, h_kw,
        f'B {HUMAN_SAMPLES} nv {hum.model.nv} ns {h_args[6].shape[1]} one '
        f'condim-3 group P {h_gargs[1].shape[1]} cap {hum_cap}',
-       HUMAN_PLAIN_REPS)):
+       HUMAN_PLAIN_REPS),
+      ('shadow_reorient', s_spd_in, s_args, s_gargs, s_kw,
+       f'B {SHADOW_SAMPLES} {s_shape}', SHADOW_PLAIN_REPS)):
     spd_times = time_spd(spd_args, plain_reps)
     n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw,
                                                 plain_reps)
@@ -963,6 +1175,8 @@ def main():
     print(f'phase 4 timing, random systems, per call, wall / device only: '
           + spd_timing_line(*time_spd(spd_args, SPD_EXTRA_PLAIN_REPS),
                             spd_args[0]))
+
+  elapsed('4')
 
   # 5-7. Cartpole
   d0 = make_data(cart.model).replace(qpos=torch.tensor([CART_QPOS0],
@@ -986,6 +1200,8 @@ def main():
         f' 4 steps per plan, {CART_SAMPLES} candidates) in {wall:.2f} s wall:'
         f' real-time factor {rtf:.3f}; mean cost {mean:.4g}, last {last:.4g}')
 
+  elapsed('5-7')
+
   # 8-10. Quadruped Flat
   home = quad.model.keyframe_qpos('home')[None]
   q_d0 = make_data(quad.model).replace(qpos=home)
@@ -1006,6 +1222,8 @@ def main():
         f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
+
+  elapsed('8-10')
 
   # 11-13. Humanoid Track
   h_d0 = make_data(hum.model).replace(
@@ -1032,6 +1250,29 @@ def main():
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
 
+  elapsed('11-13')
+
+  # 14-16. Shadow Reorient, from qpos0 (bench.py's shadow_ps8192)
+  s_d0 = make_data(sha.model)
+  sha_main = main_path(sha, s_d0, SHADOW_SAMPLES, SHADOW_PLANS, gen)
+  print_main_path(14, 'Shadow Reorient', SHADOW_SAMPLES, SHADOW_PLANS,
+                  sha_main)
+  br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+      sha, sha_cpu, s_d0, make_data(sha_cpu.model), gen, 0.2)
+  print(f'phase 15 golden: Shadow Reorient 256-candidate plan best_return '
+        f'card {br_gpu:.6g} vs CPU plain {br_cpu:.6g}: rel err {rel:.3g} '
+        f'(tol 0.02); winner card {win_gpu} vs CPU {win_cpu} (match '
+        f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
+        f'(tol 0.05)')
+  samples = max(int(sha.config.get('sampling_trajectories', 128)), 128)
+  steps, sim_t, wall, rtf, mean, last = plan_act(sha, s_d0, samples, 100, 4)
+  print(f'phase 16 plan-act: Shadow Reorient {steps} steps ({sim_t:.2f} s '
+        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
+        f'{mean:.4g}, last {last:.4g}')
+
+  elapsed('14-16')
+
   def entry(name, path, launches, err):
     k = kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -1048,14 +1289,15 @@ def main():
       ('chol_solve', 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
        'mujoco_mpc_tpu/ops/pallas_linalg.py:90',
        {'cartpole': spd_abs, 'quadruped': q_spd_abs,
-        'humanoid_track': h_spd_abs}),
+        'humanoid_track': h_spd_abs, 'shadow_reorient': s_spd_abs}),
       ('newton', 'mujoco_mpc_tpu_torch/csrc/newton.cu',
        'mujoco_mpc_tpu/ops/pallas_newton.py:750',
        {'cartpole': newton_abs, 'quadruped': q_newton_abs,
-        'humanoid_track': h_newton_abs})):
+        'humanoid_track': h_newton_abs, 'shadow_reorient': s_newton_abs})):
     paths = {p: entry(name, p, r['launches'], errs[p])
              for p, r in (('cartpole', cart_main), ('quadruped', quad_main),
-                          ('humanoid_track', hum_main))}
+                          ('humanoid_track', hum_main),
+                          ('shadow_reorient', sha_main))}
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

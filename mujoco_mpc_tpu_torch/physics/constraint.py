@@ -3,7 +3,7 @@
 Port of mujoco_mpc_tpu/physics/constraint.py: impedance :77, kbi :97,
 ScalarRows :37, Rows :66, _limit_rows_scalar :115, the pyramidal contacts
 (ContactBlock :452, PointRows :465, _pair_param_arrays :496,
-_contact_groups :516 on the unrolled per-pair path, _Stacked :631,
+_contact_groups :516 with the batched hull clusters, _Stacked :631,
 contact_blocks :648, dof_anchored_axes :793, contact_point_groups :890,
 point_rows_jd :970, expand_point_rows :977), make_rows_split :1213 and
 solve :1240. The solve itself is ops/newton.py (the fused Newton kernel
@@ -17,7 +17,8 @@ physics/model.py from_arrays stores as Model.contact.
 
 Not ported yet, and refused where a model needs them: equality rows and
 tendon limits (ROADMAP A8), contact groups over contact_point_cap
-(_capped_point_rows, A6), the mesh clusters and their dynamic rows (A7),
+(_capped_point_rows, A6), the mesh-mesh clusters and their dynamic rows
+(A7),
 joint frictionloss rows and elliptic cones (A8).
 """
 
@@ -141,12 +142,32 @@ class PointRows(NamedTuple):
   condim: int
 
 
+# The batched hull clusters, in the order JAX stacks them (constraint.py
+# :583-594): kind -> (narrowphase over a cluster, points a pair, halves).
+# box-mesh emits two pair-major halves (corners in the hull, then hull
+# vertices in the box), each repeating the pair parameters 4 times.
+CLUSTERS = {'sm': (collision.sphere_mesh_batched, 1, 1),
+            'cm': (collision.capsule_mesh_batched, 2, 1),
+            'pm': (collision.plane_mesh_batched, 4, 1),
+            'bm': (collision.box_mesh_batched, 4, 2)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Source:
+  """Where a run of a group's points comes from: a batched hull cluster
+  (`kind` in CLUSTERS) or one pair on the unrolled path (kind 'pair')."""
+  kind: str
+  pairs: Tuple[Tuple[int, int], ...]
+  cluster: Optional[collision.HullCluster] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class GroupConsts:
-  """The model constants of one condim group of the unrolled per-pair
-  path: its pairs (in collision_pairs order) and per-point parameters."""
+  """The model constants of one condim group: its sources, in JAX's
+  stacking order (the clusters sm, cm, pm, bm, then the unclustered pairs
+  in collision_pairs order), and its per-point parameters."""
   condim: int
-  pairs: Tuple[Tuple[int, int], ...]
+  sources: Tuple[Source, ...]
   margin: torch.Tensor   # (P,)
   solref: torch.Tensor   # (P, 2)
   solimp: torch.Tensor   # (P, 5)
@@ -173,45 +194,79 @@ def _pair_param_arrays(m: Model, pairs, dtype):
   }
 
 
+def _condim(m: Model, pair) -> int:
+  condim = collision.pair_params(m, *pair).condim
+  if condim not in newton_op.PYRAMID_FACETS:
+    raise NotImplementedError(f'contact condim {condim}')
+  return condim
+
+
 def contact_table(m: Model) -> Tuple[GroupConsts, ...]:
   """The per-condim groups of the model's collision pairs (condim order
-  1, 3, 4, 6), each pair's parameters repeated over the candidate points
-  its narrowphase emits."""
-  collision.contact_clusters(m)     # refuses mesh models
-  by_condim = {}
-  for (g1, g2) in m.collision_pairs:
-    condim = collision.pair_params(m, g1, g2).condim
-    if condim not in newton_op.PYRAMID_FACETS:
-      raise NotImplementedError(f'contact condim {condim}')
-    by_condim.setdefault(condim, []).append((g1, g2))
+  1, 3, 4, 6), each with its sources in JAX's order and each pair's
+  parameters repeated over the candidate points it emits
+  (_contact_groups :541-628)."""
+  mm, sm, pm, bm, cm, clustered = collision.contact_clusters(m)
+  if mm:
+    raise NotImplementedError(
+        'mesh-mesh contacts are not ported yet (ROADMAP A7)')
+  by_condim = {}      # condim -> ([Source], [pair of each point])
+  for kind, clusters in (('sm', sm), ('cm', cm), ('pm', pm), ('bm', bm)):
+    _, reps, halves = CLUSTERS[kind]
+    for cl in clusters:
+      srcs, owner = by_condim.setdefault(_condim(m, cl[0]), ([], []))
+      srcs.append(Source(kind, tuple(cl), collision.hull_cluster(m, cl)))
+      owner += [p for _ in range(halves) for p in cl for _ in range(reps)]
+  for pair in m.collision_pairs:
+    if pair in clustered:
+      continue
+    srcs, owner = by_condim.setdefault(_condim(m, pair), ([], []))
+    srcs.append(Source('pair', (pair,)))
+    owner += [pair] * collision.points_per_pair(m, *pair)
   a_body = m.idx.a_body
   out = []
   for condim in sorted(by_condim):
-    pairs = tuple(by_condim[condim])
-    reps = [collision.points_per_pair(m, *p) for p in pairs]
+    srcs, owner = by_condim[condim]
+    pairs = sorted(set(owner), key=owner.index)
     pp = _pair_param_arrays(m, pairs, m.dtype)
-    rep = lambda v: torch.repeat_interleave(  # noqa: E731
-        v, torch.tensor(reps, device=v.device), 0)
-    b1, b2 = np.repeat(pp['b1'], reps), np.repeat(pp['b2'], reps)
+    at = np.asarray([pairs.index(p) for p in owner])
+    idx = torch.as_tensor(at, device=m.device)
+    b1, b2 = pp['b1'][at], pp['b2'][at]
     out.append(GroupConsts(
-        condim=condim, pairs=pairs, margin=rep(pp['margin']),
-        solref=rep(pp['solref']), solimp=rep(pp['solimp']),
-        mu=rep(pp['mu']), invw=rep(pp['invw']), b1=b1, b2=b2,
+        condim=condim, sources=tuple(srcs), margin=pp['margin'][idx],
+        solref=pp['solref'][idx], solimp=pp['solimp'][idx],
+        mu=pp['mu'][idx], invw=pp['invw'][idx], b1=b1, b2=b2,
         dmask=(a_body[b2] - a_body[b1]).to(torch.float32).contiguous()))
   return tuple(out)
 
 
 class _Stacked:
-  """One condim group's narrowphase output, stacked over its points, and
-  the group's constants."""
+  """One condim group's narrowphase output, stacked over its points in
+  the order of its sources, and the group's constants."""
 
-  def __init__(self, consts: GroupConsts, pts: List[collision.ContactPoint]):
-    zero = torch.zeros_like(pts[0].normal)
-    self.pos3 = torch.stack([cp.pos for cp in pts], 1)        # (B, P, 3)
-    self.normal = torch.stack([cp.normal for cp in pts], 1)
-    self.tangent = torch.stack([zero if cp.tangent is None else cp.tangent
-                                for cp in pts], 1)
-    self.dist = torch.stack([cp.dist for cp in pts], 1)       # (B, P)
+  def __init__(self, consts: GroupConsts, parts):
+    """parts: per source, a list of ContactPoints (B,) or a cluster's
+    (dist (B, n), pos (B, n, 3), normal (B, n, 3))."""
+    dist, pos, normal, tangent = [], [], [], []
+    zero = None
+    for part in parts:
+      if isinstance(part, list):
+        dist += [cp.dist[:, None] for cp in part]
+        pos += [cp.pos[:, None] for cp in part]
+        normal += [cp.normal[:, None] for cp in part]
+        if zero is None:
+          zero = torch.zeros_like(part[0].normal[:, None])
+        tangent += [zero if cp.tangent is None else cp.tangent[:, None]
+                    for cp in part]
+      else:
+        dist.append(part[0])
+        pos.append(part[1])
+        normal.append(part[2])
+        tangent.append(torch.zeros_like(part[2]))
+    self.pos3 = torch.cat(pos, 1)                             # (B, P, 3)
+    self.normal = torch.cat(normal, 1)
+    self.tangent = torch.cat(tangent, 1)
+    self.dist = torch.cat(dist, 1)                            # (B, P)
     self.margin, self.solref, self.solimp = (consts.margin, consts.solref,
                                              consts.solimp)
     self.mu, self.invw = consts.mu, consts.invw
@@ -220,12 +275,15 @@ class _Stacked:
 
 def _contact_groups(m: Model, d: Data):
   """Narrowphase output stacked per condim, {condim: _Stacked} (JAX also
-  returns the dynamically selected mesh rows, which the port refuses)."""
+  returns the dynamically selected mesh-mesh rows, which the port
+  refuses)."""
   groups = {}
   for consts in m.contact:
-    pts = [cp for (g1, g2) in consts.pairs
-           for cp in collision.narrowphase(m, d, g1, g2)]
-    groups[consts.condim] = _Stacked(consts, pts)
+    parts = [collision.narrowphase(m, d, *src.pairs[0])
+             if src.kind == 'pair'
+             else CLUSTERS[src.kind][0](m, d, src.cluster)
+             for src in consts.sources]
+    groups[consts.condim] = _Stacked(consts, parts)
   return groups
 
 

@@ -17,12 +17,14 @@ Differences from the JAX pytrees:
 The geom contact fields (geom_type, geom_contype/conaffinity/condim/
 priority/group, geom_size, geom_friction, geom_solref/solimp/solmix/
 margin/gap, body_invweight0, geom_names, contact_point_cap, contact_cap)
-are carried for the primitive colliders (physics/collision.py). Model
-fields not carried yet (their consumers are still to be ported; ROADMAP
-A7-A8): the mesh hulls and height fields (geom_mesh, geom_hfield: a model
-with a mesh or hfield geom is refused where contacts or ground_height
-reach it), frictionloss rows (dof_frictionloss, dof_friction_solref/
-solimp), equality data (eq_*), tendons (ten_*, tendon_*), sensors
+are carried for the colliders (physics/collision.py), and so are the
+convex hulls of the mesh, cylinder and ellipsoid geoms (geom_mesh, :255,
+built by put_model at :569-620 and kept as JAX keeps them, float32
+values, promoted to the model's dtype). Model fields not carried yet
+(their consumers are still to be ported; ROADMAP A7-A8): the height
+fields (geom_hfield: a model with an hfield geom is refused where
+contacts or ground_height reach it), frictionloss rows
+(dof_frictionloss, dof_friction_solref/solimp), equality data (eq_*), tendons (ten_*, tendon_*), sensors
 (sensor_*, nsensordata), site_size, site_type, magnetic-field consumers.
 Data fields not carried yet: sensordata and the tendon quantities. A model
 that needs any of them is refused where it would be used
@@ -140,6 +142,9 @@ OPTION_STATIC = ('integrator', 'iterations', 'cone', 'noslip_iterations')
 # Tensor fields of Option, stored in `arrays` as 'opt.<name>'.
 OPTION_ARRAYS = ('timestep', 'gravity', 'wind', 'magnetic', 'density',
                  'viscosity')
+# The arrays of one convex hull in Model.geom_mesh, in from_arrays' `arrays`
+# dict as 'geom_mesh/<geom id>/<name>'.
+HULL_ARRAYS = ('verts', 'normals', 'offsets')
 # Tensor fields of Model, in from_arrays' `arrays` dict.
 ARRAY_FIELDS = (
     'qpos0', 'qpos_spring', 'body_pos', 'body_quat', 'body_ipos',
@@ -262,6 +267,9 @@ class Model(_Replace):
   key_ctrl: torch.Tensor
   opt: Option
   idx: structure.Indices
+  # convex hulls, geom id -> (verts (V, 3), face normals (F, 3), face
+  # offsets (F,)) in the geom frame, n.x + b <= 0 inside
+  geom_mesh: dict = dataclasses.field(default_factory=dict)
   # per-condim contact groups of the collision pairs
   # (physics/constraint.py contact_table), built by from_arrays
   contact: tuple = ()
@@ -307,8 +315,10 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
   """Build a Model from numpy arrays and static fields.
 
   arrays: ARRAY_FIELDS plus 'opt.<OPTION_ARRAYS>' -> numpy arrays (the
-  JAX Model's leaves); static: STATIC_FIELDS plus 'opt.<OPTION_STATIC>'
-  -> ints, bools, strings or (nested) sequences of them."""
+  JAX Model's leaves), and for each hull geom g 'geom_mesh/<g>/verts',
+  '.../normals' and '.../offsets' (HULL_ARRAYS); static: STATIC_FIELDS
+  plus 'opt.<OPTION_STATIC>' -> ints, bools, strings or (nested)
+  sequences of them."""
   device = resolve_device(device)
 
   def tup(v):
@@ -326,7 +336,14 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
       **{k: torch.as_tensor(np.array(arrays['opt.' + k]), dtype=dtype,
                             device=device) for k in OPTION_ARRAYS},
       **{k: int(static['opt.' + k]) for k in OPTION_STATIC})
-  m = Model(**s, **t, opt=opt, idx=structure.build_indices(s, device, dtype))
+  hulls = sorted({int(k.split('/')[1]) for k in arrays
+                  if k.startswith('geom_mesh/')})
+  geom_mesh = {g: tuple(
+      torch.as_tensor(np.array(arrays[f'geom_mesh/{g}/{part}']),
+                      dtype=dtype, device=device) for part in HULL_ARRAYS)
+               for g in hulls}
+  m = Model(**s, **t, opt=opt, idx=structure.build_indices(s, device, dtype),
+            geom_mesh=geom_mesh)
   if m.collision_pairs:
     from mujoco_mpc_tpu_torch.physics import constraint
     m = m.replace(contact=constraint.contact_table(m))

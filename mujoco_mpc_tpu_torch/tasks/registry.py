@@ -2,13 +2,15 @@
 
 Port of mujoco_mpc_tpu/tasks/registry.py: the Cartpole entry (:114-129),
 Quadruped Flat (_make_quadruped :354-699, registered at :702), Humanoid
-Stand and Walk (_make_humanoid :722-765, registered at :767-782) and
-Humanoid Track (:1381-1508, its procedural clip). The JAX registry
-compiles models/*.xml with `mujoco`; the port loads the compiled model,
-the task parameters and the task's own arrays (Track's clip) from
-mujoco_mpc_tpu_torch/assets/ (written by tools/export_torch_snapshot.py),
-so it runs where neither `mujoco` nor JAX is installed. Residuals are
-batch-first; a transition takes the B = 1 simulation state.
+Stand and Walk (_make_humanoid :722-765, registered at :767-782),
+Shadow Reorient (_hand_task :925-988 without a goal schedule, registered
+at :991-995) and Humanoid Track (:1381-1508, its procedural clip). The
+JAX registry compiles models/*.xml with `mujoco`; the port loads the
+compiled model, the task parameters and the task's own arrays (Track's
+clip) from mujoco_mpc_tpu_torch/assets/ (written by
+tools/export_torch_snapshot.py), so it runs where neither `mujoco` nor
+JAX is installed. Residuals are batch-first; a transition takes the
+B = 1 simulation state.
 
 Tasks load on the card unless the caller asks for another device
 (`device='cpu'` in the tests); with no CUDA device the default raises.
@@ -474,6 +476,59 @@ def _humanoid_track(spec: base.TaskSpec, task: dict):
   return residual, transition
 
 
+# ---------------------------------------------------------------------------
+# Shadow Reorient (reference: mjpc/tasks/shadow_reorient/hand.cc),
+# registry.py :925-995: the generated hand of models/hands.py with the
+# chamfered-mesh cube, reoriented to a goal quaternion held by a mocap body.
+# ---------------------------------------------------------------------------
+
+_HAND_CUBE_RESET = (0.0, 0.0, 0.065, 1.0, 0.0, 0.0, 0.0)
+
+
+def _hand_task(spec: base.TaskSpec, task: dict):
+  """The branch of the JAX hand task without a goal schedule: hold the
+  cube 4.5 cm above the palm centre in the goal mocap's orientation; the
+  transition draws a new goal on success and puts a dropped cube back
+  above the palm. The cube's free joint is the first joint."""
+  if 'goal_schedule' in task:
+    raise NotImplementedError(
+        'a hand task with a goal schedule (Cube Solving) is not ported yet '
+        '(ROADMAP, Queue A item 3)')
+  m = spec.model
+  cube = m.body('cube')
+  cube_site, palm_site = m.site('cube_site'), m.site('palm_site')
+  goal_mocap = m.body_mocapid[m.body('goal')]
+  kw = dict(device=m.device, dtype=m.dtype)
+  above_palm = torch.tensor([0.0, 0.0, 0.045], **kw)
+  reset_pose = torch.tensor(_HAND_CUBE_RESET, **kw)
+
+  def residual(m, d, rp):
+    r_pos = d.site_xpos[:, cube_site] - (d.site_xpos[:, palm_site]
+                                         + above_palm)
+    r_quat = tm.quat_sub(d.xquat[:, cube], d.mocap_quat[:, goal_mocap])
+    return torch.cat([r_pos, r_quat, 0.3 * d.cvel[:, cube], d.ctrl], -1)
+
+  def transition(m, d, params, generator):
+    """On the B = 1 state: a new goal quaternion, a normal draw from
+    `generator` made unit, once the orientation error is under 0.25; a
+    cube that fell below -0.12 goes back to _HAND_CUBE_RESET at rest."""
+    goal = d.mocap_quat[0, goal_mocap]
+    solved = torch.linalg.vector_norm(
+        tm.quat_sub(d.xquat[0, cube], goal)) < 0.25
+    dropped = d.site_xpos[0, cube_site, 2] < -0.12
+    q = torch.randn((4,), generator=generator, dtype=m.dtype,
+                    device=generator.device).to(m.device)
+    q = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-9)
+    mocap_quat = d.mocap_quat.clone()
+    mocap_quat[0, goal_mocap] = torch.where(solved, q, goal)
+    qpos = torch.where(dropped, torch.cat([reset_pose, d.qpos[0, 7:]]),
+                       d.qpos[0])[None]
+    qvel = torch.where(dropped, torch.zeros_like(d.qvel), d.qvel)
+    return d.replace(qpos=qpos, qvel=qvel, mocap_quat=mocap_quat), params
+
+  return residual, transition
+
+
 # task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
 # transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
@@ -482,7 +537,8 @@ TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
          'Humanoid Stand': ('humanoid_stand.npz',
                             functools.partial(_humanoid, walk=False)),
          'Humanoid Walk': ('humanoid_walk.npz',
-                           functools.partial(_humanoid, walk=True))}
+                           functools.partial(_humanoid, walk=True)),
+         'Shadow Reorient': ('shadow_reorient.npz', _hand_task)}
 
 
 def task_names():

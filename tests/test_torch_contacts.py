@@ -9,6 +9,13 @@
   contact_blocks' rows.
 * The constrained qacc against mujoco.mj_forward at 3 states, with the
   tolerance of tests/test_contacts.py.
+* The convex-hull colliders (_plane_mesh, _sphere_mesh, _box_mesh,
+  capsule-mesh, _sphere_sphere) and the four batched clusters against
+  JAX's, eagerly vmapped, on Shadow Reorient's chamfered-cube hull and its
+  own pairs, in float64: random poses and the resting pose at qpos0, where
+  8 hull vertices tie for the lowest; the tied choice takes the same
+  vertex indices as lax.top_k. Mesh-mesh, height-field and the other
+  primitive pairs still raise, naming their ROADMAP item.
 """
 
 import os
@@ -23,6 +30,7 @@ import torch
 from mujoco_mpc_tpu.physics import collision as jcollision
 from mujoco_mpc_tpu.physics import constraint as jconstraint
 from mujoco_mpc_tpu.physics import kinematics as jkin
+from mujoco_mpc_tpu.models import hands
 from mujoco_mpc_tpu.physics.model import load_model
 from mujoco_mpc_tpu.physics.model import make_data as jmake_data
 from mujoco_mpc_tpu_torch.physics import collision
@@ -228,3 +236,180 @@ def test_qacc_matches_mujoco(quadruped):
     assert mjd.ncon > 0
     np.testing.assert_allclose(got[i], mjd.qacc, rtol=1e-5, atol=1e-6,
                                err_msg=f'state {i} ncon={mjd.ncon}')
+
+
+# ---------------------------------------------------------------------------
+# Convex hulls on Shadow Reorient's model: floor (geom 0, plane), cube (2,
+# the mesh hull, V 24, F 44), palm (3, box), finger capsules and the five
+# fingertip spheres.
+# ---------------------------------------------------------------------------
+
+NHULL = 12      # sample 0: the pose at qpos0; the rest random
+
+
+@pytest.fixture(scope='module')
+def shadow():
+  """(JAX model f64, port model f64, JAX Data and port Data batches with
+  geom poses: sample 0 from the kinematics at qpos0, the others random
+  around the cube, so that planes, boxes, capsules and spheres cut the
+  hull)."""
+  xml = hands.hand_xml('Shadow Reorient', 4, mesh_cube=True)
+  jm, _ = load_model(xml_string=xml, dtype=jnp.float64)
+  m = model_lib.from_arrays(*export.model_snapshot(jm), device='cpu',
+                            dtype=torch.float64)
+  d0 = kin.kinematics(m, model_lib.make_data(m))
+  rng = np.random.default_rng(7)
+  xpos = np.repeat(d0.geom_xpos.numpy(), NHULL, 0)
+  xmat = np.repeat(d0.geom_xmat.numpy(), NHULL, 0)
+  xpos[1:] = xpos[1:, 2:3] + rng.normal(scale=0.03,
+                                        size=(NHULL - 1, jm.ngeom, 3))
+  xmat[1:] = _rotations(rng, (NHULL - 1) * jm.ngeom).reshape(
+      NHULL - 1, jm.ngeom, 3, 3)
+  d = model_lib.make_data(m, NHULL).replace(
+      geom_xpos=torch.from_numpy(xpos), geom_xmat=torch.from_numpy(xmat))
+  jd = jmake_data(jm, dtype=jnp.float64)
+  return jm, m, d, jd, (xpos, xmat)
+
+
+def _jax_vmap(jd, fn, xpos, xmat):
+  return jax.vmap(lambda p, r: fn(jd.replace(geom_xpos=p, geom_xmat=r)))(
+      jnp.asarray(xpos), jnp.asarray(xmat))
+
+
+CLUSTER_CASES = {'sphere_mesh_batched': 'sm', 'capsule_mesh_batched': 'cm',
+                 'plane_mesh_batched': 'pm', 'box_mesh_batched': 'bm'}
+
+
+@pytest.mark.parametrize('case', ['plane_mesh', 'sphere_mesh', 'box_mesh',
+                                  'capsule_mesh', 'sphere_sphere'])
+def test_hull_narrowphase(shadow, case):
+  """The unrolled colliders, through narrowphase, against JAX's on every
+  pair of that kind in the model. f64, the same formulas: to rounding
+  (rtol and atol 1e-10)."""
+  jm, m, d, jd, (xpos, xmat) = shadow
+  kinds = {'plane_mesh': (0, 7), 'sphere_mesh': (2, 7),
+           'box_mesh': (6, 7), 'capsule_mesh': (3, 7),
+           'sphere_sphere': (2, 2)}
+  pairs = [p for p in jm.collision_pairs
+           if (m.geom_type[p[0]], m.geom_type[p[1]]) == kinds[case]]
+  assert pairs
+  for g1, g2 in pairs:
+    got = collision.narrowphase(m, d, g1, g2)
+    want = _jax_vmap(jd, lambda x: jcollision.narrowphase(jm, x, g1, g2),
+                     xpos, xmat)
+    assert len(got) == len(want) == collision.points_per_pair(m, g1, g2)
+    for k, (g, w) in enumerate(zip(got, want)):
+      assert g.tangent is None and w.tangent is None
+      for field in ('dist', 'pos', 'normal'):
+        _close(getattr(g, field).numpy(), getattr(w, field),
+               f'({g1}, {g2}) point {k} {field}')
+
+
+def _vertex_ids(verts_w, dist, pos, normal):
+  """Hull vertex indices of selected candidates: pos + dist/2 n is the
+  vertex (the candidate sits halfway into the penetration)."""
+  v = pos + 0.5 * dist[..., None] * normal
+  return np.argmin(np.linalg.norm(v[:, None] - verts_w[None], axis=-1), 1)
+
+
+def test_tied_hull_vertices_at_qpos0(shadow):
+  """At qpos0 the cube rests unrotated: 8 of its 24 hull vertices share
+  the lowest z. The floor's and the palm's k = 4 choices take lax.top_k's
+  vertices (the lower index first among equals), unrolled and batched."""
+  jm, m, d, jd, _ = shadow
+  d0 = d.replace(geom_xpos=d.geom_xpos[:1], geom_xmat=d.geom_xmat[:1])
+  verts_w = collision._hull_world(m, d0, 2)[0][0].numpy()
+  low = np.isclose(verts_w[:, 2], verts_w[:, 2].min(), rtol=0, atol=0)
+  assert low.sum() == 8
+  jd0 = jd.replace(geom_xpos=jnp.asarray(d0.geom_xpos[0].numpy()),
+                   geom_xmat=jnp.asarray(d0.geom_xmat[0].numpy()))
+  jv, _, _ = jcollision._hull_world(jm, jd0, 2)
+  pn = jd0.geom_xmat[0][:, 2]
+  _, want_floor = jax.lax.top_k(-((jv - jd0.geom_xpos[0]) @ pn), 4)
+  assert set(np.asarray(want_floor)) <= set(np.flatnonzero(low))
+  for pts in (collision.narrowphase(m, d0, 0, 2),
+              collision.plane_mesh_batched(
+                  m, d0, collision.hull_cluster(m, [(0, 2)]))):
+    if isinstance(pts, list):
+      pts = tuple(torch.stack([getattr(p, f) for p in pts], 1)
+                  for f in ('dist', 'pos', 'normal'))
+    ids = _vertex_ids(verts_w, *(x[0].numpy() for x in pts))
+    np.testing.assert_array_equal(ids, np.asarray(want_floor))
+  # the palm's half of box-mesh: hull vertices in the box, the 4 deepest
+  jw = jcollision._box_mesh(jm, jd0, 3, 2)[4:]
+  want_palm = _vertex_ids(verts_w, *(np.stack([np.asarray(getattr(p, f))
+                                               for p in jw])
+                                     for f in ('dist', 'pos', 'normal')))
+  got = collision.narrowphase(m, d0, 3, 2)[4:]
+  ids = _vertex_ids(verts_w, *(torch.stack([getattr(p, f) for p in got],
+                                           1)[0].numpy()
+                               for f in ('dist', 'pos', 'normal')))
+  np.testing.assert_array_equal(ids, want_palm)
+  got_b = collision.box_mesh_batched(m, d0,
+                                     collision.hull_cluster(m, [(3, 2)]))
+  want_b = jcollision.box_mesh_batched(jm, jd0, [(3, 2)])
+  for g, w in zip(got_b, want_b):
+    _close(g[0].numpy(), w, 'box_mesh_batched at qpos0')
+
+
+@pytest.mark.parametrize('case', sorted(CLUSTER_CASES))
+def test_hull_clusters(shadow, case):
+  """Each batched cluster on the model's pairs of its kind (pm and bm:
+  Shadow's single floor and palm pairs, called directly) against JAX's:
+  the averaged-face normals, the pair-major order and the two box-mesh
+  halves. f64: rtol and atol 1e-10."""
+  jm, m, d, jd, (xpos, xmat) = shadow
+  kind = CLUSTER_CASES[case]
+  _, sm, _, _, cm, _ = jcollision.contact_clusters(jm)
+  pairs = {'sm': sm[0] if sm else None, 'cm': cm[0] if cm else None,
+           'pm': [(0, 2)], 'bm': [(3, 2)]}[kind]
+  assert pairs and (kind in ('pm', 'bm') or len(pairs) >= 4)
+  got = getattr(collision, case)(m, d, collision.hull_cluster(m, pairs))
+  want = _jax_vmap(jd, lambda x: getattr(jcollision, case)(jm, x, pairs),
+                   xpos, xmat)
+  for name, g, w in zip(('dist', 'pos', 'normal'), got, want):
+    assert g.shape == w.shape, (name, g.shape, w.shape)
+    _close(g.numpy(), w, f'{case} {name}')
+
+
+def test_contact_clusters_match_jax(shadow):
+  """sm (5 fingertips) and cm (15 capsules) as JAX forms them; the
+  floor and palm pairs stay on the unrolled path."""
+  jm, m, _, _, _ = shadow
+  want = jcollision.contact_clusters(jm)
+  got = collision.contact_clusters(m)
+  for g, w in zip(got[:5], want[:5]):
+    assert [list(map(tuple, c)) for c in g] == [list(map(tuple, c))
+                                                 for c in w]
+  assert got[5] == want[5]
+  assert [[len(c) for c in cls] for cls in got[:5]] == [[], [5], [], [],
+                                                        [15]]
+
+
+@pytest.mark.parametrize('pair,item', [((2, 2), 'A7'), ('hfield', 'A7'),
+                                       ((7, 4), 'A6'), ((3, 3), 'A6')])
+def test_unported_pairs_raise(shadow, pair, item):
+  """No pair falls back to nothing: mesh-mesh and height fields raise
+  naming A7, the other primitive pairs A6, in narrowphase, in the point
+  count and when a model with such a pair builds its contact table."""
+  _, m, d, _, _ = shadow
+  if pair == 'hfield':
+    m = m.replace(geom_type=(int(model_lib.GeomType.HFIELD),)
+                  + m.geom_type[1:])
+    pair = (0, 2)
+  for call in (lambda: collision.narrowphase(m, d, *pair),
+               lambda: collision.points_per_pair(m, *pair),
+               lambda: constraint.contact_table(
+                   m.replace(collision_pairs=(pair,)))):
+    with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
+      call()
+
+
+def test_mesh_mesh_cluster_raises(shadow):
+  """Eight condim-1 mesh-mesh pairs of one hull shape form JAX's mm
+  cluster, with its dynamic rows: refused, naming A7."""
+  _, m, _, _, _ = shadow
+  m = m.replace(collision_pairs=((2, 2),) * 8,
+                geom_condim=tuple(1 for _ in m.geom_condim))
+  with pytest.raises(NotImplementedError, match='mesh-mesh.*ROADMAP A7'):
+    constraint.contact_table(m)

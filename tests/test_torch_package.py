@@ -1,8 +1,9 @@
 """Package-level checks of the PyTorch port.
 
 * Every module of mujoco_mpc_tpu_torch imports, and the Cartpole,
-  Quadruped Flat and Humanoid Track tasks load and step, with jax, flax,
-  mujoco and the JAX package blocked: the GPU machine has none of them.
+  Quadruped Flat, Humanoid Track and Shadow Reorient tasks load and step,
+  with jax, flax, mujoco and the JAX package blocked: the GPU machine has
+  none of them.
 * Entry points build on the card unless asked for the CPU: without a card
   the default raises.
 * chip_smoke.py refuses to run without a card and prints no result.
@@ -98,6 +99,30 @@ def test_humanoid_track_steps_without_jax_or_mujoco():
   assert proc.stdout.split() == ['23', '7', '109', '1']
 
 
+def test_shadow_reorient_steps_without_jax_or_mujoco():
+  """The cube's hull travels in the snapshot: the task loads and one CPU
+  step from the cube lowered onto the palm runs its contacts, residual,
+  cost and transition with nothing of JAX or mujoco importable."""
+  proc = _run(BLOCK + (
+      "import torch\n"
+      "from mujoco_mpc_tpu_torch.physics import forward\n"
+      "from mujoco_mpc_tpu_torch.physics.model import make_data\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "spec = registry.get_task('Shadow Reorient', device='cpu')\n"
+      "m, p = spec.model, spec.default_params\n"
+      "q = m.qpos0.clone()\n"
+      "q[2] -= 0.025\n"
+      "d = forward.forward(m, make_data(m).replace(qpos=q[None]))\n"
+      "d, p = spec.transition_fn(m, d, p, torch.Generator())\n"
+      "c = spec.cost(spec.residual_fn(m, d, p.residual_params), p)\n"
+      "d = forward.integrate(m, d)\n"
+      "print(m.nv, len(m.collision_pairs), sorted(m.geom_mesh),\n"
+      "      spec.num_residual, int(torch.isfinite(c).all()\n"
+      "      and torch.isfinite(d.qpos).all()))\n"))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.split() == ['21', '32', '[2]', '27', '1']
+
+
 def test_get_task_defaults_to_the_card():
   """No quiet CPU fallback: the default device is CUDA, and without a
   card asking for it raises."""
@@ -151,6 +176,12 @@ def test_humanoid_snapshots_are_current(name):
   """Track's clip arrays ('task/markers', 'task/starts', 'task/lengths')
   included."""
   _check_snapshot(name)
+
+
+def test_shadow_snapshot_is_current():
+  """The cube's hull tables ('model/geom_mesh/2/verts', '.../normals',
+  '.../offsets', float32 as JAX holds them) included."""
+  _check_snapshot('Shadow Reorient')
 
 
 def test_port_uses_no_compiler_or_jit():

@@ -7,12 +7,13 @@ Run from the repository root on a machine with an NVIDIA GPU:
 It builds csrc/chol_solve.cu only and prints ptxas's register, stack and
 spill report for every bucket instance (N 1 to 32) with the shared memory
 a block takes, then runs chip_smoke.py's B1 checks against the plain
-version (phase 3a: every n from 1 to 32 at B 1, 8192 and 8193; 3c, 3e and
-3f: the Cartpole, Quadruped and Humanoid Track steps' inputs, same
-tolerances) and times the kernel, the plain version and torch.linalg's
-cholesky_ex + cholesky_solve at n 2 (B 8192, the Cartpole step's
-systems), n 18 (B 4096, the Quadruped's), n 23 (B 512, the Humanoid's)
-and n 24 and 32 (B 4096, random systems), each with its
+version (phase 3a: every n from 1 to 32 at B 1, 8192 and 8193; 3c, 3e, 3f
+and 3g: the Cartpole, Quadruped, Humanoid Track and Shadow Reorient
+steps' inputs, same tolerances) and times the kernel, the plain version
+and torch.linalg's cholesky_ex + cholesky_solve at n 2 (B 8192, the
+Cartpole step's systems), n 18 (B 4096, the Quadruped's), n 23 (B 512,
+the Humanoid's), n 21 (B 8192, Shadow's) and n 24 and 32 (B 4096, random
+systems), each with its
 bound, beside the card's name and power limit. A failed check exits
 non-zero at once; a spilling instance, after the timing. With `timing` it
 skips the checks.
@@ -53,7 +54,9 @@ def main():
       ('Cartpole', cs.cartpole_states, 1e-5, '3c', cs.TIME_REPS),
       ('Quadruped Flat', cs.quadruped_states, 1e-4, '3e', cs.TIME_REPS),
       ('Humanoid Track', cs.humanoid_states, 1e-4, '3f',
-       cs.HUMAN_PLAIN_REPS)):
+       cs.HUMAN_PLAIN_REPS),
+      ('Shadow Reorient', cs.shadow_states, 1e-4, '3g',
+       cs.SHADOW_PLAIN_REPS)):
     task = registry.get_task(name, device=cs.DEV)
     spd_in, _ = cs.solver_inputs(task, states(task, gen))
     if checks:

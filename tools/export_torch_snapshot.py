@@ -50,6 +50,9 @@ def model_snapshot(m):
   arrays = {k: np.asarray(getattr(m, k)) for k in port_model.ARRAY_FIELDS}
   arrays.update({'opt.' + k: np.asarray(getattr(m.opt, k))
                  for k in port_model.OPTION_ARRAYS})
+  for g, hull in (m.geom_mesh or {}).items():
+    arrays.update({f'geom_mesh/{int(g)}/{part}': np.asarray(a)
+                   for part, a in zip(port_model.HULL_ARRAYS, hull)})
   static = {k: _jsonable(getattr(m, k)) for k in port_model.STATIC_FIELDS}
   static.update({'opt.' + k: int(getattr(m.opt, k))
                  for k in port_model.OPTION_STATIC})

@@ -6,11 +6,12 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 It builds csrc/newton.cu only and prints ptxas's register, stack and
 spill report for each nv bucket (a spill fails the run at its end), then
-runs chip_smoke.py's B2 checks against the plain version (phases 3b-3f:
+runs chip_smoke.py's B2 checks against the plain version (phases 3b-3g:
 random dense and one-hot rows, the Cartpole step's inputs, random contact
-groups, the Quadruped and Humanoid Track steps' inputs) and phase 4's B2
-timing at the three paths' shapes, with the bound and the card's name
-and power limit; then the time by iteration cap at each shape, and at the
+groups, the Quadruped, Humanoid Track and Shadow Reorient steps' inputs)
+and phase 4's B2 timing at the four paths' shapes, with the bound and the
+card's name and power limit; then the time by iteration cap at each shape
+(Shadow's at one block of 4 samples an SM), and at the
 Quadruped shapes the time on states from three seeds with the iterations
 per sample they take, the profiler's records counted both ways. Any
 failed check exits non-zero. With `timing` it skips the checks (about 6
@@ -93,7 +94,8 @@ def main():
     cs.check_newton_groups(gen)
   shapes = {}
   for name, states, phase in (('Quadruped Flat', cs.quadruped_states, '3e'),
-                              ('Humanoid Track', cs.humanoid_states, '3f')):
+                              ('Humanoid Track', cs.humanoid_states, '3f'),
+                              ('Shadow Reorient', cs.shadow_states, '3g')):
     task = registry.get_task(name, device=cs.DEV)
     _, (args, gargs, condims, dmasks) = cs.solver_inputs(task,
                                                          states(task, gen))
@@ -112,7 +114,8 @@ def main():
         f'{name.split()[0]} B {args[1].shape[0]} nv {task.model.nv} ns '
         f'{args[6].shape[1]} one condim-3 group P {gargs[1].shape[1]} cap '
         f'{kw["cap"]}', args, gargs, kw,
-        cs.HUMAN_PLAIN_REPS if name == 'Humanoid Track' else None))
+        {'Humanoid Track': cs.HUMAN_PLAIN_REPS,
+         'Shadow Reorient': cs.SHADOW_PLAIN_REPS}.get(name)))
   for label, args, gargs, kw, plain_reps in timed:
     print(f'phase 4 timing per call, wall (median of {cs.TIME_REPS}, CUDA '
           f'events) / device only (profiler): '

@@ -72,8 +72,10 @@ def main():
   samples = int(sys.argv[1]) if len(sys.argv) > 1 else 32
   chip_smoke.DEV = 'cpu'
   chip_smoke.CART_SAMPLES = chip_smoke.QUAD_SAMPLES = samples
-  chip_smoke.HUMAN_SAMPLES = samples
+  chip_smoke.HUMAN_SAMPLES = chip_smoke.SHADOW_SAMPLES = samples
+  chip_smoke.SHADOW_QPOS0 = samples // 4
   chip_smoke.CART_PLANS = chip_smoke.QUAD_PLANS = chip_smoke.HUMAN_PLANS = 2
+  chip_smoke.SHADOW_PLANS = 2
   chip_smoke.TIME_REPS = 2
   chip_smoke.HUMAN_PLAIN_REPS = 1
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0

@@ -5,8 +5,10 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/step_stages.py
 
 For Cartpole (8192 samples at the start state (1.0, 3.14159)), Quadruped
-Flat (4096 samples at `home`) and Humanoid Track (512 samples at `home`,
-the clip's first pose), with random controls in the control range, it
+Flat (4096 samples at `home`), Humanoid Track (512 samples at `home`,
+the clip's first pose) and Shadow Reorient (8192 samples at qpos0 with
+the cube lowered 20 mm onto the palm, where a rollout from qpos0 brings
+it), with random controls in the control range, it
 runs the stages of a rollout step (planners/rollout.py: forward, residual
 and cost, Euler) one after the other, each on the output of the one
 before. Each stage is timed alone:
@@ -96,11 +98,16 @@ def main():
   gen = torch.Generator(device='cuda').manual_seed(0)
   for name, bsz, qpos0 in (('Cartpole', 8192, None),
                            ('Quadruped Flat', 4096, 'home'),
-                           ('Humanoid Track', 512, 'home')):
+                           ('Humanoid Track', 512, 'home'),
+                           ('Shadow Reorient', 8192, 'on the palm')):
     spec = registry.get_task(name)
     m = spec.model
-    qpos = (m.keyframe_qpos(qpos0) if qpos0 else
-            torch.tensor([1.0, 3.14159], device='cuda'))
+    if qpos0 == 'on the palm':
+      qpos = m.qpos0.clone()
+      qpos[2] -= 0.02
+    else:
+      qpos = (m.keyframe_qpos(qpos0) if qpos0 else
+              torch.tensor([1.0, 3.14159], device='cuda'))
     lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
     ctrl = lo + (hi - lo) * torch.rand((bsz, m.nu), generator=gen,
                                        device='cuda')
