@@ -27,13 +27,21 @@ Phases, one line each (any failure exits non-zero):
      deeper than a step goes (held to 3d's rule for dense problems); 3h
      the contact points the card's step stacks at both sets against the
      CPU's plain path: the same tied hull vertices at qpos0, depths and
-     positions within f32 tolerance;
+     positions within f32 tolerance; 3i both kernels' tangents: each
+     Function's jvp, vmapped over tangent directions, through the kernels
+     against the same Function through the plain versions on the card,
+     at Swimmer's derivative shapes (B1 and B2 at the 200 knots, 21
+     directions, B1's tangent at B 4,200 in one launch) and at the
+     Quadruped step's inputs (B2's condim-3 group tangent, 4 directions;
+     3d's near-tie rule);
   4. timing: kernel, plain version and (B1) torch.linalg's batched
-     Cholesky at the four paths' shapes, and B1 at n 24 and 32 (B 4096,
-     random systems), wall per call (CUDA events, median of 30; the plain
-     versions at the Humanoid shapes and B1's at n 24 and 32 over 3 calls,
-     at the Shadow shapes over one) and device time (profiler), with each
-     kernel's bound and its device time as a multiple of the bound;
+     Cholesky at the four Predictive Sampling paths' shapes and at the
+     two iLQG paths' (B1 at the line search, B 8, and at the derivative
+     tangent, B (T - 1) D; B2 at the line search), and B1 at n 24 and 32
+     (B 4096, random systems), wall per call (CUDA events, median of 30;
+     the plain versions over 3 calls, at the Shadow shapes over one) and
+     device time (profiler), with each kernel's bound and its device time
+     as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
      steps, 10 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
@@ -54,10 +62,26 @@ Phases, one line each (any failure exits non-zero):
      timed plans from qpos0, checked and profiled as in phase 5
      (bench.py's shadow_ps8192);
   15. Shadow Reorient golden: the bounds of phase 9;
-  16. Shadow Reorient plan-act: as phase 10.
+  16. Shadow Reorient plan-act: as phase 10;
+  17. Particle iLQG main path: make_planner(spec, ILQG, 8, 51, 10) from
+     the task's start (bench.py's particle_ilqg), a warm-up and 10 timed
+     iterations: p50, plans/s, the wall split into line search,
+     derivatives and Riccati, both kernels' launches per iteration (and
+     B1 at B (T - 1) D in the derivative pass), the escalation's host
+     reads, backward_pass_ok and best_return <= nominal_return; one
+     profiled iteration;
+  18. Particle iLQG golden: the second iteration (the first to apply an
+     improvement) on the card and on the CPU plain path, from the same
+     state and policy (phase 17's first iteration's): A and B per knot
+     within 1e-3 relative, best_return within 0.02, the same winning
+     scale;
+  19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 5 timed
+     iterations, as phase 17;
+  20. Swimmer iLQG golden: as phase 18.
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all four), and as the last
-line {"ok": true, "device": {...}}.
+(top-level keys: the Quadruped path; "paths": all six, the iLQG ones at
+the line search's shapes with B1's derivative tangent under "tangent"),
+and as the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -97,6 +121,15 @@ HUMAN_PLAIN_REPS = 3
 TIME_REPS = 30
 # B1 beyond the paths' sizes: the buckets the mesh-hull hands will use,
 # its plain version there timed over a few calls
+# iLQG, bench.py's particle_ilqg / swimmer_ilqg: make_planner(spec, ILQG,
+# 8, T, 10), timed iterations from the task's start
+ILQG_CANDIDATES = 8
+PARTICLE_ITERS = 10
+SWIMMER_ITERS = 5
+# calls the plain versions are timed over in phase 4 at the Cartpole,
+# Quadruped and iLQG shapes (one plain Newton call is up to ~5,000
+# launches, and the profiler's passes over 30 of them dominated phase 4)
+PLAIN_REPS = 3
 SPD_EXTRA_N = (24, 32)
 SPD_EXTRA_PLAIN_REPS = 3
 DEV = 'cuda'
@@ -137,7 +170,8 @@ def cuda_time_ms(fn, reps=TIME_REPS):
   return statistics.median(times)
 
 
-def device_us(fn, reps=TIME_REPS, top=0, kernel=None):
+def device_us(fn, reps=TIME_REPS, top=0, kernel=None, warm=True,
+              host=True):
   """Device time of fn() per call in microseconds, from the CUDA kernels
   the profiler saw over `reps` calls (no host time). With `top`, also
   (device ops per call, [(name, count, us) of the `top` ops with the most
@@ -151,7 +185,11 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None):
   device time (with `kernel`, that kernel) has too few records to count
   (fewer than half the calls; with `kernel`, none) is taken again, up to
   five passes, and then fails; a line says how many records of `kernel`
-  the profiler kept when it kept fewer than the calls."""
+  the profiler kept when it kept fewer than the calls. `warm=False` skips
+  the unprofiled warm-up call (for an fn that has run already);
+  `host=False` traces the device's activity only (an iLQG iteration is
+  ~600,000 launches, and tracing the host's side of each as well took
+  minutes)."""
   import torch
   from torch.profiler import ProfilerActivity, profile
 
@@ -163,11 +201,12 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None):
       return [e for e in dev if kernel in e.key]
     return dev[:1] if dev and 2 * dev[0].count >= reps else []
 
-  fn()
+  if warm:
+    fn()
   torch.cuda.synchronize()
   for _ in range(5):
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
       for _ in range(reps):
         fn()
       torch.cuda.synchronize()
@@ -1019,6 +1058,453 @@ def plan_act(spec, sim0, samples, total_steps, seed):
           float(costs[-1]))
 
 
+# ---------------------------------------------------------------------------
+# iLQG with exact derivatives: Particle and Swimmer (phases 3i, 17-20)
+# ---------------------------------------------------------------------------
+
+
+class plain_versions:
+  """Within this block both Functions (ops/spd_solve.SpdSolve and
+  ops/newton.NewtonSolve) reach their plain versions on the card too, so
+  the same Function, jvp and vmap rules included, runs once through the
+  kernels and once through the plain versions. Nothing is counted as a
+  launch in it."""
+
+  def __enter__(self):
+    from mujoco_mpc_tpu_torch.ops import linalg, newton, spd_solve
+    self.saved = spd_solve._solve, newton._newton
+    spd_solve._solve = linalg.solve_spd
+    newton._newton = newton.newton_reference
+    return self
+
+  def __exit__(self, *exc):
+    from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+    spd_solve._solve, newton._newton = self.saved
+
+
+class record_batches:
+  """Records the batch of every call of the kernels' dispatch (`calls`:
+  [('chol_solve' or 'newton', B), ...]); the calls go on to the kernels."""
+
+  def __enter__(self):
+    from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+    self.saved = spd_solve._solve, newton._newton
+    self.calls = []
+    solve, newt = self.saved
+
+    def rec_solve(a, b):
+      self.calls.append(('chol_solve', b.shape[0]))
+      return solve(a, b)
+
+    def rec_newton(*args, **kw):
+      self.calls.append(('newton', args[1].shape[0]))
+      return newt(*args, **kw)
+    spd_solve._solve, newton._newton = rec_solve, rec_newton
+    return self
+
+  def __exit__(self, *exc):
+    from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+    spd_solve._solve, newton._newton = self.saved
+
+
+def tangent_directions(gen, primals, dirs):
+  """`dirs` random tangent directions (stacked on a leading axis) for each
+  float operand with the batch's leading dimension, each sample's scaled
+  to that sample's largest entry (symmetric for the (B, n, n) matrices),
+  as the derivative pass's perturbations are; None for the integer
+  operands, the empty ones and the model constants (dof, sign)."""
+  import torch
+  bsz = primals[1].shape[0]
+  out = []
+  for t in primals:
+    if (not t.is_floating_point() or t.dim() < 2 or t.shape[0] != bsz
+        or not t.numel()):
+      out.append(None)
+      continue
+    r = torch.randn((dirs,) + tuple(t.shape), generator=gen, device=DEV)
+    if t.dim() == 3 and t.shape[1] == t.shape[2]:
+      r = 0.5 * (r + r.transpose(2, 3))
+    scale = torch.abs(t).reshape(bsz, -1).amax(-1).clamp(min=1e-6)
+    out.append(r * scale.reshape((1, bsz) + (1,) * (t.dim() - 1)))
+  return out
+
+
+def jvp_both(fn, primals, tangents):
+  """vmap over the directions of torch.func.jvp of fn, through the kernels
+  and through the plain versions: ((outputs, tangents) kernel, plain)."""
+  import torch
+  idx = [i for i, t in enumerate(tangents) if t is not None]
+
+  def run():
+    def one(*ts):
+      def f(*xs):
+        full = list(primals)
+        for i, x in zip(idx, xs):
+          full[i] = x
+        return fn(*full)
+      return torch.func.jvp(f, tuple(primals[i] for i in idx), ts)
+    return torch.func.vmap(one, out_dims=(None, 0))(
+        *(tangents[i] for i in idx))
+  got = run()
+  with plain_versions():
+    want = run()
+  return got, want
+
+
+def tangent_bad(got, want, bsz):
+  """(samples whose outputs or tangents lie outside rtol 2e-3 / atol 1e-3
+  of the plain version's, max abs error). Per sample and output, over its
+  entries and directions: |got - want|_max <= 1e-3 + 2e-3 |want|_max, the
+  tolerance taken against the sample's largest entry, since an f32 solve
+  of a system of condition number k errs by ~k * 6e-8 of that (Swimmer's
+  qM: k ~2e4). got and want are jvp_both's (outputs (B, ...), tangents
+  (D, B, ...)), a tensor or a tuple each."""
+  import torch
+  bad = torch.zeros(bsz, dtype=torch.bool, device=DEV)
+  err = 0.0
+  for part in (0, 1):
+    gs, ws = got[part], want[part]
+    if torch.is_tensor(gs):
+      gs, ws = (gs,), (ws,)
+    for g, w in zip(gs, ws):
+      if not g.numel():
+        continue
+      if part == 0:
+        g, w = g[None], w[None]
+      g = g.reshape(g.shape[0], bsz, -1).transpose(0, 1).reshape(bsz, -1)
+      w = w.reshape(w.shape[0], bsz, -1).transpose(0, 1).reshape(bsz, -1)
+      diff = torch.abs(g - w).amax(-1)
+      bad |= diff > 1e-3 + 2e-3 * torch.abs(w).amax(-1)
+      err = max(err, float(diff.max()))
+  return bad, err
+
+
+def check_tangents(gen, swim, q_inputs):
+  """Phase 3i: both Functions' jvp, vmapped over tangent directions,
+  through the kernels against the same Functions through the plain
+  versions, on the card. B1 and B2 at Swimmer's derivative shapes (the
+  200 knots of a 201-step horizon, 21 directions: B1's tangent at B
+  4,200), and B2 with its contact group at the Quadruped step's inputs
+  (4 directions). A sample outside the tolerance must be a near tie of
+  the primal Newton solve (3d's rule), at most 1% of them."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.planners import derivatives
+  m = swim.model
+  knots = agent.horizon_steps(swim) - 1
+  dirs = derivatives.ndx(m) + m.nu
+  q = m.qpos0 + 0.3 * torch.randn((knots, m.nq), generator=gen, device=DEV)
+  d = make_data(m, knots).replace(
+      qpos=q, qvel=torch.randn((knots, m.nv), generator=gen, device=DEV),
+      ctrl=torch.rand((knots, m.nu), generator=gen, device=DEV) * 2 - 1)
+  spd_in, (args, _, _, _) = solver_inputs(swim, d)
+  lines = []
+  with record_batches() as rec:
+    got, want = jvp_both(spd_solve.solve_spd, list(spd_in),
+                         tangent_directions(gen, spd_in, dirs))
+  bad, err = tangent_bad(got, want, knots)
+  check(('chol_solve', knots * dirs) in rec.calls,
+        f'B1 tangent not launched at B {knots * dirs}: {rec.calls}')
+  check(not bool(bad.any()), f'B1 jvp: {int(bad.sum())} of {knots} '
+        f'systems outside rtol 2e-3/atol 1e-3')
+  lines.append(f'B1 jvp, Swimmer qM (B {knots}, n {m.nv}, {dirs} '
+               f'directions: tangent at B {knots * dirs}, one launch): max '
+               f'abs err {err:.3g}, 0 outside')
+  spd_abs = err
+
+  def newton_fn(kw):
+    return lambda *x: newton.newton(*x, **kw)
+  results = {}
+  for label, n_args, gargs, kw, ndirs in (
+      ('Swimmer', args, (), dict(cap=m.opt.iterations, tol=1e-5), dirs),
+      ('Quadruped', *q_inputs, 4)):
+    primals = list(n_args) + list(gargs)
+    bsz = primals[1].shape[0]
+    with record_batches() as rec:
+      got, want = jvp_both(newton_fn(kw), primals,
+                           tangent_directions(gen, primals, ndirs))
+    check(('newton', bsz) in rec.calls and
+          ('chol_solve', bsz * ndirs) in rec.calls,
+          f'{label}: B2 and its tangent solve not launched at B {bsz} and '
+          f'{bsz * ndirs}: {sorted(set(rec.calls))}')
+    bad, err = tangent_bad(got, want, bsz)
+    ex = expanded(n_args, gargs, kw.get('condims', ()), kw.get('dmasks', ()))
+    c_got = newton_cost(ex, got[0][0])
+    c_want = newton_cost(ex, want[0][0])
+    gap = torch.abs(c_got - c_want) / torch.clamp(torch.abs(c_want), min=1.0)
+    nbad, bad_gap = int(bad.sum()), float(torch.where(bad, gap, 0.0).max())
+    newton_ok(f'{label} jvp', bsz, nbad, float(gap.max()), bad_gap)
+    lines.append(f'B2 jvp, {label} step inputs (B {bsz}, nv '
+                 f'{n_args[1].shape[1]}, ns {n_args[6].shape[1]}, condims '
+                 f'{kw.get("condims", ())}, {ndirs} directions: tangent '
+                 f'solve at B {bsz * ndirs}): max abs err {err:.3g}; '
+                 + newton_line(nbad, bsz, float(gap.max()), bad_gap))
+    results[label] = err
+  for line in lines:
+    print('phase 3i ' + line)
+  return spd_abs, results['Swimmer']
+
+
+def time_ilqg_kernels(gen, part, swim, kern):
+  """Phase 4's iLQG rows: B1 at the line search (B 8) and at the
+  derivative tangent (B (T - 1) D), B2 at the line search, for Particle
+  and Swimmer, each against its plain version; timings into `kern`.
+  Returns {path: (B1 line search, B1 tangent, B2) max abs errors}."""
+  ilqg_err = {}
+  for path, spec_ in (('particle_ilqg', part), ('swimmer_ilqg', swim)):
+    dirs = 2 * spec_.model.nv + spec_.model.na + spec_.model.nu
+    ls_spd, tangent, (n_args, n_gargs, n_kw) = ilqg_kernel_inputs(
+        spec_, gen, ILQG_CANDIDATES, dirs)
+    ls_times = time_spd(ls_spd, PLAIN_REPS)
+    tan_times = time_spd(tangent, PLAIN_REPS)
+    n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw,
+                                                PLAIN_REPS)
+    kern[path] = dict(wall={**ls_times[0], **n_wall},
+                      dev={**ls_times[1], **n_dev}, spd_bound=ls_times[2],
+                      newton_bound=n_bound,
+                      tangent=dict(wall=tan_times[0], dev=tan_times[1],
+                                   spd_bound=tan_times[2]))
+    nbad, gap, n_abs, bad_gap = compare_newton(n_args, n_gargs, **n_kw)
+    newton_ok(f'{path} line search', ILQG_CANDIDATES, nbad, gap, bad_gap,
+              share=False)
+    ilqg_err[path] = (check_spd_inputs(ls_spd, 1e-4, path)[0],
+                      check_spd_inputs(tangent, 1e-4, path)[0], n_abs)
+    print(f'phase 4 timing {path} per call, wall / device only: line '
+          f'search ' + spd_timing_line(*ls_times, ls_spd[0])
+          + '; derivative tangent ' + spd_timing_line(*tan_times, tangent[0])
+          + '; ' + newton_timing_line(
+              f'line search B {ILQG_CANDIDATES} nv {spec_.model.nv} ns '
+              f'{n_args[6].shape[1]} cap {n_kw["cap"]}', n_wall, n_dev,
+              n_bound, iters, PLAIN_REPS))
+  return ilqg_err
+
+
+def ilqg_launches(spec, t_steps):
+  """(B1, B2) launches one iLQG iteration makes: the line search's T steps
+  (B1 once for qacc_smooth and, with the Euler integrator, once for its
+  damping system; B2 once), then the derivative pass: the transition's
+  step at B T - 1 (each B1 system's primal and tangent, B2's primal and
+  its tangent's B1 solve) and the cost's forward at B T (qacc_smooth's
+  primal and tangent, B2's primal and its tangent's B1 solve)."""
+  euler = int(spec.model.opt.integrator == 0)
+  return (t_steps * (1 + euler) + 2 * (1 + euler) + 1 + 3, t_steps + 2)
+
+
+class split_timer:
+  """Wall time (synchronized) of the line search, the derivative pass and
+  the backward pass inside ilqg.optimize, summed over the iterations run
+  in the block; also the Derivatives the pass returned last."""
+
+  def __enter__(self):
+    import torch
+    from mujoco_mpc_tpu_torch.planners import derivatives, ilqg
+    self.saved = (ilqg._feedback_rollout, derivatives.compute,
+                  ilqg._backward_with_escalation)
+    self.total = {'line search': 0.0, 'derivatives': 0.0, 'riccati': 0.0}
+    self.derivs = None
+
+    def timed(name, fn, keep=False):
+      def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        self.total[name] += time.perf_counter() - t0
+        if keep:
+          self.derivs = out
+        return out
+      return run
+    ilqg._feedback_rollout = timed('line search', self.saved[0])
+    derivatives.compute = timed('derivatives', self.saved[1], keep=True)
+    ilqg._backward_with_escalation = timed('riccati', self.saved[2])
+    return self
+
+  def __exit__(self, *exc):
+    from mujoco_mpc_tpu_torch.planners import derivatives, ilqg
+    (ilqg._feedback_rollout, derivatives.compute,
+     ilqg._backward_with_escalation) = self.saved
+
+
+def ilqg_main_path(spec, iters, candidates):
+  """make_planner(spec, ILQG, candidates, T, 10) from the task's start
+  (bench.py's particle_ilqg / swimmer_ilqg): one warm-up iteration, then
+  `iters` timed ones with the kernels' counts set to 0 just before and
+  read just after, their wall split (each stage synchronized) and the
+  kernels' batches recorded, then one profiled iteration."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.planners import derivatives, ilqg
+  from mujoco_mpc_tpu_torch.planners import registry as planners
+  m = spec.model
+  t_steps = agent.horizon_steps(spec)
+  plan = planners.make_planner(spec, planners.ILQG, candidates, t_steps,
+                               SPLINE_POINTS)
+  d0, params = make_data(m), spec.default_params
+  state, info = plan.optimize(plan.init(), d0, params)      # warm-up
+  # the golden's state: the first iteration's, whose improvement the next
+  # line search applies (later on, with the plan converged, the
+  # candidates' returns differ by f32 rounding and the winning scale is
+  # a tie)
+  first = state
+  torch.cuda.synchronize()
+  spd_solve.solve_spd.launches = 0
+  newton.newton.launches = 0
+  reads0 = ilqg.host_reads
+  lat, infos = [], []
+  with split_timer() as split, record_batches() as rec:
+    for _ in range(iters):
+      t0 = time.perf_counter()
+      state, info = plan.optimize(state, d0, params)
+      torch.cuda.synchronize()
+      lat.append(time.perf_counter() - t0)
+      infos.append(info)
+  launches = {'chol_solve': spd_solve.solve_spd.launches,
+              'newton': newton.newton.launches}
+  reads = ilqg.host_reads - reads0
+  want_b1, want_b2 = ilqg_launches(spec, t_steps)
+  check(launches['chol_solve'] == iters * want_b1,
+        f'chol_solve launched {launches["chol_solve"]} times in {iters} '
+        f'iterations, expected {iters * want_b1}')
+  check(launches['newton'] == iters * want_b2,
+        f'newton launched {launches["newton"]} times in {iters} iterations, '
+        f'expected {iters * want_b2}')
+  ok = torch.stack([i['backward_pass_ok'] for i in infos]).cpu()
+  check(bool(ok.all()), f'backward pass failed: {ok}')
+  best = torch.stack([i['best_return'] for i in infos]).cpu()
+  nominal = torch.stack([i['nominal_return'] for i in infos]).cpu()
+  check(bool(torch.isfinite(best).all()), f'best_return not finite: {best}')
+  check(bool((best <= nominal).all()), 'best_return > nominal_return')
+  dirs = derivatives.ndx(m) + m.nu
+  tangent = ('chol_solve', (t_steps - 1) * dirs)
+  check(tangent in rec.calls, f'B1 not launched at B (T-1) D = '
+        f'{tangent[1]} in the derivative pass: {sorted(set(rec.calls))}')
+  check(('chol_solve', candidates) in rec.calls
+        and ('newton', candidates) in rec.calls,
+        'B1 and B2 not launched at the line search\'s batch')
+  t0 = time.perf_counter()
+  dev_us, ops, top = device_us(lambda: plan.optimize(state, d0, params),
+                               reps=1, top=8, warm=False, host=False)
+  profile_s = time.perf_counter() - t0
+  return dict(t_steps=t_steps, p50=statistics.median(lat), lat=lat,
+              launches=launches, per_iter=(want_b1, want_b2), reads=reads,
+              best=float(best[-1]), nominal=float(nominal[-1]),
+              split={k: v / iters for k, v in split.total.items()},
+              batches=sorted(set(rec.calls)), dev_us=dev_us, ops=ops,
+              top=top, first=first, dirs=dirs, profile_s=profile_s,
+              tangent_per_iter=rec.calls.count(tangent) // iters)
+
+
+def print_ilqg_path(phase, name, candidates, iters, r):
+  split = ', '.join(f'{k} {v * 1e3:.1f} ms' for k, v in r['split'].items())
+  print(f'phase {phase} main path: {name} iLQG {candidates} candidates x '
+        f'{r["t_steps"]} steps, {iters} iterations: p50 '
+        f'{r["p50"] * 1e3:.2f} ms, {1.0 / r["p50"]:.3f} plans/s (min '
+        f'{min(r["lat"]) * 1e3:.2f}, max {max(r["lat"]) * 1e3:.2f} ms); '
+        f'wall split per iteration (each stage synchronized): {split}; '
+        f'launches per iteration chol_solve '
+        f'{r["launches"]["chol_solve"] // iters}, newton '
+        f'{r["launches"]["newton"] // iters}; escalation host reads '
+        f'{r["reads"]} in {iters} iterations; backward_pass_ok every '
+        f'iteration; best_return {r["best"]:.5g} <= nominal '
+        f'{r["nominal"]:.5g}')
+  print(f'phase {phase} kernel batches (kernel, B): {r["batches"]}; '
+        f'derivative directions D = {r["dirs"]}')
+  print(f'phase {phase} profiled iteration (device trace only, '
+        f'{r["profile_s"]:.1f} s): {r["ops"]} device ops, device busy '
+        f'{r["dev_us"] / 1e3:.2f} ms = '
+        f'{r["dev_us"] / 1e4 / r["p50"]:.1f}% of p50; by op (name: count, '
+        f'ms): ' + '; '.join(f'{n[:48]}: {c}, {us / 1e3:.2f}'
+                             for n, c, us in r['top']))
+
+
+def to_device(state, device):
+  """An ilqg.ILQGState with every tensor moved to `device`."""
+  import dataclasses
+  import torch
+
+  def move(x):
+    if torch.is_tensor(x):
+      return x.to(device)
+    if dataclasses.is_dataclass(x):
+      return type(x)(**{f.name: move(getattr(x, f.name))
+                        for f in dataclasses.fields(x)})
+    return x
+  return move(state)
+
+
+def ilqg_golden(spec, cpu_spec, state, candidates):
+  """One pipelined iteration from `state` (the main path's first
+  iteration's) and the task's start on the card and on the CPU plain
+  path: (A and B per-knot relative errors (median, max), best_return
+  card, CPU, rel err, winning scale card, CPU)."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.planners import ilqg
+  t_steps = agent.horizon_steps(spec)
+  out = []
+  for sp, st in ((spec, state), (cpu_spec, to_device(state, 'cpu'))):
+    with split_timer() as split:
+      _, info = ilqg.optimize(sp, st, make_data(sp.model),
+                              sp.default_params, ilqg.default_config(sp),
+                              candidates, t_steps)
+    out.append((split.derivs, info))
+  (dg, ig), (dc, ic) = out
+  rel = {}
+  for k in ('a', 'b'):
+    g, c = getattr(dg, k).cpu(), getattr(dc, k)
+    per_knot = (torch.abs(g - c).amax((1, 2))
+                / torch.clamp(torch.abs(c).amax((1, 2)), min=1e-6))
+    rel[k] = (float(per_knot.median()), float(per_knot.max()))
+  br_g, br_c = float(ig['best_return']), float(ic['best_return'])
+  br_rel = abs(br_g - br_c) / max(abs(br_c), 1e-9)
+  s_g, s_c = float(ig['action_step']), float(ic['action_step'])
+  check(max(rel['a'][1], rel['b'][1]) <= 1e-3,
+        f'golden A/B per-knot relative error {rel} > 1e-3')
+  check(br_rel <= 0.02, f'golden best_return rel err {br_rel:.3g} > 0.02')
+  check(s_g == s_c, f'golden winning scale card {s_g} vs CPU {s_c}')
+  return rel, br_g, br_c, br_rel, s_g, s_c
+
+
+def print_ilqg_golden(phase, name, g):
+  rel, br_g, br_c, br_rel, s_g, s_c = g
+  print(f'phase {phase} golden: {name} iLQG iteration card vs CPU plain '
+        f'path from the same state and policy: A per-knot rel err median '
+        f'{rel["a"][0]:.3g} max {rel["a"][1]:.3g}, B median {rel["b"][0]:.3g}'
+        f' max {rel["b"][1]:.3g} (tol 1e-3); best_return card {br_g:.6g} vs '
+        f'CPU {br_c:.6g}: rel err {br_rel:.3g} (tol 0.02); winning scale '
+        f'card {s_g:.4g} vs CPU {s_c:.4g}')
+
+
+def ilqg_kernel_inputs(spec, gen, candidates, dirs):
+  """The kernels' inputs at an iLQG path's shapes, from states around the
+  task's start: (B1 at the line search (B candidates), B1's tangent (the
+  T - 1 knots' qM, each shared by D right-hand sides), B2 at the line
+  search (args, gargs, kw))."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+
+  def states(bsz):
+    return make_data(m, bsz).replace(
+        qpos=m.qpos0 + 0.1 * torch.randn((bsz, m.nq), generator=gen,
+                                         device=DEV),
+        qvel=torch.randn((bsz, m.nv), generator=gen, device=DEV),
+        ctrl=torch.rand((bsz, m.nu), generator=gen, device=DEV) * 2 - 1)
+  ls_spd, (args, gargs, _, _) = solver_inputs(spec, states(candidates))
+  knots = agent.horizon_steps(spec) - 1
+  (qm, _), _ = solver_inputs(spec, states(knots))
+  tangent = (qm.repeat(dirs, 1, 1).contiguous(),
+             torch.randn((knots * dirs, m.nv), generator=gen, device=DEV))
+  return ls_spd, tangent, (args, gargs,
+                           dict(cap=m.opt.iterations, tol=1e-5))
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -1143,16 +1629,21 @@ def main():
       s_spd_in, s_args, s_gargs, s_kw = spd_in_, args, gargs, kw
       s_spd_abs, s_newton_abs = spd_abs_, newton_abs_
 
+  swim = registry.get_task('Swimmer')
+  part = registry.get_task('Particle')
+  t_spd_abs, t_newton_abs = check_tangents(gen, swim,
+                                           (q_args, q_gargs, q_kw))
+
   elapsed('1-3')
 
   # 4. timing at the four paths' shapes
   kern = {}
   for path, spd_args, n_args, n_gargs, n_kw, n_label, plain_reps in (
       ('cartpole', spd_in, newton_in, (), dict(cap=cart_cap, tol=1e-5),
-       f'B {CART_SAMPLES} nv 2 ns 2 cap {cart_cap}', None),
+       f'B {CART_SAMPLES} nv 2 ns 2 cap {cart_cap}', PLAIN_REPS),
       ('quadruped', q_spd_in, q_args, q_gargs, q_kw,
        f'B {QUAD_SAMPLES} nv 18 ns 24 one condim-3 group P 20 cap '
-       f'{quad_cap}', None),
+       f'{quad_cap}', PLAIN_REPS),
       ('humanoid_track', h_spd_in, h_args, h_gargs, h_kw,
        f'B {HUMAN_SAMPLES} nv {hum.model.nv} ns {h_args[6].shape[1]} one '
        f'condim-3 group P {h_gargs[1].shape[1]} cap {hum_cap}',
@@ -1170,6 +1661,7 @@ def main():
           + spd_timing_line(*spd_times, spd_args[0]) + '; '
           + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters,
                                plain_reps))
+  ilqg_err = time_ilqg_kernels(gen, part, swim, kern)
   for n in SPD_EXTRA_N:
     spd_args = random_spd(gen, QUAD_SAMPLES, n)
     print(f'phase 4 timing, random systems, per call, wall / device only: '
@@ -1273,8 +1765,23 @@ def main():
 
   elapsed('14-16')
 
-  def entry(name, path, launches, err):
-    k = kern[path]
+  # 17-20. iLQG with exact derivatives: Particle and Swimmer at bench.py's
+  # make_planner(spec, ILQG, 8, T, 10)
+  ilqg_main = {}
+  for phase, name, spec_, iters in ((17, 'Particle', part, PARTICLE_ITERS),
+                                    (19, 'Swimmer', swim, SWIMMER_ITERS)):
+    r = ilqg_main_path(spec_, iters, ILQG_CANDIDATES)
+    print_ilqg_path(phase, name, ILQG_CANDIDATES, iters, r)
+    print_ilqg_golden(phase + 1, name, ilqg_golden(
+        spec_, registry.get_task(name, device='cpu'), r['first'],
+        ILQG_CANDIDATES))
+    ilqg_main[name.lower() + '_ilqg'] = dict(
+        launches=r['launches'], per_iter=r['per_iter'], iters=iters,
+        tangent_per_iter=r['tangent_per_iter'])
+    elapsed(f'{phase}-{phase + 1}')
+
+  def entry(name, path, launches, err, k=None):
+    k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
     b_ms, b_by = k['spd_bound' if short == 'chol' else 'newton_bound']
     return {'launches': launches[name], 'max_abs_err': err,
@@ -1283,6 +1790,24 @@ def main():
             'bound_by': b_by,
             'library_ms': (k['wall']['chol_library'] if short == 'chol'
                            else None)}
+
+  def ilqg_entry(name, path):
+    """An iLQG path's entry, at the line search's shapes, with launches
+    per iteration; B1's carries its derivative tangent's shape (B (T - 1)
+    D) under 'tangent', with the launches the recorded iterations made at
+    that batch."""
+    r, errs = ilqg_main[path], ilqg_err[path]
+    per = dict(zip(('chol_solve', 'newton'), r['per_iter']))
+    e = entry(name, path, r['launches'],
+              errs[0] if name == 'chol_solve' else errs[2])
+    e['launches_per_iteration'] = per[name]
+    if name == 'chol_solve':
+      k = kern[path]['tangent']
+      per_t = r['tangent_per_iter']
+      e['tangent'] = entry(name, path, {name: per_t * r['iters']}, errs[1],
+                           dict(k, newton_bound=None))
+      e['tangent']['launches_per_iteration'] = per_t
+    return e
 
   out = []
   for name, source, replaces, errs in (
@@ -1298,6 +1823,7 @@ def main():
              for p, r in (('cartpole', cart_main), ('quadruped', quad_main),
                           ('humanoid_track', hum_main),
                           ('shadow_reorient', sha_main))}
+    paths.update({p: ilqg_entry(name, p) for p in ilqg_main})
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

@@ -15,19 +15,27 @@ marker clip; tasks/registry.py hands them to the task's maker), and
 'static', one JSON string: {'name', 'model': {static Model fields},
 'task': {term_names, norm_types, term_dims, config, weight_ranges,
 residual_param_names, residual_param_ranges}}.
+
+`ilqg_state_from_arrays` carries the JAX package's iLQG planner state
+(planners/ilqg.py ILQGState and ILQGPolicy, as numpy arrays) across, so
+both packages can start an iteration from the same policy.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 
 import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.physics import model as model_lib
+from mujoco_mpc_tpu_torch.planners import ilqg
 from mujoco_mpc_tpu_torch.tasks import base
 
 PARAM_FIELDS = ('weights', 'norm_params', 'residual_params', 'risk')
+ILQG_STATE_FIELDS = ('regularization', 'regularization_factor',
+                     'previous_return', 'expected_dv')
 
 
 def model_from_arrays(arrays: dict, static: dict, device='cuda',
@@ -82,3 +90,19 @@ def load_snapshot(path: str):
     arrays = {k: z[k] for k in z.files if k != 'static'}
     static = json.loads(str(z['static']))
   return arrays, static
+
+
+def ilqg_state_from_arrays(policy: dict, state: dict, device='cuda',
+                           dtype=torch.float32) -> ilqg.ILQGState:
+  """ILQGState from the numpy leaves of a JAX ILQGPolicy (`policy`, keyed
+  by the fields of ilqg.ILQGPolicy) and of the ILQGState around it
+  (`state`, keyed by ILQG_STATE_FIELDS)."""
+  device = model_lib.resolve_device(device)
+
+  def t(x):
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+  return ilqg.ILQGState(
+      policy=ilqg.ILQGPolicy(**{
+          f.name: t(policy[f.name])
+          for f in dataclasses.fields(ilqg.ILQGPolicy)}),
+      **{k: t(state[k]) for k in ILQG_STATE_FIELDS})

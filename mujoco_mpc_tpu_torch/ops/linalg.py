@@ -4,7 +4,11 @@ Port of mujoco_mpc_tpu/ops/linalg.py (chol_factor :117, chol_solve :146,
 solve_spd :171): column-by-column Cholesky-Crout with the diagonal floored
 at 1e-30, then forward and back substitution, every scalar of the
 recurrence a (B,)-wide tensor. This is the plain PyTorch version of the
-CUDA kernel in ops/spd_solve.py.
+CUDA kernel in ops/spd_solve.py. It is also the reference's own path for
+the iLQG backward pass's small unbatched nu x nu solves and factors
+(planners/ilqg.py boxqp and riccati; JAX's ilqg.py:143, :224-235 call
+ops/linalg there, not the Pallas kernel), so on the card those run here
+and not on B1.
 
 JAX switches to a blocked factorization above n = 24 (linalg.py:59) and to
 XLA's own above n = 128; both compute the same factorization in another

@@ -10,9 +10,19 @@ facet table PYRAMID_FACETS (:79), expand_group (:90) and materialize_jd
 `newton_reference`, batch first. The kernel is csrc/newton.cu.
 
 Dispatch is by device only: a CPU tensor takes `newton_reference`, a CUDA
-tensor the kernel, and anything the kernel cannot take raises. Not ported
-yet: elliptic-cone and frictionloss rows (ROADMAP A8), and the
-implicit-function tangent make_newton's custom_jvp supplies (:1053; A9).
+tensor the kernel, and anything the kernel cannot take raises.
+
+`NewtonSolve` is the torch.autograd.Function every caller goes through
+(physics/constraint.solve). Its `jvp` is make_newton's custom_jvp
+(_newton_jvp :1053-1190): the implicit-function tangent with the converged
+active set frozen, over dense rows, one-hot rows (:1130-1136) and the
+point groups, folded into the dense block first as :1083-1111 does. Its
+H solve goes through ops/spd_solve.SpdSolve, so on the card the tangent
+runs on the kernel B1, and under `torch.func.jacfwd` the tangent
+directions fold into one B1 launch. Its `vmap` rule folds the mapped
+dimension into the batch: one B2 launch. The kernel is launched only from
+`forward`, which sees plain tensors. Not ported yet: elliptic-cone and
+frictionloss rows and their tangents (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -24,6 +34,7 @@ import torch
 
 from mujoco_mpc_tpu_torch.ops import cuda_build
 from mujoco_mpc_tpu_torch.ops import linalg
+from mujoco_mpc_tpu_torch.ops import spd_solve
 
 MAX_NV = 32
 MAX_GROUPS = 4
@@ -292,17 +303,10 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
     raise ValueError('the kernel takes contiguous tensors')
 
 
-def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
-           cap: int, tol: float, condims=(), dmasks=()):
-  """Newton solve over dense rows, one-hot rows and factored point groups;
-  operands and results as newton_reference.
-
-  On the CPU, newton_reference; on CUDA, the kernel, which adds one to
-  `newton.launches` per launch and expands each sample's facet rows from
-  (G, cdofc, dmask) into shared memory itself: the (B, nrep*P, nv) facet
-  block never reaches device memory. The kernel
-  reads dof only to compare it with 0..nv-1, so an out-of-range dof drops
-  the row instead of reaching outside the sample's memory."""
+def _newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
+            cap: int, tol: float, condims=(), dmasks=()):
+  """The device dispatch on plain tensors: newton_reference on the CPU,
+  the kernel on CUDA."""
   operands = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign)
   if all(t.device.type == 'cpu'
          for t in operands + tuple(gargs) + tuple(dmasks)):
@@ -332,6 +336,179 @@ def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
   cuda_build.check(err, 'newton kernel')
   newton.launches += 1
   return (qacc, jar_d, jar_s) + jar_g
+
+
+def _mv(a, x):
+  return (a @ x[..., None])[..., 0]
+
+
+def _expand_group_jvp(g, garef, gdvec, gmu, cdofc, dmask, tangents, condim):
+  """Tangent of expand_group(materialize_jd(g, cdofc, dmask), garef, gdvec,
+  gmu, condim) (bilinear in jd and mu): (dj, daref, ddvec); `tangents`
+  (dg, dgaref, dgdvec, dgmu, dcdofc), None for no tangent."""
+  dg, dgaref, dgdvec, dgmu, dcdofc = tangents
+  jd = materialize_jd(g, cdofc, dmask)
+  djd = 0.0
+  if dg is not None:
+    djd = djd + materialize_jd(dg, cdofc, dmask)
+  if dcdofc is not None:
+    djd = djd + materialize_jd(g, dcdofc, dmask)
+  if not torch.is_tensor(djd):
+    djd = torch.zeros_like(jd)
+  rows = []
+  for (di, col, sgn) in PYRAMID_FACETS[condim]:
+    row = djd[:, :, 0]
+    if sgn:
+      row = row + sgn * gmu[:, col, :, None] * djd[:, :, di]
+      if dgmu is not None:
+        row = row + sgn * dgmu[:, col, :, None] * jd[:, :, di]
+    rows.append(row)
+  bsz, p = gdvec.shape
+  nrep = len(PYRAMID_FACETS[condim])
+  daref = (dgaref.reshape(bsz, nrep * p) if dgaref is not None
+           else torch.zeros_like(garef).reshape(bsz, nrep * p))
+  ddvec = (dgdvec.repeat(1, nrep) if dgdvec is not None
+           else torch.zeros_like(gdvec).repeat(1, nrep))
+  return torch.cat(rows, 1), daref, ddvec
+
+
+class NewtonSolve(torch.autograd.Function):
+  """The Newton solve (operands and results as newton_reference) with the
+  frozen-active-set tangent and a vmap rule that folds the mapped
+  dimension into B. `apply(cap, tol, condims, qm, qs, j, aref, dvec, eqf,
+  s_aref, s_dvec, dof, sign, *gargs, *dmasks)`."""
+
+  @staticmethod
+  def forward(cap, tol, condims, *operands):
+    k = len(operands) - len(condims)
+    out = _newton(*operands[:k], cap=cap, tol=tol, condims=condims,
+                  dmasks=operands[k:])
+    # an output may not be an input (cap 0 returns qs itself)
+    return tuple(o.clone() if any(o is t for t in operands) else o
+                 for o in out)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    cap, tol, condims, *operands = inputs
+    ctx.condims = condims
+    ctx.save_for_forward(*operands, *output)
+
+  @staticmethod
+  def jvp(ctx, _dcap, _dtol, _dcondims, *tangents):
+    condims = ctx.condims
+    saved = ctx.saved_tensors
+    nin = len(tangents)
+    operands, outs = saved[:nin], saved[nin:]
+    k = nin - len(condims)
+    qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = operands[:10]
+    gargs, dmasks = operands[10:k], operands[k:]
+    dqm, dqs, dj, daref, ddvec, _, ds_aref, ds_dvec = tangents[:8]
+    dgargs = tangents[10:k]
+    qacc, jar_d, jar_s = outs[:3]
+    jar_groups = outs[3:]
+    if dj is None:
+      dj = torch.zeros_like(j)
+    if daref is None:
+      daref = torch.zeros_like(aref)
+    if ddvec is None:
+      ddvec = torch.zeros_like(dvec)
+
+    # fold the point groups into the dense block (primal and tangent rows)
+    n_dense = j.shape[1]
+    bsz, nv = qs.shape
+    gsizes = []
+    for gi, cdim in enumerate(condims):
+      gp = gargs[1 + 4 * gi:5 + 4 * gi]
+      gt = tuple(dgargs[1 + 4 * gi:5 + 4 * gi]) + (dgargs[0],)
+      ej, ea, ed = expand_group(materialize_jd(gp[0], gargs[0], dmasks[gi]),
+                                *gp[1:], cdim)
+      dej, dea, ded = _expand_group_jvp(*gp, gargs[0], dmasks[gi], gt, cdim)
+      gsizes.append(tuple(gp[1].shape[1:]))
+      j = torch.cat([j, ej], 1)
+      dj = torch.cat([dj, dej], 1)
+      aref = torch.cat([aref, ea], 1)
+      daref = torch.cat([daref, dea], 1)
+      dvec = torch.cat([dvec, ed], 1)
+      ddvec = torch.cat([ddvec, ded], 1)
+      eqf = torch.cat([eqf, torch.zeros_like(ea)], 1)
+      jar_d = torch.cat([jar_d, jar_groups[gi].reshape(bsz, -1)], 1)
+
+    n, ns = j.shape[1], s_aref.shape[1]
+    dof = dof.long()
+    e = qacc - qs
+    h = qm + _DAMP * torch.eye(nv, dtype=qs.dtype, device=qs.device)
+    rhs = torch.zeros_like(qs)
+    if dqm is not None:
+      rhs = rhs + _mv(dqm, e)
+    if dqs is not None:
+      rhs = rhs - _mv(qm, dqs)
+    if n:
+      active_d = torch.logical_or(jar_d < 0, eqf > 0.5)
+      zero = torch.zeros_like(dvec)
+      w_d = torch.where(active_d, dvec, zero)
+      dw_d = torch.where(active_d, ddvec, zero)
+      jt = j.transpose(1, 2)
+      h = h + (jt * w_d[:, None, :]) @ j
+      rhs = rhs + (_mv(dj.transpose(1, 2), w_d * jar_d)
+                   + _mv(jt, dw_d * jar_d)
+                   + _mv(jt, w_d * (_mv(dj, qacc) - daref)))
+    if ns:
+      active_s = jar_s < 0
+      zero = torch.zeros_like(s_dvec)
+      w_s = torch.where(active_s, s_dvec, zero)
+      h = h + torch.diag_embed(torch.zeros_like(qs).index_add(1, dof, w_s))
+      ds = 0.0
+      if ds_dvec is not None:
+        ds = ds + torch.where(active_s, ds_dvec, zero) * jar_s
+      if ds_aref is not None:
+        ds = ds - w_s * ds_aref
+      if torch.is_tensor(ds):
+        rhs = rhs.index_add(1, dof, sign * ds)
+    dqacc = -spd_solve.SpdSolve.apply(h, rhs)
+    if n:
+      djar_d = _mv(dj, qacc) + _mv(j, dqacc) - daref
+    else:
+      djar_d = torch.zeros_like(jar_d)
+    djar_s = sign * dqacc[:, dof]
+    if ds_aref is not None:
+      djar_s = djar_s - ds_aref
+    djar_groups = []
+    off = n_dense
+    for (nrep, p) in gsizes:
+      djar_groups.append(djar_d[:, off:off + nrep * p].reshape(-1, nrep, p))
+      off += nrep * p
+    return (dqacc, djar_d[:, :n_dense], djar_s) + tuple(djar_groups)
+
+  @staticmethod
+  def vmap(info, in_dims, cap, tol, condims, *operands):
+    size = info.batch_size
+    dims = in_dims[3:]
+    k = len(operands) - len(condims)
+    # dof, sign and the dmasks are model constants, shared by every sample
+    shared = {8, 9} | set(range(k, len(operands)))
+    if any(dims[i] is not None for i in shared):
+      raise ValueError('dof, sign and the dmasks must not be mapped')
+    folded = [t if i in shared else spd_solve.fold_batch(t, dims[i], size)
+              for i, t in enumerate(operands)]
+    out = NewtonSolve.apply(cap, tol, condims, *folded)
+    return (tuple(o.reshape(size, o.shape[0] // size, *o.shape[1:])
+                  for o in out), (0,) * len(out))
+
+
+def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
+           cap: int, tol: float, condims=(), dmasks=()):
+  """Newton solve over dense rows, one-hot rows and factored point groups;
+  operands and results as newton_reference, through `NewtonSolve`.
+
+  On the CPU, newton_reference; on CUDA, the kernel, which adds one to
+  `newton.launches` per launch and expands each sample's facet rows from
+  (G, cdofc, dmask) into shared memory itself: the (B, nrep*P, nv) facet
+  block never reaches device memory. The kernel
+  reads dof only to compare it with 0..nv-1, so an out-of-range dof drops
+  the row instead of reaching outside the sample's memory."""
+  return NewtonSolve.apply(int(cap), float(tol), tuple(condims), qm, qs, j,
+                           aref, dvec, eqf, s_aref, s_dvec, dof, sign,
+                           *gargs, *dmasks)
 
 
 newton.launches = 0

@@ -1,8 +1,9 @@
-"""Norm values for residual cost terms.
+"""Norm values, gradients and Hessians for residual cost terms.
 
 Port of mujoco_mpc_tpu/ops/norms.py (NormType :25, num_norm_parameters
-:37, norm_value :47). The analytic gradients and Hessians (:84, :134)
-serve the derivative planners and come with them (ROADMAP A9).
+:37, norm_value :47, norm_grad :84, norm_hess :134). The gradients and
+Hessians are the analytic ones, with the same zero guards, so the iLQG
+cost expansion (planners/derivatives.py) sees JAX's Gauss-Newton terms.
 """
 
 from __future__ import annotations
@@ -69,4 +70,102 @@ def norm_value(x: torch.Tensor, params: torch.Tensor,
     soft = pn * torch.log1p(torch.exp(x / safe))
     hard = torch.clamp(x, min=0.0)
     return torch.sum(torch.where(pn > 0, soft, hard), dim=-1)
+  raise ValueError(f'unknown norm type {norm_type}')
+
+
+def _params(x, params):
+  zero = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+  p = params[..., 0] if params.shape[-1] > 0 else zero
+  q = params[..., 1] if params.shape[-1] > 1 else zero
+  return p, q
+
+
+def norm_grad(x: torch.Tensor, params: torch.Tensor,
+              norm_type: int) -> torch.Tensor:
+  """Analytic gradient of the norm with respect to x, shape of x."""
+  t = NormType(norm_type)
+  p, q = _params(x, params)
+  pn, qn = p[..., None], q[..., None]
+  if t == NormType.NULL:
+    return torch.ones_like(x)
+  if t == NormType.QUADRATIC:
+    return x
+  if t == NormType.L22:
+    c = torch.clamp(torch.sum(x * x, dim=-1), min=_EPS)
+    a = torch.pow(c, q / 2) + torch.pow(p, q)
+    b = torch.pow(a, 1.0 / q) / a * torch.pow(c, q / 2 - 1.0)
+    return b[..., None] * x
+  if t == NormType.L2:
+    s = torch.sqrt(torch.sum(x * x, dim=-1) + p * p)[..., None]
+    return torch.where(s > 0, x / torch.clamp(s, min=_EPS),
+                       torch.zeros_like(x))
+  if t == NormType.COSH:
+    return pn * torch.sinh(x / pn)
+  if t == NormType.POWER_LOSS:
+    a = torch.clamp(torch.abs(x), min=_EPS)
+    return torch.sign(x) * pn * a ** (pn - 1.0)
+  if t == NormType.SMOOTH_ABS_LOSS:
+    s = torch.sqrt(x * x + pn * pn)
+    return torch.where(s > 0, x / torch.clamp(s, min=_EPS),
+                       torch.zeros_like(x))
+  if t == NormType.SMOOTH_ABS2_LOSS:
+    a = torch.clamp(torch.abs(x), min=_EPS)
+    e = a ** qn + pn ** qn
+    return e ** (1.0 / qn) * a ** (qn - 2.0) / e * x
+  if t == NormType.RECTIFY_LOSS:
+    s = torch.exp(x / torch.where(pn > 0, pn, torch.ones_like(pn)))
+    return torch.where(pn > 0, s / (1.0 + s), (x > 0).to(x.dtype))
+  raise ValueError(f'unknown norm type {norm_type}')
+
+
+def norm_hess(x: torch.Tensor, params: torch.Tensor,
+              norm_type: int) -> torch.Tensor:
+  """Analytic Hessian of the norm with respect to x, (..., n, n)."""
+  t = NormType(norm_type)
+  n = x.shape[-1]
+  eye = torch.eye(n, dtype=x.dtype, device=x.device)
+  p, q = _params(x, params)
+  pn, qn = p[..., None], q[..., None]
+
+  def diag(v):
+    return eye * v[..., None]
+  if t == NormType.NULL:
+    return torch.zeros(x.shape[:-1] + (n, n), dtype=x.dtype,
+                       device=x.device)
+  if t == NormType.QUADRATIC:
+    return eye.expand(x.shape[:-1] + (n, n))
+  if t == NormType.L22:
+    c = torch.clamp(torch.sum(x * x, dim=-1), min=_EPS)
+    a = torch.pow(c, q / 2) + torch.pow(p, q)
+    d = torch.pow(c, q / 2 - 1.0)
+    b = torch.pow(a, 1.0 / q) / a * d
+    cc = (1.0 - q) * d / a + (q - 2.0) / c
+    outer = x[..., :, None] * x[..., None, :]
+    return b[..., None, None] * (eye + outer * cc[..., None, None])
+  if t == NormType.L2:
+    s = torch.sqrt(torch.sum(x * x, dim=-1) + p * p)[..., None, None]
+    g = x / torch.clamp(s[..., 0], min=_EPS)
+    h = (eye - g[..., :, None] * g[..., None, :]) / torch.clamp(s, min=_EPS)
+    return torch.where(s > 0, h, torch.zeros_like(h))
+  if t == NormType.COSH:
+    return diag(torch.cosh(x / pn))
+  if t == NormType.POWER_LOSS:
+    a = torch.clamp(torch.abs(x), min=_EPS)
+    return diag((pn - 1.0) * pn * a ** (pn - 2.0))
+  if t == NormType.SMOOTH_ABS_LOSS:
+    s = torch.sqrt(x * x + pn * pn)
+    g = x / torch.clamp(s, min=_EPS)
+    return diag(torch.where(s > 0, (1.0 - g * g) / torch.clamp(s, min=_EPS),
+                            torch.zeros_like(s)))
+  if t == NormType.SMOOTH_ABS2_LOSS:
+    a = torch.clamp(torch.abs(x), min=_EPS)
+    dd = a ** qn
+    e = dd + pn ** qn
+    c = e ** (1.0 / qn) * a ** (qn - 2.0) / e
+    return diag(c * (qn - 1.0) * (1.0 - dd / e))
+  if t == NormType.RECTIFY_LOSS:
+    pp = torch.where(pn > 0, pn, torch.ones_like(pn))
+    s = torch.exp(x / pp)
+    h = s / (pp * (1.0 + s) ** 2)
+    return diag(torch.where(pn > 0, h, torch.zeros_like(h)))
   raise ValueError(f'unknown norm type {norm_type}')

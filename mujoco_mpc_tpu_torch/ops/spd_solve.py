@@ -2,8 +2,18 @@
 
 Port of mujoco_mpc_tpu/ops/pallas_linalg.py (the Pallas kernel
 _chol_solve_kernel :32 behind solve_spd_batched :70, and the solve_spd
-dispatch seam :114-145). The kernel is csrc/chol_solve.cu; its plain
-PyTorch version is ops/linalg.solve_spd.
+dispatch seam :114-145), and the implicit-function rule the JAX callers
+wrap it in (`jax.lax.custom_linear_solve`, physics/forward.py:25-36 and
+ops/pallas_newton.py:1166-1169). The kernel is csrc/chol_solve.cu; its
+plain PyTorch version is ops/linalg.solve_spd.
+
+`SpdSolve` is the torch.autograd.Function every caller goes through. Its
+tangent is dx = a^-1 (db - da x), one more call of the same Function, so
+on the card the tangent runs on the kernel too. Its `vmap` rule folds the
+mapped dimension into the batch: under `torch.func.jacfwd` (a vmap of
+jvp) the D tangent directions of a (B, n) solve share `a` and become one
+launch at B * D. The kernel is launched only from `forward`, which always
+sees plain tensors; `jvp` and `vmap` call the Function again.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, and anything the kernel cannot take raises. There is
@@ -74,11 +84,9 @@ def _check(a: torch.Tensor, b: torch.Tensor) -> None:
     raise ValueError('the kernel takes contiguous tensors')
 
 
-def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """x = a^-1 b for a batch of SPD systems: a (B, n, n), b (B, n).
-
-  On the CPU, the plain version; on CUDA, the kernel, which adds one to
-  `solve_spd.launches` per launch."""
+def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """The device dispatch on plain tensors: the plain version on the CPU,
+  the kernel on CUDA (which adds one to `solve_spd.launches` a launch)."""
   if a.device.type == 'cpu' and b.device.type == 'cpu':
     return linalg.solve_spd(a, b)
   _check(a, b)
@@ -90,6 +98,49 @@ def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   cuda_build.check(err, 'chol_solve kernel')
   solve_spd.launches += 1
   return x
+
+
+def fold_batch(x: torch.Tensor, dim, size: int) -> torch.Tensor:
+  """x with its mapped dimension `dim` moved to the front (or, unmapped,
+  broadcast to `size`) and folded into the batch dimension after it."""
+  x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
+  return x.reshape(-1, *x.shape[2:])
+
+
+class SpdSolve(torch.autograd.Function):
+  """x = a^-1 b, a (B, n, n) SPD, b (B, n), with the implicit-function
+  tangent of `custom_linear_solve` and a vmap rule that folds the mapped
+  dimension into B."""
+
+  @staticmethod
+  def forward(a, b):
+    return _solve(a, b)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    ctx.save_for_forward(inputs[0], output)
+
+  @staticmethod
+  def jvp(ctx, da, db):
+    a, x = ctx.saved_tensors
+    rhs = db if db is not None else torch.zeros_like(x)
+    if da is not None:
+      rhs = rhs - (da @ x[..., None])[..., 0]
+    return SpdSolve.apply(a, rhs)
+
+  @staticmethod
+  def vmap(info, in_dims, a, b):
+    size = info.batch_size
+    x = SpdSolve.apply(fold_batch(a, in_dims[0], size),
+                       fold_batch(b, in_dims[1], size))
+    return x.reshape(size, x.shape[0] // size, x.shape[-1]), 0
+
+
+def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """x = a^-1 b for a batch of SPD systems: a (B, n, n), b (B, n), through
+  `SpdSolve`: on the CPU the plain version, on CUDA the kernel, which adds
+  one to `solve_spd.launches` per launch."""
+  return SpdSolve.apply(a, b)
 
 
 solve_spd.launches = 0

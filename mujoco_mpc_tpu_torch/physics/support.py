@@ -1,14 +1,15 @@
 """Support queries over Data: point and subtree velocities, ground height.
 
 Port of mujoco_mpc_tpu/physics/support.py: point_velocity :18,
-subtree_linvel :35, _descendants :53, subtree_angmom :72, _static_geoms
-:138 and ground_height :273, batch-first. The subtree sums run over all
-bodies at once, weighted by the subtree's 0/1 body mask, where JAX loops
-over the static body list.
+site_linvel :26, subtree_linvel :35, _descendants :53, subtree_angmom :72,
+get_state :96, set_state :101, state_diff :108, integrate_state :132,
+_static_geoms :138 and ground_height :273, batch-first. The subtree sums
+run over all bodies at once, weighted by the subtree's 0/1 body mask,
+where JAX loops over the static body list; state_diff works on the joint
+coordinate maps of Model.idx where JAX loops over the joints.
 
-Not ported yet: site_linvel (Humanoid Track's CMU branch, which waits for
-the clip files), the state helpers, raycast and mesh rays (ROADMAP A8),
-and ground_height over height fields (A7), which raises.
+Not ported yet: body_angvel, raycast and mesh rays (ROADMAP A8), and
+ground_height over height fields (A7), which raises.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics.model import Data, GeomType, Model
 from mujoco_mpc_tpu_torch.utils import math as tm
 
@@ -29,6 +31,11 @@ def point_velocity(m: Model, d: Data, bodyid,
   origin = d.subtree_com[:, m.idx.body_rootid[bodyid]]
   w = d.cvel[:, bodyid, :3]
   return d.cvel[:, bodyid, 3:] + tm.cross(w, point - origin)
+
+
+def site_linvel(m: Model, d: Data, siteid: int) -> torch.Tensor:
+  """Linear velocity (B, 3) of a site (framelinvel sensor)."""
+  return point_velocity(m, d, m.site_bodyid[siteid], d.site_xpos[:, siteid])
 
 
 def _body_com_velocities(m: Model, d: Data) -> torch.Tensor:
@@ -66,6 +73,40 @@ def subtree_angmom(m: Model, d: Data, bodyid: int) -> torch.Tensor:
                             @ d.cvel[..., :3, None])[..., 0]
   spin = torch.einsum('n,bnk->bk', mask, (d.ximat @ local[..., None])[..., 0])
   return orbital + spin
+
+
+def get_state(d: Data) -> torch.Tensor:
+  """Physics state (B, nq + nv + na): qpos, qvel, act, in the reference's
+  State order."""
+  return torch.cat([d.qpos, d.qvel, d.act], -1)
+
+
+def set_state(m: Model, d: Data, state: torch.Tensor) -> Data:
+  return d.replace(qpos=state[:, :m.nq], qvel=state[:, m.nq:m.nq + m.nv],
+                   act=state[:, m.nq + m.nv:m.nq + m.nv + m.na])
+
+
+def state_diff(m: Model, qpos1: torch.Tensor,
+               qpos2: torch.Tensor) -> torch.Tensor:
+  """Velocity-space difference qpos2 - qpos1 (B, nv) on the configuration
+  manifold (mj_differentiatePos): coordinate differences for slides,
+  hinges and free translations, quat_sub for quaternion blocks."""
+  idx = m.idx
+  out = torch.zeros(qpos1.shape[:-1] + (m.nv,), dtype=qpos1.dtype,
+                    device=qpos1.device)
+  if len(idx.sq):
+    out = out.index_copy(1, idx.sd, qpos2[:, idx.sq] - qpos1[:, idx.sq])
+  if len(idx.qj):
+    phi = tm.quat_sub(qpos2[:, idx.quat_q], qpos1[:, idx.quat_q])
+    out = out.index_copy(1, idx.quat_d.reshape(-1),
+                         phi.reshape(qpos1.shape[0], -1))
+  return out
+
+
+def integrate_state(m: Model, qpos: torch.Tensor, dq: torch.Tensor,
+                    scale=1.0) -> torch.Tensor:
+  """qpos + scale dq on the manifold (mj_integratePos with dt = scale)."""
+  return fwd.integrate_pos(m, qpos, dq, scale)
 
 
 def _static_geoms(m: Model, group: int = 0) -> Tuple[int, ...]:

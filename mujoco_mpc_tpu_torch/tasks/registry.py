@@ -1,6 +1,7 @@
 """Task registry: built-in tasks, loaded from model snapshots.
 
 Port of mujoco_mpc_tpu/tasks/registry.py: the Cartpole entry (:114-129),
+Particle and ParticleFixed (:133-171), Swimmer (:254-280),
 Quadruped Flat (_make_quadruped :354-699, registered at :702), Humanoid
 Stand and Walk (_make_humanoid :722-765, registered at :767-782),
 Shadow Reorient (_hand_task :925-988 without a goal schedule, registered
@@ -44,6 +45,70 @@ def _cartpole(spec: base.TaskSpec, task: dict):
         d.ctrl[:, 0],                    # Control
     ], dim=-1)
   return residual, None
+
+
+# ---------------------------------------------------------------------------
+# Particle (reference: mjpc/tasks/particle/particle.cc), registry.py
+# :133-171
+# ---------------------------------------------------------------------------
+
+
+def _particle_goal_of_time(t: torch.Tensor) -> torch.Tensor:
+  return torch.stack([0.25 * torch.sin(t), 0.25 * torch.cos(t / np.pi)], -1)
+
+
+def _particle(spec: base.TaskSpec, task: dict, fixed: bool):
+  """Particle tracks a goal moving with time; ParticleFixed the goal
+  mocap body where it stands."""
+  tip = spec.model.site('tip')
+
+  def residual(m, d, rp):
+    goal = (d.mocap_pos[:, 0, :2] if fixed
+            else _particle_goal_of_time(d.time))
+    pos = d.site_xpos[:, tip, :2] - goal
+    vel = support.site_linvel(m, d, tip)[:, :2]
+    return torch.cat([pos, vel, d.ctrl], -1)
+
+  def transition(m, d, params, generator):
+    """The goal mocap body follows the moving goal."""
+    goal = _particle_goal_of_time(d.time).to(d.mocap_pos.dtype)
+    first = torch.cat([goal, d.mocap_pos[:, 0, 2:]], -1)[:, None]
+    return d.replace(mocap_pos=torch.cat([first, d.mocap_pos[:, 1:]],
+                                         1)), params
+
+  return residual, (None if fixed else transition)
+
+
+# ---------------------------------------------------------------------------
+# Swimmer (reference: mjpc/tasks/swimmer/swimmer.cc), registry.py :254-280
+# ---------------------------------------------------------------------------
+
+
+def _swimmer(spec: base.TaskSpec, task: dict):
+  m = spec.model
+  nose = m.site('nose')
+  target = m.body_mocapid[m.body('target')]
+
+  def residual(m, d, rp):
+    return torch.cat([d.ctrl, d.site_xpos[:, nose, :2]
+                      - d.mocap_pos[:, target, :2]], -1)
+
+  def transition(m, d, params, generator):
+    """On the B = 1 state: once the nose is within 0.04 of the target, a
+    new target uniform in [-0.8, 0.8)^2, drawn from `generator` (JAX
+    draws it with jax.random.uniform)."""
+    new_xy = torch.rand((2,), generator=generator, dtype=m.dtype,
+                        device=generator.device).to(m.device) * 1.6 - 0.8
+    nose_xy = d.site_xpos[:, nose, :2]
+    target_xy = d.mocap_pos[:, target, :2]
+    reached = torch.linalg.vector_norm(target_xy - nose_xy, dim=-1) < 0.04
+    xy = torch.where(reached[:, None], new_xy, target_xy)
+    row = torch.cat([xy, d.mocap_pos[:, target, 2:]], -1)[:, None]
+    return d.replace(mocap_pos=torch.cat(
+        [d.mocap_pos[:, :target], row, d.mocap_pos[:, target + 1:]],
+        1)), params
+
+  return residual, transition
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +597,11 @@ def _hand_task(spec: base.TaskSpec, task: dict):
 # task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
 # transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
+         'Particle': ('particle.npz',
+                      functools.partial(_particle, fixed=False)),
+         'ParticleFixed': ('particle_fixed.npz',
+                           functools.partial(_particle, fixed=True)),
+         'Swimmer': ('swimmer.npz', _swimmer),
          'Quadruped Flat': ('quadruped_flat.npz', _quadruped),
          'Humanoid Track': ('humanoid_track.npz', _humanoid_track),
          'Humanoid Stand': ('humanoid_stand.npz',

@@ -169,3 +169,16 @@ def inert_from_body_quat(mass: torch.Tensor, diag_inertia: torch.Tensor,
   mass_b = torch.broadcast_to(mass, i11.shape)
   return torch.cat([torch.stack([i11, i22, i33, i12, i13, i23], dim=-1), h,
                     mass_b[..., None]], dim=-1)
+
+
+def jacfwd_batched(f, x: torch.Tensor) -> torch.Tensor:
+  """Per-sample Jacobian (B, m, n) of a batch-first f: (B, n) -> (B, m)
+  whose samples are independent, by forward-mode AD: `torch.func.jacfwd`
+  restricted to the batch diagonal. One tangent direction e_k, applied to
+  every sample at once, gives column k of every sample's Jacobian, so the
+  n directions are one torch.func.vmap of torch.func.jvp (not B * n)."""
+  n = x.shape[-1]
+  basis = torch.eye(n, dtype=x.dtype, device=x.device)[:, None, :]
+  cols = torch.func.vmap(lambda v: torch.func.jvp(f, (x,), (v,))[1])(
+      basis.expand(n, x.shape[0], n))                     # (n, B, m)
+  return cols.permute(1, 2, 0)

@@ -1,7 +1,8 @@
 """Package-level checks of the PyTorch port.
 
 * Every module of mujoco_mpc_tpu_torch imports, and the Cartpole,
-  Quadruped Flat, Humanoid Track and Shadow Reorient tasks load and step,
+  Quadruped Flat, Humanoid Track, Shadow Reorient, Particle and Swimmer
+  tasks load and step (Particle and Swimmer through an iLQG iteration),
   with jax, flax, mujoco and the JAX package blocked: the GPU machine has
   none of them.
 * Entry points build on the card unless asked for the CPU: without a card
@@ -10,13 +11,15 @@
 * The committed model snapshots match a fresh export from the JAX tasks.
 * The kernel wrappers raise, never fall back to the plain version, on a
   non-CPU request the kernel cannot take, malformed contact groups
-  included.
+  included; on a request they take, the primal and the tangent
+  (torch.func.jvp, and vmap of jvp as one launch) go to the kernels.
 """
 
 import os
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -123,6 +126,33 @@ def test_shadow_reorient_steps_without_jax_or_mujoco():
   assert proc.stdout.split() == ['21', '32', '[2]', '27', '1']
 
 
+def test_particle_and_swimmer_plan_without_jax_or_mujoco():
+  """Particle (Euler, limit rows) and Swimmer (fluid drag, the implicit
+  integrator) load, take a transition and run one iLQG iteration through
+  make_planner, derivatives included, on the CPU."""
+  proc = _run(BLOCK + (
+      "import torch\n"
+      "from mujoco_mpc_tpu_torch.physics import forward\n"
+      "from mujoco_mpc_tpu_torch.physics.model import make_data\n"
+      "from mujoco_mpc_tpu_torch.planners import registry as planners\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "out = []\n"
+      "for name in ('Particle', 'Swimmer'):\n"
+      "  spec = registry.get_task(name, device='cpu')\n"
+      "  m, p = spec.model, spec.default_params\n"
+      "  d = forward.forward(m, make_data(m))\n"
+      "  d, p = spec.transition_fn(m, d, p, torch.Generator())\n"
+      "  plan = planners.make_planner(spec, planners.ILQG, 3, 4, 3)\n"
+      "  state, info = plan.optimize(plan.init(), d, p, None)\n"
+      "  d = forward.step(m, d.replace(ctrl=plan.action(\n"
+      "      state, d.qpos, d.qvel, d.act, d.time)))\n"
+      "  out += [m.nv, int(bool(info['backward_pass_ok'])\n"
+      "                    and torch.isfinite(d.qpos).all())]\n"
+      "print(*out)\n"))
+  assert proc.returncode == 0, proc.stderr
+  assert proc.stdout.split() == ['2', '1', '8', '1']
+
+
 def test_get_task_defaults_to_the_card():
   """No quiet CPU fallback: the default device is CUDA, and without a
   card asking for it raises."""
@@ -182,6 +212,11 @@ def test_shadow_snapshot_is_current():
   """The cube's hull tables ('model/geom_mesh/2/verts', '.../normals',
   '.../offsets', float32 as JAX holds them) included."""
   _check_snapshot('Shadow Reorient')
+
+
+@pytest.mark.parametrize('name', ['Particle', 'ParticleFixed', 'Swimmer'])
+def test_ilqg_task_snapshots_are_current(name):
+  _check_snapshot(name)
 
 
 def test_port_uses_no_compiler_or_jit():
@@ -338,6 +373,52 @@ def test_wrappers_go_to_the_kernel_not_the_plain_version(no_plain,
   with pytest.raises(RuntimeError, match='no nvcc'):
     newton.newton(*_newton_args(), cap=8, tol=1e-5)
   assert calls == ['chol_solve', 'newton']
+
+
+def test_tangents_go_to_the_kernels_not_the_plain_version(no_plain,
+                                                          monkeypatch):
+  """torch.func.jvp through both Functions launches the kernels for the
+  primal and the tangent; vmap of jvp launches each once for all its
+  directions (B1 at B * D), never the plain version."""
+  launches = []
+
+  def load(name):
+    """A built library stand-in: each entry point records the batch it
+    was launched at (its fourth or fourteenth argument) and succeeds."""
+    def entry(batch_arg):
+      return lambda *args: launches.append((name, args[batch_arg])) or 0
+    return types.SimpleNamespace(mjpc_chol_solve_f32=entry(3),
+                                 mjpc_newton_f32=entry(13))
+  monkeypatch.setattr(cuda_build, 'load', load)
+  monkeypatch.setattr(torch.cuda, 'current_stream', lambda device=None: (
+      type('Stream', (), {'cuda_stream': 0})()))
+  spd_solve._entry.cache_clear()
+  newton._entry.cache_clear()
+  a, b = _meta(8, 3, 3), _meta(8, 3)
+  torch.func.jvp(spd_solve.solve_spd, (a, b), (_meta(8, 3, 3), _meta(8, 3)))
+  assert launches == [('chol_solve', 8), ('chol_solve', 8)]
+  launches.clear()
+  torch.func.vmap(lambda v: torch.func.jvp(
+      spd_solve.solve_spd, (a, b), (torch.zeros_like(a), v))[1])(
+          _meta(5, 8, 3))
+  assert launches == [('chol_solve', 8), ('chol_solve', 40)]
+
+  args = _newton_args()
+  gargs, dmask = _group_args()
+  primals = args[:8] + args[10:] + gargs
+
+  def f(*x):
+    return newton.newton(*x[:8], *args[8:10], *x[8:], cap=8, tol=1e-5,
+                         condims=(3,), dmasks=(dmask,))
+  launches.clear()
+  torch.func.jvp(f, primals, tuple(torch.zeros_like(x) for x in primals))
+  assert launches == [('newton', 4), ('chol_solve', 4)]
+  launches.clear()
+  torch.func.vmap(lambda *t: torch.func.jvp(f, primals, t)[1])(
+      *(_meta(6, *x.shape) for x in primals))
+  assert launches == [('newton', 4), ('chol_solve', 24)]
+  spd_solve._entry.cache_clear()
+  newton._entry.cache_clear()
 
 
 def test_newton_wrapper_takes_groups_to_the_kernel(no_plain, monkeypatch):

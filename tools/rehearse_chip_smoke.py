@@ -7,7 +7,9 @@ profiler's device times are 0. It checks the script's paths, shapes and
 control flow before a run on the card; none of its numbers is a device
 measurement. Run from the repository root (a few minutes):
 
-    python tools/rehearse_chip_smoke.py [candidates]
+    python tools/rehearse_chip_smoke.py [candidates] [ilqg]
+
+With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead.
 """
 
 import os
@@ -42,13 +44,13 @@ class _Event:
     return (end.t - self.t) * 1e3
 
 
-def _counted(fn):
-  """The plain version behind a wrapper, counting calls as launches."""
-  def wrapper(*args, **kwargs):
-    wrapper.launches += 1
+def _counted(fn, owner):
+  """A kernel's dispatch, on the CPU its plain version, counting each call
+  as a launch in `owner.launches` (the wrapper's count)."""
+  def dispatch(*args, **kwargs):
+    owner.launches += 1
     return fn(*args, **kwargs)
-  wrapper.launches = 0
-  return wrapper
+  return dispatch
 
 
 def _fake_build(name):
@@ -69,7 +71,9 @@ def _fake_build(name):
 
 
 def main():
-  samples = int(sys.argv[1]) if len(sys.argv) > 1 else 32
+  args = [a for a in sys.argv[1:] if a != 'ilqg']
+  ilqg = len(args) < len(sys.argv) - 1
+  samples = int(args[0]) if args else 32
   chip_smoke.DEV = 'cpu'
   chip_smoke.CART_SAMPLES = chip_smoke.QUAD_SAMPLES = samples
   chip_smoke.HUMAN_SAMPLES = chip_smoke.SHADOW_SAMPLES = samples
@@ -79,7 +83,7 @@ def main():
   chip_smoke.TIME_REPS = 2
   chip_smoke.HUMAN_PLAIN_REPS = 1
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
-  chip_smoke.device_us = lambda fn, reps=2, top=0, kernel=None: (
+  chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
   run = subprocess.run
   chip_smoke.subprocess = types.SimpleNamespace(run=lambda cmd, **kw: (
@@ -92,12 +96,17 @@ def main():
   torch.cuda.Event = _Event
   cuda_build.build = _fake_build
   cuda_build.load = lambda name: None
-  newton.newton = _counted(newton.newton)
-  spd_solve.solve_spd = _counted(spd_solve.solve_spd)
+  newton._newton = _counted(newton._newton, newton.newton)
+  spd_solve._solve = _counted(spd_solve._solve, spd_solve.solve_spd)
   get_task = registry.get_task
   registry.get_task = lambda name, device='cuda', dtype=torch.float32: (
       get_task(name, device='cpu', dtype=dtype))
-  chip_smoke.main()
+  if ilqg:
+    from tools import ilqg_check
+    sys.argv = sys.argv[:1]
+    ilqg_check.main()
+  else:
+    chip_smoke.main()
 
 
 if __name__ == '__main__':

@@ -31,6 +31,7 @@ import torch  # noqa: E402
 from chip_smoke import cuda_time_ms, device_us  # noqa: E402
 from mujoco_mpc_tpu_torch.ops import cuda_build  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import constraint  # noqa: E402
+from mujoco_mpc_tpu_torch.physics import fluid as fluid_mod  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import forward as fwd  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import kinematics as kin  # noqa: E402
 from mujoco_mpc_tpu_torch.physics import smooth  # noqa: E402
@@ -61,7 +62,8 @@ def stages(spec):
        lambda d: smooth.transmission(m, smooth.tendon(m, d))),
       ('com_vel', lambda d: kin.com_vel(m, d)),
       ('rne', lambda d: smooth.rne(m, d)),
-      ('passive + fluid', lambda d: fwd.fluid(m, smooth.passive(m, d))),
+      ('passive + fluid',
+       lambda d: fluid_mod.fluid(m, smooth.passive(m, d))),
       ('actuation', lambda d: smooth.actuation(m, d)),
       ('crb', lambda d: smooth.crb(m, d).replace(
           qfrc_constraint=torch.zeros_like(d.qvel))),
