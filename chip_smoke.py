@@ -37,34 +37,39 @@ Phases, one line each (any failure exits non-zero):
   4. timing: kernel, plain version and (B1) torch.linalg's batched
      Cholesky at the four Predictive Sampling paths' shapes and at the
      two iLQG paths' (B1 at the line search, B 8, and at the derivative
-     tangent, B (T - 1) D; B2 at the line search), and B1 at n 24 and 32
+     tangent, B (T - 1) D; B2 at the line search), at the shapes the
+     planner paths of phases 21 and 23 add (iLQS's iLQG line search at B
+     2048 with the derivative tangent at B 500, Robust's re-rollouts at B
+     60 under body wrenches; each also checked against its plain
+     version), and B1 at n 24 and 32
      (B 4096, random systems), wall per call (CUDA events, median of 30;
      the plain versions over 3 calls, at the Shadow shapes over one) and
      device time (profiler), with each kernel's bound and its device time
      as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
-     steps, 10 timed plans; both kernels launched as often as the path
+     steps, 5 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
   6. Cartpole golden: a 256-candidate plan on the card vs the plain path
      on the CPU with the same candidates, and a 5-step rollout's drift;
-  7. Cartpole plan-act: synchronous MPC at 8192 candidates, 1 s simulated;
-  8. Quadruped Flat main path: 4096 candidates x 36 steps, 10 knots, 5
+  7. Cartpole plan-act: synchronous MPC at 8192 candidates, 0.5 s
+     simulated;
+  8. Quadruped Flat main path: 4096 candidates x 36 steps, 10 knots, 3
      timed plans from `home`, checked and profiled as in phase 5;
   9. Quadruped golden: the bounds of bench.py's fused_newton_golden;
-  10. Quadruped plan-act: synchronous MPC at 128 candidates, 25 plans of
+  10. Quadruped plan-act: synchronous MPC at 128 candidates, 8 plans of
      4 steps, the task's transition on;
-  11. Humanoid Track main path: 512 candidates x 41 steps, 10 knots, 5
+  11. Humanoid Track main path: 512 candidates x 41 steps, 10 knots, 3
      timed plans from `home` (the clip's first pose), checked and profiled
      as in phase 5 (bench.py's humanoid_track_ps512);
   12. Humanoid Track golden: the bounds of phase 9;
   13. Humanoid Track plan-act: as phase 10;
-  14. Shadow Reorient main path: 8192 candidates x 31 steps, 10 knots, 5
+  14. Shadow Reorient main path: 8192 candidates x 31 steps, 10 knots, 3
      timed plans from qpos0, checked and profiled as in phase 5
      (bench.py's shadow_ps8192);
   15. Shadow Reorient golden: the bounds of phase 9;
   16. Shadow Reorient plan-act: as phase 10;
   17. Particle iLQG main path: make_planner(spec, ILQG, 8, 51, 10) from
-     the task's start (bench.py's particle_ilqg), a warm-up and 10 timed
+     the task's start (bench.py's particle_ilqg), a warm-up and 5 timed
      iterations: p50, plans/s, the wall split into line search,
      derivatives and Riccati, both kernels' launches per iteration (and
      B1 at B (T - 1) D in the derivative pass), the escalation's host
@@ -75,13 +80,39 @@ Phases, one line each (any failure exits non-zero):
      state and policy (phase 17's first iteration's): A and B per knot
      within 1e-3 relative, best_return within 0.02, the same winning
      scale;
-  19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 5 timed
+  19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 2 timed
      iterations, as phase 17;
-  20. Swimmer iLQG golden: as phase 18.
+  20. Swimmer iLQG golden: as phase 18;
+  21. the other planners on Cartpole at the flagship's width, 8192
+     candidates x 101 steps, 10 knots, from (1.0, 3.14159): Cross
+     Entropy, Sample Gradient, Gradient and iLQS through make_planner, a
+     warm-up and 5 timed iterations each: p50, plans/s, both kernels'
+     launches per iteration (checked against the path's rollouts and
+     derivative pass), B1 at the derivative tangent's batch, iLQS's host
+     reads and iLQG runs, best_return finite and <= nominal_return, and
+     the first timed iteration replayed under the profiler (device ops,
+     busy share); then iLQS once with exploration 0, so that its iLQG
+     branch (line search at B 2048) runs; both kernels checked and timed
+     at the shapes these paths add (B 2048, and B1 at B (T - 1) D);
+  22. goldens: one 256-candidate iteration of each of the five new
+     planners on the card and on the CPU plain path from the same state
+     and plan with the same noise (drawn on the CPU): best_return within
+     0.02 relative, the card's winner within 2 % of the CPU best on the
+     CPU; Gradient's and iLQS's (exploration 0) A and B per knot within
+     1e-3 relative; Robust Sampling on Quadruped Flat;
+  23. Robust Sampling on Quadruped Flat, 4096 x 36 from `home`, 12
+     candidates x 5 repetitions over Sampling (bench.py's
+     quadruped_ps4096 with the reference's Robust instantiation): as
+     phase 21, B2's group branch under body wrenches at B 60, both
+     kernels checked and timed there;
+  24. testspeed for all seven planner ids on Cartpole: 128 samples, 0.1 s
+     simulated, 4 steps a plan; x_realtime and avg_cost (finite).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all six, the iLQG ones at
-the line search's shapes with B1's derivative tangent under "tangent"),
-and as the last line {"ok": true, "device": {...}}.
+(top-level keys: the Quadruped path; "paths": all eleven, the iLQG ones at
+the line search's shapes with B1's derivative tangent under "tangent",
+the planner paths of phases 21-23 with their launches per iteration and
+their golden's best_return relative error), and as the last line
+{"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -100,10 +131,16 @@ HUMAN_SAMPLES = 512
 SHADOW_SAMPLES = 8192
 SPLINE_POINTS = 10
 CART_QPOS0 = (1.0, 3.14159)
-CART_PLANS = 10
-QUAD_PLANS = 5
-HUMAN_PLANS = 5
-SHADOW_PLANS = 5
+# timed plans and plan-act depth, cut to make room for phases 21-24
+# inside the run's time limit (Cartpole's plans were 10, the others 5;
+# the plan-act loops 1 s at Cartpole and 25 plans elsewhere; Particle's
+# and Swimmer's iLQG iterations 10 and 5)
+CART_PLANS = 5
+QUAD_PLANS = 3
+HUMAN_PLANS = 3
+SHADOW_PLANS = 3
+CART_PLAN_ACT_TIME = 0.5   # simulated seconds
+PLAN_ACT_STEPS = 32        # 8 plans of 4 steps
 # Shadow states at qpos0 itself (phase 3g's first samples): the cube rests
 # unrotated there, and 8 of its hull vertices tie for the floor's 4 points
 SHADOW_QPOS0 = 256
@@ -124,12 +161,23 @@ TIME_REPS = 30
 # iLQG, bench.py's particle_ilqg / swimmer_ilqg: make_planner(spec, ILQG,
 # 8, T, 10), timed iterations from the task's start
 ILQG_CANDIDATES = 8
-PARTICLE_ITERS = 10
-SWIMMER_ITERS = 5
+PARTICLE_ITERS = 5
+SWIMMER_ITERS = 2
 # calls the plain versions are timed over in phase 4 at the Cartpole,
 # Quadruped and iLQG shapes (one plain Newton call is up to ~5,000
 # launches, and the profiler's passes over 30 of them dominated phase 4)
 PLAIN_REPS = 3
+# phases 21-24: the other planners
+PLANNER_SAMPLES = 8192     # Cartpole's flagship width
+PLANNER_ITERS = 5
+FORCED_ITERS = 1           # iLQS with its iLQG branch forced
+GOLDEN_SAMPLES = 256
+ROBUST_SAMPLES = 4096      # Quadruped Flat (bench.py's quadruped_ps4096)
+ROBUST_ITERS = 5
+ROBUST_REROLLOUTS = 60     # DEFAULT_NCANDIDATES x DEFAULT_NREPETITIONS
+TESTSPEED_TIME = 0.1       # simulated seconds a planner (0.2 asked; cut
+                           # to keep the run inside its time limit)
+TESTSPEED_SAMPLES = 128    # Cartpole's sampling_trajectories
 SPD_EXTRA_N = (24, 32)
 SPD_EXTRA_PLAIN_REPS = 3
 DEV = 'cuda'
@@ -210,9 +258,7 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None, warm=True,
       for _ in range(reps):
         fn()
       torch.cuda.synchronize()
-    dev = sorted((e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA),
-                 key=lambda e: -e.self_device_time_total)
+    dev = device_ops(prof)
     if counted(dev):
       break
   check(counted(dev), 'the profiler saw '
@@ -230,6 +276,32 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None, warm=True,
   if not top:
     return total
   return total, sum(k for _, k, _ in ops), ops[:top]
+
+
+class DeviceOp:
+  """One device op's records in a trace: key (name), count (records) and
+  self_device_time_total (us), as key_averages() gives them."""
+  __slots__ = ('key', 'count', 'self_device_time_total')
+
+  def __init__(self, key):
+    self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
+def device_ops(prof):
+  """The CUDA ops of a finished trace, by name, most device time first:
+  the sums key_averages() computes over prof.events(), grouped in one
+  pass (key_averages() took seconds per 100,000 records)."""
+  import torch
+  ops = {}
+  cuda = torch.autograd.DeviceType.CUDA
+  for e in prof.events():
+    if e.device_type == cuda:
+      op = ops.get(e.key)
+      if op is None:
+        op = ops[e.key] = DeviceOp(e.key)
+      op.count += 1
+      op.self_device_time_total += e.self_device_time_total
+  return sorted(ops.values(), key=lambda op: -op.self_device_time_total)
 
 
 def bound(bytes_, flops):
@@ -1422,7 +1494,8 @@ def print_ilqg_path(phase, name, candidates, iters, r):
 
 
 def to_device(state, device):
-  """An ilqg.ILQGState with every tensor moved to `device`."""
+  """A planner state (a dataclass of tensors, such as ilqg.ILQGState), a
+  tuple of them or a tensor, every tensor moved to `device`."""
   import dataclasses
   import torch
 
@@ -1432,6 +1505,8 @@ def to_device(state, device):
     if dataclasses.is_dataclass(x):
       return type(x)(**{f.name: move(getattr(x, f.name))
                         for f in dataclasses.fields(x)})
+    if isinstance(x, tuple):
+      return tuple(move(t) for t in x)
     return x
   return move(state)
 
@@ -1503,6 +1578,489 @@ def ilqg_kernel_inputs(spec, gen, candidates, dirs):
              torch.randn((knots * dirs, m.nv), generator=gen, device=DEV))
   return ls_spd, tangent, (args, gargs,
                            dict(cap=m.opt.iterations, tol=1e-5))
+
+
+# ---------------------------------------------------------------------------
+# The other planners (phases 21-24): Cross Entropy, Sample Gradient,
+# Gradient and iLQS on Cartpole, their goldens, Robust Sampling on
+# Quadruped Flat, and testspeed for all seven ids
+# ---------------------------------------------------------------------------
+
+
+def rollout_launches(spec, t_steps):
+  """(B1, B2) launches one batched rollout of t_steps makes: B1 for
+  qacc_smooth and, with the Euler integrator, for its damping system; B2
+  once a step."""
+  euler = int(spec.model.opt.integrator == 0)
+  return t_steps * (1 + euler), t_steps
+
+
+def planner_launches(spec, planner_id, t_steps, ilqg_ran=False):
+  """(B1, B2) launches one iteration of a planner makes: its rollouts (the
+  Robust re-rollouts, Gradient's and iLQS's nominal rollout at B 1) and,
+  for Gradient and for iLQS when its iLQG branch runs, the derivative
+  pass (ilqg_launches less the line search)."""
+  from mujoco_mpc_tpu_torch.planners import registry as planners
+  r = rollout_launches(spec, t_steps)
+  deriv = tuple(a - b for a, b in zip(ilqg_launches(spec, t_steps), r))
+
+  def add(*xs):
+    return tuple(sum(x) for x in zip(*xs))
+  if planner_id in (planners.CEM, planners.SAMPLE_GRADIENT):
+    return r
+  if planner_id == planners.ROBUST:
+    return add(r, r)
+  if planner_id == planners.GRADIENT:
+    return add(r, deriv, r)
+  if planner_id == planners.ILQS:
+    return add(r, r, *((r, deriv, r) if ilqg_ran else ()))
+  raise ValueError(planner_id)
+
+
+def timed_iterations(optimize, state, iters, gen):
+  """A warm-up iteration, then `iters` timed ones with the kernels' counts
+  set to 0 just before and read just after and the dispatches recorded:
+  (state, wall seconds, infos, launches, recorded (kernel, B) calls, iLQS
+  host reads, the replay: the state and `gen`'s state the first timed
+  iteration started from)."""
+  import torch
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  from mujoco_mpc_tpu_torch.planners import ilqs
+  state, _ = optimize(state)
+  torch.cuda.synchronize()
+  replay = (state, gen.get_state())
+  spd_solve.solve_spd.launches = 0
+  newton.newton.launches = 0
+  reads0 = ilqs.host_reads
+  lat, infos = [], []
+  with record_batches() as rec:
+    for _ in range(iters):
+      t0 = time.perf_counter()
+      state, info = optimize(state)
+      torch.cuda.synchronize()
+      lat.append(time.perf_counter() - t0)
+      infos.append(info)
+  launches = {'chol_solve': spd_solve.solve_spd.launches,
+              'newton': newton.newton.launches}
+  return (state, lat, infos, launches, rec.calls,
+          ilqs.host_reads - reads0, replay)
+
+
+def planner_path(spec, planner_id, d0, samples, iters, gen, forced=False):
+  """make_planner(spec, id, samples, T, 10) from d0: timed_iterations,
+  the launches checked against planner_launches, best_return finite and
+  (where the planner reports a nominal) <= nominal_return, the derivative
+  tangent's batch, then the first timed iteration replayed under the
+  profiler (device trace only), its busy share taken against that
+  iteration's wall time. forced=True runs iLQS with exploration 0, so
+  that no candidate beats the nominal and its iLQG branch runs every
+  iteration; it is timed only (a profile of its ~390,000 launches took
+  80 s)."""
+  import dataclasses
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import spline
+  from mujoco_mpc_tpu_torch.planners import derivatives, ilqg, ilqs
+  from mujoco_mpc_tpu_torch.planners import registry as planners
+  from mujoco_mpc_tpu_torch.planners import sampling
+  m = spec.model
+  t_steps = agent.horizon_steps(spec)
+  params = spec.default_params
+  plan = planners.make_planner(spec, planner_id, samples, t_steps,
+                               SPLINE_POINTS)
+  if forced:
+    scfg = dataclasses.replace(sampling.default_config(spec),
+                               noise_std=torch.zeros((), device=DEV))
+    icfg = ilqg.default_config(spec)
+
+    def optimize(state):
+      noise = sampling.sample_noise(spec, SPLINE_POINTS, samples, scfg, gen)
+      return ilqs.optimize(spec, state, d0, params, scfg, icfg, noise,
+                           max(samples // 4, 4), t_steps,
+                           int(spline.Interp.ZERO))
+  else:
+    def optimize(state):
+      return plan.optimize(state, d0, params, gen)
+  state, lat, infos, launches, calls, reads, replay = timed_iterations(
+      optimize, plan.init(), iters, gen)
+  ilqg_runs = (sum(not bool(i['sampling_improved']) for i in infos)
+               if planner_id == planners.ILQS else 0)
+  want = [0, 0]
+  for i in infos:
+    ran = planner_id == planners.ILQS and not bool(i['sampling_improved'])
+    for k, n in enumerate(planner_launches(spec, planner_id, t_steps, ran)):
+      want[k] += n
+  check(launches['chol_solve'] == want[0] and launches['newton'] == want[1],
+        f'{planners.PLANNER_NAMES[planner_id]}: launches {launches} in '
+        f'{iters} iterations, expected chol_solve {want[0]}, newton '
+        f'{want[1]}')
+  best = torch.stack([i['best_return'] for i in infos]).cpu()
+  check(bool(torch.isfinite(best).all()), f'best_return not finite: {best}')
+  if planner_id == planners.ROBUST:
+    # the winner's score, at least the delegate's best score
+    nominal = torch.stack([i['nominal_return'] for i in infos]).cpu()
+    check(bool((nominal <= best).all()), 'Robust: best_return below the '
+          'delegate\'s best score')
+    check(all(bool(torch.isfinite(i['best_robust_score'])) for i in infos),
+          'Robust: best_robust_score not finite')
+  elif 'nominal_return' in infos[0]:
+    nominal = torch.stack([i['nominal_return'] for i in infos]).cpu()
+    check(bool((best <= nominal).all()), 'best_return > nominal_return')
+  else:
+    nominal = None
+  if planner_id == planners.ILQS:
+    check(reads == iters, f'iLQS host reads {reads}, expected {iters}')
+  dirs = derivatives.ndx(m) + m.nu
+  tangent = ('chol_solve', (t_steps - 1) * dirs)
+  tangents = calls.count(tangent)
+  if planner_id == planners.GRADIENT or ilqg_runs:
+    check(tangents, f'B1 not launched at B (T-1) D = {tangent[1]} in the '
+          f'derivative pass: {sorted(set(calls))}')
+  prof = None
+  if not forced:
+    # the first timed iteration again, from its state and its generator
+    # state: the same noise, the same branch, the same work
+    start, gen_state = replay
+    gen.set_state(gen_state)
+    seen = {}
+    t0 = time.perf_counter()
+    dev_us, ops, top = device_us(
+        lambda: seen.update(info=optimize(start)[1]), reps=1, top=8,
+        warm=False, host=False)
+    got, want = (float(seen['info']['best_return']),
+                 float(infos[0]['best_return']))
+    check(abs(got - want) <= 1e-4 * abs(want) and seen['info'].get(
+        'sampling_improved') == infos[0].get('sampling_improved'),
+          f'the profiled replay of the first timed iteration returned '
+          f'{got}, the iteration {want}')
+    prof = dict(dev_us=dev_us, ops=ops, top=top, wall=lat[0],
+                seconds=time.perf_counter() - t0)
+  return dict(t_steps=t_steps, p50=statistics.median(lat), lat=lat,
+              launches=launches, iters=iters, reads=reads,
+              ilqg_runs=ilqg_runs, best=float(best[-1]),
+              nominal=None if nominal is None else float(nominal[-1]),
+              batches=sorted(set(calls)), tangents=tangents, dirs=dirs,
+              prof=prof)
+
+
+def print_planner_path(phase, name, samples, r):
+  iters = r['iters']
+  nominal = ('' if r['nominal'] is None else
+             f' (the delegate\'s best score {r["nominal"]:.5g})'
+             if 'Robust' in name else
+             f' (nominal_return {r["nominal"]:.5g})')
+  print(f'phase {phase} main path: {name} {samples} candidates x '
+        f'{r["t_steps"]} steps, {iters} iterations: p50 '
+        f'{r["p50"] * 1e3:.2f} ms, {1.0 / r["p50"]:.3f} plans/s (min '
+        f'{min(r["lat"]) * 1e3:.2f}, max {max(r["lat"]) * 1e3:.2f} ms); '
+        f'launches per iteration chol_solve '
+        f'{r["launches"]["chol_solve"] / iters:g}, newton '
+        f'{r["launches"]["newton"] / iters:g}; B1 at the derivative '
+        f'tangent\'s B (T - 1) D = {(r["t_steps"] - 1) * r["dirs"]}: '
+        f'{r["tangents"] / iters:g} per iteration; host reads {r["reads"]}, '
+        f'iLQG branch run {r["ilqg_runs"]} times; best_return '
+        f'{r["best"]:.5g}{nominal}')
+  print(f'phase {phase} {name} kernel batches (kernel, B): {r["batches"]}')
+  p = r['prof']
+  if p:
+    print(f'phase {phase} {name} profiled iteration (the first timed one '
+          f'replayed, device trace only, {p["seconds"]:.1f} s): {p["ops"]} '
+          f'device ops, device busy {p["dev_us"] / 1e3:.2f} ms = '
+          f'{p["dev_us"] / 1e4 / p["wall"]:.1f}% of its '
+          f'{p["wall"] * 1e3:.2f} ms; by op (name: count, ms): '
+          + '; '.join(f'{n[:48]}: {c}, {us / 1e3:.2f}'
+                      for n, c, us in p['top']))
+
+
+def planner_golden(spec, cpu_spec, planner_id, d0, d0_cpu, samples):
+  """One iteration at `samples` candidates on the card and on the CPU
+  plain path, from the same state and the default plan, with the same
+  noise (drawn on the CPU, moved to the card). iLQS runs with
+  exploration 0, so that its iLQG branch and derivative pass run. Returns
+  (best_return card, CPU, rel err, the card winner's CPU return, the CPU
+  best, the derivative pass's A and B per-knot relative errors or None)."""
+  import dataclasses
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.ops import spline
+  from mujoco_mpc_tpu_torch.planners import (cross_entropy,
+                                             gradient_planner, ilqg, ilqs,
+                                             ranked, robust, sample_gradient,
+                                             sampling)
+  from mujoco_mpc_tpu_torch.planners import registry as planners
+  t_steps, interp = agent.horizon_steps(spec), int(spline.Interp.ZERO)
+  p = SPLINE_POINTS
+  cpu_gen = torch.Generator().manual_seed(2200 + planner_id)
+  ng = planners.num_gradient_candidates(samples)
+  ncand = min(robust.DEFAULT_NCANDIDATES, samples)
+
+  def run(sp, d, noise):
+    params = sp.default_params
+    if planner_id == planners.CEM:
+      cfg = cross_entropy.default_config(sp)
+      return cross_entropy.optimize(
+          sp, cross_entropy.default_state(sp, p, cfg), d, params, cfg,
+          noise, max(samples // 10, 2), t_steps, interp)
+    if planner_id == planners.SAMPLE_GRADIENT:
+      return sample_gradient.optimize(
+          sp, sample_gradient.default_state(sp, p), d, params,
+          sample_gradient.default_config(sp), noise, samples, ng, t_steps,
+          interp)
+    if planner_id == planners.GRADIENT:
+      return gradient_planner.optimize(
+          sp, sampling.default_policy(sp, p), d, params,
+          gradient_planner.default_config(sp), samples, t_steps, interp)
+    if planner_id == planners.ILQS:
+      return ilqs.optimize(
+          sp, ilqs.default_state(sp, p, t_steps), d, params, quiet(sp),
+          ilqg.default_config(sp), noise, max(samples // 4, 4), t_steps,
+          interp)
+    return robust.optimize_ranked(
+        sp, delegate(sp), sampling.default_policy(sp, p), d, params,
+        robust.default_config(sp), noise, ncand, robust.DEFAULT_NREPETITIONS,
+        t_steps, interp)
+
+  def quiet(sp):
+    return dataclasses.replace(sampling.default_config(sp),
+                               noise_std=torch.zeros((),
+                                                     device=sp.model.device))
+
+  def delegate(sp):
+    return ranked.make_sampling_delegate(sp, sampling.default_config(sp),
+                                         samples, p, t_steps, interp)
+
+  if planner_id == planners.CEM:
+    noise = cross_entropy.sample_noise(cpu_spec, p, samples, cpu_gen)
+  elif planner_id == planners.SAMPLE_GRADIENT:
+    noise = sample_gradient.sample_noise(cpu_spec, p, samples, ng, cpu_gen)
+  elif planner_id == planners.ILQS:
+    noise = sampling.sample_noise(cpu_spec, p, samples, quiet(cpu_spec),
+                                  cpu_gen)
+  elif planner_id == planners.ROBUST:
+    noise = robust.sample_noise(cpu_spec, delegate(cpu_spec), ncand,
+                                robust.DEFAULT_NREPETITIONS, t_steps,
+                                cpu_gen)
+  else:
+    noise = None
+  out = []
+  for sp, d, nz in ((spec, d0, to_device(noise, DEV)),
+                    (cpu_spec, d0_cpu, noise)):
+    with split_timer() as split:
+      state, info = run(sp, d, nz)
+    out.append((state, info, split.derivs))
+  (st_g, ig, dg), (_, ic, dc) = out
+  br_g, br_c = float(ig['best_return']), float(ic['best_return'])
+  rel = abs(br_g - br_c) / max(abs(br_c), 1e-9)
+
+  # the card's winner, returned on the CPU
+  if 'returns' in ic:
+    win = int(torch.argmin(ig['returns']) if 'winner' not in ig
+              else ig['winner'])
+    win_cpu = float(ic['returns'][win])
+  else:
+    cfg = sampling.default_config(cpu_spec)
+    cpu_state = to_device(st_g, 'cpu')
+    if planner_id == planners.ILQS and int(cpu_state.active) == \
+       ilqs.ACTIVE_ILQG:
+      zero = torch.zeros(1, dtype=cpu_spec.model.dtype)
+      win_cpu = float(ilqg._feedback_rollout(
+          cpu_spec, d0_cpu, cpu_state.ilqg_state.policy, zero,
+          cpu_spec.default_params, t_steps, index_by_time=True)[0][0])
+    else:
+      pol = (cpu_state.sampling_policy if planner_id == planners.ILQS
+             else cpu_state)
+      win_cpu = float(sampling.rollout_candidates(
+          cpu_spec, d0_cpu, pol.times, pol.values[None],
+          cpu_spec.default_params, t_steps, cfg, interp)[0])
+  check(rel <= 0.02, f'{planners.PLANNER_NAMES[planner_id]} golden '
+        f'best_return rel err {rel:.3g} > 0.02')
+  check(win_cpu <= br_c * 1.02 + 1e-9, f'{planners.PLANNER_NAMES[planner_id]}'
+        f' golden: the card\'s winner returns {win_cpu:.6g} on the CPU, '
+        f'more than 2% over the CPU best {br_c:.6g}')
+  ab = None
+  if dg is not None:
+    ab = {}
+    for k in ('a', 'b'):
+      g, c = getattr(dg, k).cpu(), getattr(dc, k)
+      per_knot = (torch.abs(g - c).amax((1, 2))
+                  / torch.clamp(torch.abs(c).amax((1, 2)), min=1e-6))
+      ab[k] = (float(per_knot.median()), float(per_knot.max()))
+    check(max(ab['a'][1], ab['b'][1]) <= 1e-3, f'golden A/B per-knot '
+          f'relative error {ab} > 1e-3')
+  return br_g, br_c, rel, win_cpu, ab
+
+
+def print_planner_golden(name, task, samples, g):
+  br_g, br_c, rel, win_cpu, ab = g
+  extra = ('' if ab is None else
+           f'; derivative pass A per-knot rel err median {ab["a"][0]:.3g} '
+           f'max {ab["a"][1]:.3g}, B median {ab["b"][0]:.3g} max '
+           f'{ab["b"][1]:.3g} (tol 1e-3)')
+  print(f'phase 22 golden: {name} on {task}, one {samples}-candidate '
+        f'iteration, card vs CPU plain path with the same noise: '
+        f'best_return card {br_g:.6g} vs CPU {br_c:.6g}: rel err {rel:.3g} '
+        f'(tol 0.02); the card\'s winner returns {win_cpu:.6g} on the CPU '
+        f'(tol 2% over the CPU best){extra}')
+
+
+def path_kernels(label, spd_args, n_args, n_gargs, n_kw, spd_tol,
+                 tangent=None, share=True):
+  """B1 and B2 at a new path's shapes: each against its plain version
+  (B1 within spd_tol relative; B2 by phase 3d's near-tie rule), timed
+  with its bound, and B1 at the derivative tangent's shape if given.
+  Returns (timings as phase 4 keeps them, (B1, B2, B1 tangent) max abs
+  errors)."""
+  spd_abs = check_spd_inputs(spd_args, spd_tol, label)[0]
+  nbad, gap, n_abs, bad_gap = compare_newton(n_args, n_gargs, **n_kw)
+  newton_ok(f'{label} inputs', n_args[1].shape[0], nbad, gap, bad_gap, share)
+  spd_times = time_spd(spd_args, PLAIN_REPS)
+  n_wall, n_dev, n_bound, iters = time_newton(n_args, n_gargs, n_kw,
+                                              PLAIN_REPS)
+  k = dict(wall={**spd_times[0], **n_wall}, dev={**spd_times[1], **n_dev},
+           spd_bound=spd_times[2], newton_bound=n_bound)
+  line = (f'phase {label} timing per call, wall / device only: '
+          + spd_timing_line(*spd_times, spd_args[0]) + '; '
+          + newton_timing_line(
+              f'B {n_args[1].shape[0]} nv {n_args[1].shape[1]} ns '
+              f'{n_args[6].shape[1]}'
+              + (f' condims {n_kw["condims"]}' if n_kw.get('condims') else '')
+              + f' cap {n_kw["cap"]} ({nbad} samples outside rtol 2e-3, '
+              f'max relative cost gap {gap:.3g})', n_wall, n_dev, n_bound,
+              iters, PLAIN_REPS))
+  t_abs = None
+  if tangent is not None:
+    t_abs = check_spd_inputs(tangent, spd_tol, label + ' tangent')[0]
+    t_times = time_spd(tangent, PLAIN_REPS)
+    k['tangent'] = dict(wall=t_times[0], dev=t_times[1],
+                        spd_bound=t_times[2])
+    line += '; derivative tangent ' + spd_timing_line(*t_times, tangent[0])
+  print(line)
+  return k, (spd_abs, n_abs, t_abs)
+
+
+def batch_of(d, bsz):
+  """bsz samples of batched Data d: its first bsz, taken in turn again if
+  it has fewer."""
+  import dataclasses
+  import torch
+  idx = torch.arange(bsz, device=d.qpos.device) % d.batch
+  return d.replace(**{f.name: getattr(d, f.name)[idx]
+                      for f in dataclasses.fields(d)
+                      if getattr(d, f.name) is not None})
+
+
+def planner_path_kernels(cart, quad, gen, kern, cart_errs):
+  """Both kernels at the shapes phases 21 and 23 add, each against its
+  plain version and timed with its bound (phase 4's method; run beside
+  phase 4, before the plans' profiles: later in a process the profiler
+  keeps fewer records of the hand kernels, in one run none): iLQS's iLQG
+  line search on Cartpole (B K / 4 = 2048) with the derivative tangent
+  (B (T - 1) D = 500, Gradient's too), and Robust's re-rollouts on
+  Quadruped Flat (B 60, states under body wrenches). CEM's, Sample
+  Gradient's and Gradient's line search run at phase 4's Cartpole
+  shapes. Fills `kern` for the five paths; returns their (B1, B2, B1
+  tangent) max abs errors, cart_errs being phase 3c's (B1, B2)."""
+  import torch
+  spd_abs, newton_abs = cart_errs
+  m = cart.model
+  ls_spd, c_tangent, (n_args, n_gargs, n_kw) = ilqg_kernel_inputs(
+      cart, gen, PLANNER_SAMPLES // 4, 2 * m.nv + m.na + m.nu)
+  kern['cartpole_ilqs'], ilqs_errs = path_kernels(
+      '4 cartpole_ilqs (its iLQG line search)', ls_spd, n_args, n_gargs,
+      n_kw, 1e-4, c_tangent, share=False)
+  kern['cartpole_cem'] = kern['cartpole_sample_gradient'] = kern['cartpole']
+  kern['cartpole_gradient'] = dict(kern['cartpole'],
+                                   tangent=kern['cartpole_ilqs']['tangent'])
+  states = batch_of(quadruped_states(quad, gen), ROBUST_REROLLOUTS).replace(
+      xfrc_applied=0.5 * torch.randn(
+          (ROBUST_REROLLOUTS, quad.model.nbody, 6), generator=gen,
+          device=DEV))
+  r_spd, (r_args, r_gargs, r_condims, r_dmasks) = solver_inputs(quad, states)
+  kern['quadruped_robust'], robust_errs = path_kernels(
+      f'4 quadruped_robust (the re-rollouts, B {ROBUST_REROLLOUTS}, body '
+      f'wrenches)', r_spd, r_args, r_gargs,
+      dict(cap=quad.model.opt.iterations, tol=1e-5, condims=r_condims,
+           dmasks=r_dmasks), 1e-4)
+  return {'cartpole_cem': (spd_abs, newton_abs, None),
+          'cartpole_sample_gradient': (spd_abs, newton_abs, None),
+          'cartpole_gradient': (spd_abs, newton_abs, ilqs_errs[2]),
+          'cartpole_ilqs': ilqs_errs, 'quadruped_robust': robust_errs}
+
+
+def planner_phases(cart, cart_cpu, d0, d0_cpu, quad, quad_cpu, q_d0,
+                   q_d0_cpu, gen, elapsed):
+  """Phases 21-24 from Cartpole's and Quadruped's specs (card and CPU)
+  and start states. Returns (the paths' results, the goldens'
+  best_return relative errors, the forced iLQS run's result)."""
+  # 21. the other planners on Cartpole at the flagship's width, from
+  # (1.0, 3.14159): make_planner(spec, id, 8192, 101, 10)
+  from mujoco_mpc_tpu_torch import testspeed
+  from mujoco_mpc_tpu_torch.planners import registry as planners
+  plan_main = {}
+  for pid, path in ((planners.CEM, 'cartpole_cem'),
+                    (planners.SAMPLE_GRADIENT, 'cartpole_sample_gradient'),
+                    (planners.GRADIENT, 'cartpole_gradient'),
+                    (planners.ILQS, 'cartpole_ilqs')):
+    r = planner_path(cart, pid, d0, PLANNER_SAMPLES, PLANNER_ITERS, gen)
+    print_planner_path(21, planners.PLANNER_NAMES[pid], PLANNER_SAMPLES, r)
+    plan_main[path] = r
+  forced = planner_path(cart, planners.ILQS, d0, PLANNER_SAMPLES,
+                        FORCED_ITERS, gen, forced=True)
+  print_planner_path(21, 'iLQS with its iLQG branch forced (exploration '
+                     '0)', PLANNER_SAMPLES, forced)
+  elapsed('21')
+
+  # 22. goldens: one 256-candidate iteration of each, card vs CPU plain
+  # path with the same noise; Robust on Quadruped Flat, the task phase 23
+  # times it on
+  golden_rel = {}
+  for pid, path, spec_, cpu_, dd, dd_cpu, task in (
+      (planners.CEM, 'cartpole_cem', cart, cart_cpu, d0, d0_cpu, 'Cartpole'),
+      (planners.SAMPLE_GRADIENT, 'cartpole_sample_gradient', cart, cart_cpu,
+       d0, d0_cpu, 'Cartpole'),
+      (planners.GRADIENT, 'cartpole_gradient', cart, cart_cpu, d0, d0_cpu,
+       'Cartpole'),
+      (planners.ILQS, 'cartpole_ilqs', cart, cart_cpu, d0, d0_cpu,
+       'Cartpole, exploration 0 (its iLQG branch)'),
+      (planners.ROBUST, 'quadruped_robust', quad, quad_cpu, q_d0, q_d0_cpu,
+       'Quadruped Flat')):
+    g = planner_golden(spec_, cpu_, pid, dd, dd_cpu, GOLDEN_SAMPLES)
+    print_planner_golden(planners.PLANNER_NAMES[pid], task, GOLDEN_SAMPLES,
+                         g)
+    golden_rel[path] = g[2]
+
+  elapsed('22')
+
+  # 23. Robust Sampling on Quadruped Flat from `home`: the reference's
+  # instantiation (over Sampling, 12 candidates x 5 repetitions) at
+  # bench.py's quadruped_ps4096 width
+  r = planner_path(quad, planners.ROBUST, q_d0, ROBUST_SAMPLES, ROBUST_ITERS,
+                   gen)
+  check(('newton', ROBUST_REROLLOUTS) in r['batches']
+        and ('newton', ROBUST_SAMPLES + 1) in r['batches'],
+        f'Robust: B2 not launched at B {ROBUST_SAMPLES + 1} and '
+        f'{ROBUST_REROLLOUTS}: {r["batches"]}')
+  print_planner_path(23, 'Quadruped Flat Robust Sampling (12 x 5 over '
+                     'Sampling)', ROBUST_SAMPLES, r)
+  plan_main['quadruped_robust'] = r
+
+  elapsed('23')
+
+  # 24. testspeed for all seven planner ids on Cartpole
+  for pid, name in enumerate(planners.PLANNER_NAMES):
+    res = testspeed.synchronous_planning_cost(
+        'Cartpole', pid, TESTSPEED_TIME, 4, TESTSPEED_SAMPLES, seed=pid,
+        verbose=False, device=DEV)
+    check(float('-inf') < res['avg_cost'] < float('inf'),
+          f'testspeed {name}: avg_cost {res["avg_cost"]}')
+    print(f'phase 24 testspeed: Cartpole {name} (id {pid}), '
+          f'{TESTSPEED_SAMPLES} samples, {res["total_steps"]} steps '
+          f'({TESTSPEED_TIME} s simulated), 4 steps a plan: wall '
+          f'{res["wall_time_s"]:.3f} s, x_realtime {res["x_realtime"]:.4f}, '
+          f'avg_cost {res["avg_cost"]:.5g}')
+
+  elapsed('24')
+  return plan_main, golden_rel, forced
 
 
 def main():
@@ -1662,6 +2220,8 @@ def main():
           + newton_timing_line(n_label, n_wall, n_dev, n_bound, iters,
                                plain_reps))
   ilqg_err = time_ilqg_kernels(gen, part, swim, kern)
+  plan_errs = planner_path_kernels(cart, quad, gen, kern,
+                                   (spd_abs, newton_abs))
   for n in SPD_EXTRA_N:
     spd_args = random_spd(gen, QUAD_SAMPLES, n)
     print(f'phase 4 timing, random systems, per call, wall / device only: '
@@ -1686,7 +2246,8 @@ def main():
         f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
         f'(tol 0.05)')
   steps, sim_t, wall, rtf, mean, last = plan_act(
-      cart, d0, CART_SAMPLES, int(round(1.0 / float(cart.model.opt.timestep))),
+      cart, d0, CART_SAMPLES,
+      int(round(CART_PLAN_ACT_TIME / float(cart.model.opt.timestep))),
       1)
   print(f'phase 7 plan-act: Cartpole {steps} steps ({sim_t:.2f} s simulated,'
         f' 4 steps per plan, {CART_SAMPLES} candidates) in {wall:.2f} s wall:'
@@ -1709,9 +2270,11 @@ def main():
         f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
         f'(tol 0.05)')
   samples = max(int(quad.config.get('sampling_trajectories', 128)), 128)
-  steps, sim_t, wall, rtf, mean, last = plan_act(quad, q_d0, samples, 100, 2)
+  steps, sim_t, wall, rtf, mean, last = plan_act(quad, q_d0, samples,
+                                                 PLAN_ACT_STEPS, 2)
   print(f'phase 10 plan-act: Quadruped Flat {steps} steps ({sim_t:.2f} s '
-        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'simulated, {steps // 4} plans of 4 steps, {samples} candidates, '
+        f'transition '
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
 
@@ -1736,9 +2299,11 @@ def main():
         f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
         f'(tol 0.05)')
   samples = max(int(hum.config.get('sampling_trajectories', 128)), 128)
-  steps, sim_t, wall, rtf, mean, last = plan_act(hum, h_d0, samples, 100, 3)
+  steps, sim_t, wall, rtf, mean, last = plan_act(hum, h_d0, samples,
+                                                 PLAN_ACT_STEPS, 3)
   print(f'phase 13 plan-act: Humanoid Track {steps} steps ({sim_t:.2f} s '
-        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'simulated, {steps // 4} plans of 4 steps, {samples} candidates, '
+        f'transition '
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
 
@@ -1757,9 +2322,11 @@ def main():
         f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
         f'(tol 0.05)')
   samples = max(int(sha.config.get('sampling_trajectories', 128)), 128)
-  steps, sim_t, wall, rtf, mean, last = plan_act(sha, s_d0, samples, 100, 4)
+  steps, sim_t, wall, rtf, mean, last = plan_act(sha, s_d0, samples,
+                                                 PLAN_ACT_STEPS, 4)
   print(f'phase 16 plan-act: Shadow Reorient {steps} steps ({sim_t:.2f} s '
-        f'simulated, 25 plans of 4 steps, {samples} candidates, transition '
+        f'simulated, {steps // 4} plans of 4 steps, {samples} candidates, '
+        f'transition '
         f'on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
         f'{mean:.4g}, last {last:.4g}')
 
@@ -1779,6 +2346,11 @@ def main():
         launches=r['launches'], per_iter=r['per_iter'], iters=iters,
         tangent_per_iter=r['tangent_per_iter'])
     elapsed(f'{phase}-{phase + 1}')
+
+  # 21-24. the other planners
+  plan_main, golden_rel, forced = planner_phases(
+      cart, cart_cpu, d0, d0_cpu, quad, quad_cpu, q_d0, q_d0_cpu, gen,
+      elapsed)
 
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
@@ -1809,6 +2381,28 @@ def main():
       e['tangent']['launches_per_iteration'] = per_t
     return e
 
+  def plan_entry(name, path):
+    """A planner path's entry at its kernels' shapes (phase 21's and 23's
+    timings), with launches per iteration and the phase 22 golden's
+    best_return relative error; B1's carries the derivative tangent's
+    shape under 'tangent' where the path has one, and iLQS's the forced
+    iLQG branch's launches."""
+    r, errs, k = plan_main[path], plan_errs[path], kern[path]
+    e = entry(name, path, r['launches'],
+              errs[0] if name == 'chol_solve' else errs[1], k)
+    e['launches_per_iteration'] = r['launches'][name] / r['iters']
+    e['golden_rel_err'] = golden_rel[path]
+    if name == 'chol_solve' and 'tangent' in k:
+      e['tangent'] = entry(name, path, {name: r['tangents']}, errs[2],
+                           dict(k['tangent'], newton_bound=None))
+      e['tangent']['launches_per_iteration'] = r['tangents'] / r['iters']
+    if path == 'cartpole_ilqs':
+      e['ilqg_branch'] = {
+          'launches': forced['launches'][name], 'iterations': forced['iters'],
+          'launches_per_iteration': forced['launches'][name]
+          / forced['iters']}
+    return e
+
   out = []
   for name, source, replaces, errs in (
       ('chol_solve', 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
@@ -1824,6 +2418,7 @@ def main():
                           ('humanoid_track', hum_main),
                           ('shadow_reorient', sha_main))}
     paths.update({p: ilqg_entry(name, p) for p in ilqg_main})
+    paths.update({p: plan_entry(name, p) for p in plan_main})
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

@@ -1,17 +1,22 @@
-"""Plan-act orchestration: the synchronous MPC loop.
+"""Plan-act orchestration: the synchronous MPC loop and the Agent.
 
 Port of mujoco_mpc_tpu/agent.py (horizon_steps :38, plan_model :47,
 plan_spec :57, sync_plan_state :68, MpcCarry :77, make_mpc_step :84,
-synchronous_mpc :152). JAX runs the loop as one jitted lax.scan; here it is
-a Python loop of plan iterations, each followed by `steps_per_plan`
-simulation steps of the batch-1 state under the frozen plan. The TPU's
-128-lane broadcast of the simulation step (agent.py:114-136) is not
-carried over: on the card the batch-1 step calls the same functions with
-B = 1. The task's transition runs once per plan, before planning
-(:96-100), on the simulation state whose derived fields come from the
-last step's forward; a state that has none yet (a fresh make_data) gets
-zeros there, as JAX's make_data gives them. The host-driven Agent class
-(:179) is still to come (ROADMAP A13).
+synchronous_mpc :152, Agent :179). JAX runs the loop as one jitted
+lax.scan; here it is a Python loop of plan iterations, each followed by
+`steps_per_plan` simulation steps of the batch-1 state under the frozen
+plan. The TPU's 128-lane broadcast of the simulation step
+(agent.py:114-136) is not carried over: on the card the batch-1 step
+calls the same functions with B = 1. The task's transition runs once per
+plan, before planning (:96-100), on the simulation state whose derived
+fields come from the last step's forward; a state that has none yet (a
+fresh make_data) gets zeros there, as JAX's make_data gives them.
+
+`Agent` is the host-driven surface (plan iteration, action, step, cost
+introspection) over any of the seven planners of planners/registry.py.
+It draws its planners' noise and the task transitions' from one
+torch.Generator on the model's device, seeded by `seed`, in place of
+JAX's key.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.ops import spline
@@ -140,3 +146,199 @@ def synchronous_mpc(spec: TaskSpec, num_samples: int, total_steps: int,
     carry, out = body(carry)
     costs.append(out['costs'])
   return carry, torch.cat(costs)
+
+
+class Agent:
+  """Host-driven agent mirroring the reference Agent API (agent.h:62-166):
+  a task, a planner from the registry by `planner_id` (default: the task's
+  `agent_planner`), the simulation state, and plan-iteration / action /
+  step / cost introspection. States are B = 1, on the model's device.
+
+  JAX's Agent serves spline actions from its native C++ runtime when it
+  can (agent.py:228-241); the port has no native act path yet, so every
+  `action` here goes through the planner's action function."""
+
+  def __init__(self, spec: TaskSpec, num_samples: Optional[int] = None,
+               interp: int = spline.Interp.ZERO,
+               num_spline_points: Optional[int] = None, seed: int = 0,
+               planner_id: Optional[int] = None):
+    from mujoco_mpc_tpu_torch.planners import registry as planner_registry
+    m = spec.model
+    self.spec = spec
+    self.interp = int(interp)
+    if planner_id is None:
+      planner_id = int(spec.config.get('agent_planner', 0))
+    if num_samples is None:
+      num_samples = int(spec.config.get('sampling_trajectories', 128))
+    self.planner_id = planner_id
+    self.num_samples = num_samples
+    p = num_spline_points or int(spec.config.get('sampling_spline_points',
+                                                 10))
+    self.horizon_steps = horizon_steps(spec)
+    self.planner = planner_registry.make_planner(
+        plan_spec(spec), planner_id, num_samples, self.horizon_steps, p,
+        interp=self.interp)
+    self.policy = self.planner.init()
+    # the policy from before the last install (Step use_previous_policy,
+    # agent.proto:142-146: a simulated planning delay)
+    self.prev_policy = self.policy
+    self.params = spec.default_params
+    self.plan_data = make_data(plan_model(spec))
+    self.sim_data = make_data(m)
+    if 'home' in m.keyframe_names:
+      self.sim_data = self.sim_data.replace(
+          qpos=m.keyframe_qpos('home')[None].clone())
+    self.generator = torch.Generator(device=m.device).manual_seed(seed)
+    self._plots = {'time': [], 'cost_terms': [], 'total_cost': [],
+                   'action': []}
+
+  def _tensor(self, x, shape):
+    """x (a tensor on any device, an array or numbers) as a B = 1 tensor
+    of the model's dtype on its device."""
+    m = self.spec.model
+    if not torch.is_tensor(x):
+      x = np.asarray(x)
+    return torch.as_tensor(x, dtype=m.dtype,
+                           device=m.device).reshape((1,) + shape)
+
+  # -- Agent::SetState -----------------------------------------------------
+  def set_state(self, qpos=None, qvel=None, time=None, act=None,
+                mocap_pos=None, ctrl=None, xfrc_applied=None):
+    m = self.spec.model
+    shapes = dict(qpos=(m.nq,), qvel=(m.nv,), time=(), act=(m.na,),
+                  mocap_pos=(m.nmocap, 3), ctrl=(m.nu,),
+                  xfrc_applied=(m.nbody, 6))
+    given = dict(qpos=qpos, qvel=qvel, time=time, act=act,
+                 mocap_pos=mocap_pos, ctrl=ctrl, xfrc_applied=xfrc_applied)
+    self.sim_data = self.sim_data.replace(**{
+        k: self._tensor(v, shapes[k]) for k, v in given.items()
+        if v is not None})
+
+  # -- Agent::PlanIteration, split so that a caller with a physics thread
+  # holds its lock only around the snapshot and the install
+  # (agent.cc:283-290) ------------------------------------------------------
+  def snapshot_plan_inputs(self):
+    """(policy, plan state, params, generator) for one plan iteration."""
+    plan_d = sync_plan_state(self.plan_data, self.sim_data)
+    return self.policy, plan_d, self.params, self.generator
+
+  def plan_from(self, policy, plan_d, params, generator):
+    """The planner's iteration on a snapshot (no agent state touched)."""
+    return self.planner.optimize(policy, plan_d, params, generator)
+
+  def install_policy(self, policy):
+    """Install a newly optimized policy (sampling/planner.cc:525-534)."""
+    self.prev_policy = self.policy
+    self.policy = policy
+
+  def plan_iteration(self):
+    policy, info = self.plan_from(*self.snapshot_plan_inputs())
+    self.install_policy(policy)
+    return info
+
+  # -- Task::Transition ------------------------------------------------------
+  def transition(self):
+    if self.spec.transition_fn is not None:
+      m = self.spec.model
+      self.sim_data, self.params = self.spec.transition_fn(
+          m, zero_filled(m, self.sim_data), self.params, self.generator)
+
+  # -- Agent::ActionFromPolicy ------------------------------------------------
+  def action(self, time=None, nominal: bool = False,
+             use_previous_policy: bool = False) -> torch.Tensor:
+    """The policy's action (nu,) at `time` (the simulation's when None).
+    nominal=True drops the feedback terms (iLQG, iLQS; agent.proto:108-111),
+    use_previous_policy=True asks the policy from before the last install
+    (agent.proto:142-146)."""
+    d = self.sim_data
+    t = d.time if time is None else self._tensor(time, ())
+    pol = self.prev_policy if use_previous_policy else self.policy
+    fn = self.planner.nominal_action if nominal else self.planner.action
+    return fn(pol, d.qpos, d.qvel, d.act, t)[0]
+
+  def step(self, ctrl=None, use_previous_policy: bool = False) -> Data:
+    """Step the simulation under the policy's action, or under `ctrl`
+    (app.cc:292-304 injects control noise so)."""
+    u = (self.action(use_previous_policy=use_previous_policy)
+         if ctrl is None else ctrl)
+    u = self._tensor(u, (self.spec.model.nu,))
+    self.sim_data = fwd.step(self.spec.model, self.sim_data.replace(ctrl=u))
+    return self.sim_data
+
+  # -- Planner::BestTrajectory -------------------------------------------------
+  def best_trajectory(self):
+    """The current policy rolled out from the current state: (states
+    (T, nq + nv + na), actions (T, nu), costs (T,))."""
+    m, spec = self.spec.model, self.spec
+    d = self.sim_data
+    states, actions, costs = [], [], []
+    for _ in range(self.horizon_steps):
+      u = self.planner.action(self.policy, d.qpos, d.qvel, d.act, d.time)
+      d = fwd.forward(m, d.replace(ctrl=u))
+      res = spec.residual_fn(m, d, self.params.residual_params)
+      costs.append(spec.cost(res, self.params)[0])
+      states.append(torch.cat([d.qpos, d.qvel, d.act], -1)[0])
+      actions.append(u[0])
+      d = fwd.integrate(m, d)
+    return torch.stack(states), torch.stack(actions), torch.stack(costs)
+
+  def cost_terms(self) -> torch.Tensor:
+    """The weighted cost terms (num_term,) at the current state."""
+    m = self.spec.model
+    d = fwd.forward(m, self.sim_data)
+    res = self.spec.residual_fn(m, d, self.params.residual_params)
+    return self.spec.cost_terms(res, self.params)[0]
+
+  # -- plot traces (AgentPlots, agent.h:38-43): a bounded host history -------
+  def record_plots(self, max_len: int = 512):
+    terms = self.cost_terms().cpu().numpy()
+    self._plots['time'].append(float(self.sim_data.time[0]))
+    self._plots['cost_terms'].append(terms)
+    self._plots['total_cost'].append(float(terms.sum()))
+    self._plots['action'].append(self.action().cpu().numpy())
+    for k in self._plots:
+      if len(self._plots[k]) > max_len:
+        del self._plots[k][:-max_len]
+
+  def plots(self):
+    return {
+        'term_names': self.spec.term_names,
+        'time': list(self._plots['time']),
+        'cost_terms': [t.tolist() for t in self._plots['cost_terms']],
+        'total_cost': list(self._plots['total_cost']),
+        'action': [a.tolist() for a in self._plots['action']],
+    }
+
+  def set_cost_weights(self, weights_by_name):
+    w = self.params.weights.clone()
+    for name, val in weights_by_name.items():
+      w[self.spec.term_names.index(name)] = val
+    self.params = self.params.replace(weights=w)
+
+  def set_task_parameter(self, name, value):
+    rp = self.params.residual_params.clone()
+    rp[self.spec.residual_param_names.index(name)] = value
+    self.params = self.params.replace(residual_params=rp)
+
+  # -- task modes (Agent::SetModeByName, agent.cc:421-448): the task's
+  # first `select_*` residual parameter --------------------------------------
+  def _mode_param(self):
+    for name in self.spec.residual_param_names:
+      if name.startswith('select_'):
+        return name
+    return None
+
+  def set_mode(self, mode: int):
+    name = self._mode_param()
+    if name is None:
+      if mode != 0:
+        raise ValueError(f'task {self.spec.name!r} has no modes')
+      return
+    self.set_task_parameter(name, float(mode))
+
+  def mode(self) -> int:
+    name = self._mode_param()
+    if name is None:
+      return 0
+    idx = self.spec.residual_param_names.index(name)
+    return int(round(float(self.params.residual_params[idx])))

@@ -18,7 +18,10 @@ residual_param_names, residual_param_ranges}}.
 
 `ilqg_state_from_arrays` carries the JAX package's iLQG planner state
 (planners/ilqg.py ILQGState and ILQGPolicy, as numpy arrays) across, so
-both packages can start an iteration from the same policy.
+both packages can start an iteration from the same policy;
+`cem_state_from_arrays`, `sg_state_from_arrays` and
+`ilqs_state_from_arrays` do the same for Cross Entropy's, Sample
+Gradient's and iLQS's states.
 """
 
 from __future__ import annotations
@@ -30,7 +33,8 @@ import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.physics import model as model_lib
-from mujoco_mpc_tpu_torch.planners import ilqg
+from mujoco_mpc_tpu_torch.planners import (cross_entropy, ilqg, ilqs,
+                                           sample_gradient, sampling)
 from mujoco_mpc_tpu_torch.tasks import base
 
 PARAM_FIELDS = ('weights', 'norm_params', 'residual_params', 'risk')
@@ -106,3 +110,50 @@ def ilqg_state_from_arrays(policy: dict, state: dict, device='cuda',
           f.name: t(policy[f.name])
           for f in dataclasses.fields(ilqg.ILQGPolicy)}),
       **{k: t(state[k]) for k in ILQG_STATE_FIELDS})
+
+
+
+def _tensor(x, device, dtype):
+  return torch.as_tensor(np.array(x), dtype=dtype,
+                         device=model_lib.resolve_device(device))
+
+
+def sampling_policy_from_arrays(policy: dict, device='cuda',
+                                dtype=torch.float32) -> sampling.SamplingPolicy:
+  """SamplingPolicy from {'times', 'values'} numpy arrays."""
+  return sampling.SamplingPolicy(times=_tensor(policy['times'], device, dtype),
+                                 values=_tensor(policy['values'], device,
+                                                dtype))
+
+
+def cem_state_from_arrays(policy: dict, variance, device='cuda',
+                          dtype=torch.float32) -> cross_entropy.CEMState:
+  """CEMState from a JAX CEMState's leaves: its policy's {'times',
+  'values'} and its variance."""
+  return cross_entropy.CEMState(
+      policy=sampling_policy_from_arrays(policy, device, dtype),
+      variance=_tensor(variance, device, dtype))
+
+
+def sg_state_from_arrays(policy: dict, gradient, gradient_prev,
+                         device='cuda',
+                         dtype=torch.float32) -> sample_gradient.SGState:
+  """SGState from a JAX SGState's leaves."""
+  return sample_gradient.SGState(
+      policy=sampling_policy_from_arrays(policy, device, dtype),
+      gradient=_tensor(gradient, device, dtype),
+      gradient_prev=_tensor(gradient_prev, device, dtype))
+
+
+def ilqs_state_from_arrays(sampling_policy: dict, ilqg_policy: dict,
+                           ilqg_state: dict, active, device='cuda',
+                           dtype=torch.float32) -> ilqs.ILQSState:
+  """ILQSState from a JAX ILQSState's leaves: its sampling policy's
+  {'times', 'values'}, its iLQG state's policy and fields (as
+  ilqg_state_from_arrays takes them) and `active`."""
+  return ilqs.ILQSState(
+      sampling_policy=sampling_policy_from_arrays(sampling_policy, device,
+                                                  dtype),
+      ilqg_state=ilqg_state_from_arrays(ilqg_policy, ilqg_state, device,
+                                        dtype),
+      active=_tensor(active, device, torch.int32))

@@ -3,7 +3,8 @@ Gauss-Newton cost expansion.
 
 Port of mujoco_mpc_tpu/planners/derivatives.py (Trajectory :30,
 Derivatives :41, ndx :51, nominal_trajectory :55, _perturbed_data :77,
-transition_derivs :86, _risk_chain :115, cost_derivs :157, compute :183).
+transition_derivs :86, _risk_chain :115, cost_derivs :157, compute :183,
+spline_mapping :190).
 The tangent state is dx = (dq (nv), dqvel (nv), dact (na)), dq on the
 configuration manifold (support.integrate_state / state_diff).
 
@@ -15,9 +16,6 @@ is one step with D = ndx + nu tangent directions, not (T - 1) * D. The
 step's two kernels carry their tangents (ops/spd_solve.SpdSolve,
 ops/newton.NewtonSolve): on the card the primal solves run at B = T - 1
 and the tangent SPD solves at B = (T - 1) * D, one launch each.
-
-Not ported yet: spline_mapping (:190), which waits for the gradient
-planner (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ from typing import Tuple
 import torch
 
 from mujoco_mpc_tpu_torch.ops import norms
+from mujoco_mpc_tpu_torch.ops import spline
 from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics import support
 from mujoco_mpc_tpu_torch.physics.model import Data, Model
@@ -182,3 +181,14 @@ def compute(spec: TaskSpec, template: Data, traj: Trajectory,
   a, b = transition_derivs(spec, template, traj)
   cx, cu, cxx, cxu, cuu = cost_derivs(spec, template, traj, params)
   return Derivatives(a=a, b=b, cx=cx, cu=cu, cxx=cxx, cxu=cxu, cuu=cuu)
+
+
+def spline_mapping(times: torch.Tensor, rollout_times: torch.Tensor,
+                   interp: int) -> torch.Tensor:
+  """The linear operator M (T, P) of the spline sampler: actions(t_j) =
+  sum_p M[j, p] values[p], per control channel (gradient/spline_mapping.cc).
+  JAX takes jacfwd of the sampler; the sampler is linear in the values, so
+  here it is the sampler evaluated on the P unit knot vectors."""
+  p = times.shape[0]
+  basis = torch.eye(p, dtype=times.dtype, device=times.device)[..., None]
+  return spline.sample_many(times, basis, rollout_times, interp)[..., 0].T

@@ -1,19 +1,17 @@
-"""Planner registry: one interface over the planners.
+"""Planner registry: one interface over the seven planners.
 
 Port of mujoco_mpc_tpu/planners/registry.py (PLANNER_NAMES :25, the ids
-:28, PlannerDef :31, make_planner :42) for the planners the port has:
-Sampling and iLQG. Each planner is a set of functions over an opaque
-state:
+:28, PlannerDef :31, make_planner :42), with the same ids and sizes. Each
+planner is a set of functions over an opaque state:
 
     init() -> state
     optimize(state, d0, params, generator) -> (state, info)
     action(state, qpos, qvel, act, time) -> (B, nu)
     nominal_action(state, qpos, qvel, act, time) -> (B, nu)
 
-with d0 the B = 1 state and `generator` the torch.Generator that
-Predictive Sampling draws its noise from (JAX passes a key; iLQG draws
-nothing). The other planner ids raise NotImplementedError naming their
-queue item.
+with d0 the B = 1 state and `generator` the torch.Generator the planner
+draws its noise from, on the model's device (JAX passes a key; iLQG and
+Gradient draw nothing and take None).
 """
 
 from __future__ import annotations
@@ -24,8 +22,9 @@ from typing import Any, Callable, Tuple
 import torch
 
 from mujoco_mpc_tpu_torch.ops import spline
-from mujoco_mpc_tpu_torch.planners import ilqg
-from mujoco_mpc_tpu_torch.planners import sampling
+from mujoco_mpc_tpu_torch.planners import (cross_entropy, gradient_planner,
+                                           ilqg, ilqs, ranked, robust,
+                                           sample_gradient, sampling)
 from mujoco_mpc_tpu_torch.tasks.base import TaskSpec
 
 PLANNER_NAMES = ('Sampling', 'Gradient', 'iLQG', 'iLQS', 'Robust Sampling',
@@ -33,9 +32,10 @@ PLANNER_NAMES = ('Sampling', 'Gradient', 'iLQG', 'iLQS', 'Robust Sampling',
 
 SAMPLING, GRADIENT, ILQG, ILQS, ROBUST, CEM, SAMPLE_GRADIENT = range(7)
 
-# planner id -> the ROADMAP queue item that ports it
-_NOT_PORTED = {GRADIENT: 'A9', ILQS: 'A9', ROBUST: 'A10', CEM: 'A10',
-               SAMPLE_GRADIENT: 'A10'}
+
+def num_gradient_candidates(num_samples: int) -> int:
+  """Sample Gradient's gradient candidates (registry.py:115, :165)."""
+  return min(8, max(num_samples // 8, 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,10 +54,6 @@ def make_planner(spec: TaskSpec, planner_id: int, num_samples: int,
   """The interface of one planner on one task, in the task model's dtype
   and on its device."""
   interp = int(interp)
-  if planner_id in _NOT_PORTED:
-    raise NotImplementedError(
-        f'planner {PLANNER_NAMES[planner_id]} is not ported yet (ROADMAP '
-        f'{_NOT_PORTED[planner_id]})')
 
   if planner_id == SAMPLING:
     cfg = sampling.default_config(spec)
@@ -74,7 +70,18 @@ def make_planner(spec: TaskSpec, planner_id: int, num_samples: int,
     def action(state, qpos, qvel, act, time):
       return sampling.action_from_policy(spec, state, time, interp)
 
-    nominal_action = action
+  elif planner_id == GRADIENT:
+    cfg = gradient_planner.default_config(spec)
+
+    def init():
+      return sampling.default_policy(spec, num_points)
+
+    def optimize(state, d0, params, generator=None):
+      return gradient_planner.optimize(spec, state, d0, params, cfg,
+                                       num_samples, horizon_steps, interp)
+
+    def action(state, qpos, qvel, act, time):
+      return sampling.action_from_policy(spec, state, time, interp)
 
   elif planner_id == ILQG:
     cfg = ilqg.default_config(spec)
@@ -93,8 +100,99 @@ def make_planner(spec: TaskSpec, planner_id: int, num_samples: int,
     def nominal_action(state, qpos, qvel, act, time):
       return ilqg.nominal_action_from_policy(spec, state.policy, time)
 
+  elif planner_id == ILQS:
+    scfg = sampling.default_config(spec)
+    icfg = ilqg.default_config(spec)
+
+    def init():
+      return ilqs.default_state(spec, num_points, horizon_steps)
+
+    def optimize(state, d0, params, generator):
+      noise = sampling.sample_noise(spec, num_points, num_samples, scfg,
+                                    generator)
+      return ilqs.optimize(spec, state, d0, params, scfg, icfg, noise,
+                           max(num_samples // 4, 4), horizon_steps, interp)
+
+    def action(state, qpos, qvel, act, time):
+      return ilqs.action_from_policy(spec, state, qpos, qvel, act, time,
+                                     interp)
+
+    def nominal_action(state, qpos, qvel, act, time):
+      return ilqs.nominal_action_from_policy(spec, state, time, interp)
+
+  elif planner_id == ROBUST:
+    # a decorator over any ranked planner (planner.h:84-102); the delegate
+    # comes from the `robust_delegate` MJCF custom numeric (0 Sampling,
+    # the reference's instantiation, include.cc:48-49; 5 Cross Entropy;
+    # 6 Sample Gradient)
+    rcfg = robust.default_config(spec)
+    delegate_id = int(spec.config.get('robust_delegate', SAMPLING))
+    if delegate_id == CEM:
+      delegate = ranked.make_cem_delegate(
+          spec, cross_entropy.default_config(spec), num_samples, num_points,
+          horizon_steps, interp)
+    elif delegate_id == SAMPLE_GRADIENT:
+      delegate = ranked.make_sample_gradient_delegate(
+          spec, sample_gradient.default_config(spec), num_samples,
+          num_gradient_candidates(num_samples), num_points, horizon_steps,
+          interp)
+    else:
+      delegate = ranked.make_sampling_delegate(
+          spec, sampling.default_config(spec), num_samples, num_points,
+          horizon_steps, interp)
+    ncandidates = min(robust.DEFAULT_NCANDIDATES, num_samples)
+
+    def init():
+      return delegate.init()
+
+    def optimize(state, d0, params, generator):
+      noise = robust.sample_noise(spec, delegate, ncandidates,
+                                  robust.DEFAULT_NREPETITIONS, horizon_steps,
+                                  generator)
+      return robust.optimize_ranked(
+          spec, delegate, state, d0, params, rcfg, noise, ncandidates,
+          robust.DEFAULT_NREPETITIONS, horizon_steps, interp)
+
+    def action(state, qpos, qvel, act, time):
+      return delegate.action(state, time)
+
+  elif planner_id == CEM:
+    cfg = cross_entropy.default_config(spec)
+
+    def init():
+      return cross_entropy.default_state(spec, num_points, cfg)
+
+    def optimize(state, d0, params, generator):
+      eps = cross_entropy.sample_noise(spec, num_points, num_samples,
+                                       generator)
+      return cross_entropy.optimize(spec, state, d0, params, cfg, eps,
+                                    max(num_samples // 10, 2), horizon_steps,
+                                    interp)
+
+    def action(state, qpos, qvel, act, time):
+      return cross_entropy.action_from_policy(spec, state, time, interp)
+
+  elif planner_id == SAMPLE_GRADIENT:
+    cfg = sample_gradient.default_config(spec)
+    num_gradient = num_gradient_candidates(num_samples)
+
+    def init():
+      return sample_gradient.default_state(spec, num_points)
+
+    def optimize(state, d0, params, generator):
+      eps = sample_gradient.sample_noise(spec, num_points, num_samples,
+                                         num_gradient, generator)
+      return sample_gradient.optimize(spec, state, d0, params, cfg, eps,
+                                      num_samples, num_gradient,
+                                      horizon_steps, interp)
+
+    def action(state, qpos, qvel, act, time):
+      return sampling.action_from_policy(spec, state.policy, time, interp)
+
   else:
     raise ValueError(f'unknown planner id {planner_id}')
 
+  if planner_id not in (ILQG, ILQS):
+    nominal_action = action
   return PlannerDef(init=init, optimize=optimize, action=action,
                     nominal_action=nominal_action)

@@ -13,8 +13,12 @@
   non-CPU request the kernel cannot take, malformed contact groups
   included; on a request they take, the primal and the tangent
   (torch.func.jvp, and vmap of jvp as one launch) go to the kernels.
+* Every planner's iteration reaches both kernels' device dispatch (where
+  a CUDA tensor launches the kernel) at the batches its rollouts and its
+  derivative pass run, as often as chip_smoke.py expects on the card.
 """
 
+import collections
 import os
 import shutil
 import subprocess
@@ -28,12 +32,19 @@ import torch
 from mujoco_mpc_tpu.tasks import registry as jregistry
 from mujoco_mpc_tpu_torch import convert
 from mujoco_mpc_tpu_torch.ops import cuda_build
+from mujoco_mpc_tpu_torch.ops import linalg
 from mujoco_mpc_tpu_torch.ops import newton
 from mujoco_mpc_tpu_torch.ops import spd_solve
+from mujoco_mpc_tpu_torch.physics.model import make_data
+from mujoco_mpc_tpu_torch.planners import registry as planners
 from mujoco_mpc_tpu_torch.tasks import registry
 from tools import export_torch_snapshot as export
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the planner layer's modules, and the entry points over it
+NEW_MODULES = ('planners.cross_entropy', 'planners.sample_gradient',
+               'planners.ranked', 'planners.robust',
+               'planners.gradient_planner', 'planners.ilqs', 'testspeed')
 BLOCK = ("import sys\n"
          "for name in ('jax', 'jaxlib', 'flax', 'mujoco', 'mujoco_mpc_tpu'):\n"
          "  sys.modules[name] = None\n")
@@ -57,10 +68,12 @@ def test_port_imports_without_jax_or_mujoco():
       "  importlib.import_module(n)\n"
       "from mujoco_mpc_tpu_torch.tasks import registry\n"
       "spec = registry.get_task('Cartpole', device='cpu')\n"
-      "print(len(names), spec.model.nv)\n"))
+      "print(len(names), spec.model.nv, *names)\n"))
   assert proc.returncode == 0, proc.stderr
-  count, nv = proc.stdout.split()
+  count, nv, *names = proc.stdout.split()
   assert int(count) >= 20 and int(nv) == 2
+  for mod in NEW_MODULES:
+    assert 'mujoco_mpc_tpu_torch.' + mod in names, mod
 
 
 def test_quadruped_loads_without_jax_or_mujoco():
@@ -442,3 +455,64 @@ def test_newton_wrapper_takes_groups_to_the_kernel(no_plain, monkeypatch):
 
 def no_plain_expand(*a, **k):
   raise AssertionError('expanded the facets in PyTorch')
+
+
+def _rollout(t_steps, bsz):
+  """The dispatches of one rollout of t_steps at batch bsz on Cartpole
+  (Euler): B1 for qacc_smooth and the damping system, B2 once, a step."""
+  return {('chol_solve', bsz): 2 * t_steps, ('newton', bsz): t_steps}
+
+
+def _derivative_pass(t_steps, dirs):
+  """The transition's step at B T - 1 (two B1 systems, primal and
+  tangent, B2's primal and its tangent's B1) and the cost's forward at
+  B T (qacc_smooth's primal and tangent, B2's primal and its tangent's
+  B1), the tangents at B * D."""
+  t1 = t_steps - 1
+  return {('chol_solve', t1): 2, ('chol_solve', t1 * dirs): 3,
+          ('newton', t1): 1, ('chol_solve', t_steps): 1,
+          ('chol_solve', t_steps * dirs): 2, ('newton', t_steps): 1}
+
+
+def _sum(*counts):
+  out = collections.Counter()
+  for c in counts:
+    out.update(c)
+  return dict(out)
+
+
+@pytest.mark.parametrize('planner_id', [
+    planners.GRADIENT, planners.ILQS, planners.ROBUST, planners.CEM,
+    planners.SAMPLE_GRADIENT])
+def test_planners_reach_the_kernels_dispatch(monkeypatch, planner_id):
+  """One iteration of each new planner on Cartpole (T 4, K 8): every
+  rollout step, the Robust re-rollouts and the derivative pass's primal
+  and tangent solves go through the kernels' dispatch (recorded here,
+  computed by the plain versions on the CPU)."""
+  calls = []
+  monkeypatch.setattr(spd_solve, '_solve', lambda a, b: calls.append(
+      ('chol_solve', b.shape[0])) or linalg.solve_spd(a, b))
+  monkeypatch.setattr(newton, '_newton', lambda *a, **k: calls.append(
+      ('newton', a[1].shape[0])) or newton.newton_reference(*a, **k))
+  spec = registry.get_task('Cartpole', device='cpu')
+  t_steps, k = 4, 8
+  plan = planners.make_planner(spec, planner_id, k, t_steps, 3)
+  d0 = make_data(spec.model).replace(qpos=torch.tensor([[0.5, 3.0]]))
+  _, info = plan.optimize(plan.init(), d0, spec.default_params,
+                          torch.Generator().manual_seed(0))
+  assert torch.isfinite(info['best_return'])
+  deriv = _derivative_pass(t_steps, 2 * spec.model.nv + spec.model.nu)
+  if planner_id in (planners.CEM, planners.SAMPLE_GRADIENT):
+    want = _rollout(t_steps, k)
+  elif planner_id == planners.ROBUST:
+    # the Sampling delegate's K + 1, then min(12, K) x 5 re-rollouts
+    want = _sum(_rollout(t_steps, k + 1), _rollout(t_steps, k * 5))
+  elif planner_id == planners.GRADIENT:
+    want = _sum(_rollout(t_steps, 1), deriv, _rollout(t_steps, k))
+  else:
+    # sampling, the seeded nominal, and eager iLQG at max(K // 4, 4)
+    # unless sampling improved
+    want = _sum(_rollout(t_steps, k + 1), _rollout(t_steps, 1),
+                {} if bool(info['sampling_improved']) else _sum(
+                    _rollout(t_steps, 1), deriv, _rollout(t_steps, 4)))
+  assert dict(collections.Counter(calls)) == want

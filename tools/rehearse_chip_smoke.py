@@ -7,9 +7,12 @@ profiler's device times are 0. It checks the script's paths, shapes and
 control flow before a run on the card; none of its numbers is a device
 measurement. Run from the repository root (a few minutes):
 
-    python tools/rehearse_chip_smoke.py [candidates] [ilqg]
+    python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners]
 
-With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead.
+With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
+with `planners` tools/planner_check.py (phases 21-24: the other planners
+at `candidates`, goldens at 32 candidates, 2 timed iterations, testspeed
+over 0.05 s at 8 samples).
 """
 
 import os
@@ -71,8 +74,9 @@ def _fake_build(name):
 
 
 def main():
-  args = [a for a in sys.argv[1:] if a != 'ilqg']
-  ilqg = len(args) < len(sys.argv) - 1
+  modes = ('ilqg', 'planners')
+  args = [a for a in sys.argv[1:] if a not in modes]
+  mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
   chip_smoke.DEV = 'cpu'
   chip_smoke.CART_SAMPLES = chip_smoke.QUAD_SAMPLES = samples
@@ -82,6 +86,12 @@ def main():
   chip_smoke.SHADOW_PLANS = 2
   chip_smoke.TIME_REPS = 2
   chip_smoke.HUMAN_PLAIN_REPS = 1
+  chip_smoke.PLANNER_SAMPLES = chip_smoke.ROBUST_SAMPLES = samples
+  chip_smoke.GOLDEN_SAMPLES = 32
+  chip_smoke.PLANNER_ITERS = chip_smoke.ROBUST_ITERS = 2
+  chip_smoke.FORCED_ITERS = 1
+  chip_smoke.TESTSPEED_TIME = 0.05
+  chip_smoke.TESTSPEED_SAMPLES = 8
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -101,10 +111,13 @@ def main():
   get_task = registry.get_task
   registry.get_task = lambda name, device='cuda', dtype=torch.float32: (
       get_task(name, device='cpu', dtype=dtype))
-  if ilqg:
+  if mode == 'ilqg':
     from tools import ilqg_check
     sys.argv = sys.argv[:1]
     ilqg_check.main()
+  elif mode == 'planners':
+    from tools import planner_check
+    planner_check.main()
   else:
     chip_smoke.main()
 
