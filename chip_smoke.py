@@ -10,7 +10,8 @@ Phases, one line each (any failure exits non-zero):
      ptxas's registers, stack and spills of every bucket instance of both
      kernels (any spill fails) and the shared memory they take;
   3. check: each kernel against its plain PyTorch version on the card:
-     3a B1 on random systems, every n from 1 to 32, B 1, 8192 and 8193;
+     3a B1 on random systems, every n from 1 to 32, B 1, 8192 and 8193
+     (3j-3l, Cube Solving's block instances, below);
      3b B2 on random dense and one-hot rows, nv 2, 8, 18, 24 and 32;
      3c both on the inputs the Cartpole step gives them; 3d B2's contact
      groups (condim 1, 3, 4, 6, and two groups) on random factored
@@ -42,34 +43,34 @@ Phases, one line each (any failure exits non-zero):
      2048 with the derivative tangent at B 500, Robust's re-rollouts at B
      60 under body wrenches; each also checked against its plain
      version), and B1 at n 24 and 32
-     (B 4096, random systems), wall per call (CUDA events, median of 30;
-     the plain versions over 3 calls, at the Shadow shapes over one) and
+     (B 4096, random systems), wall per call (CUDA events, median of 10;
+     the plain versions over one call) and
      device time (profiler), with each kernel's bound and its device time
      as a multiple of the bound;
   5. Cartpole main path: Predictive Sampling, 8192 candidates x 101
-     steps, 5 timed plans; both kernels launched as often as the path
+     steps, 2 timed plans; both kernels launched as often as the path
      calls them, best_return <= nominal_return; one profiled plan;
   6. Cartpole golden: a 256-candidate plan on the card vs the plain path
      on the CPU with the same candidates, and a 5-step rollout's drift;
-  7. Cartpole plan-act: synchronous MPC at 8192 candidates, 0.5 s
+  7. Cartpole plan-act: synchronous MPC at 8192 candidates, 0.12 s
      simulated;
-  8. Quadruped Flat main path: 4096 candidates x 36 steps, 10 knots, 3
+  8. Quadruped Flat main path: 4096 candidates x 36 steps, 10 knots, 2
      timed plans from `home`, checked and profiled as in phase 5;
   9. Quadruped golden: the bounds of bench.py's fused_newton_golden;
-  10. Quadruped plan-act: synchronous MPC at 128 candidates, 8 plans of
+  10. Quadruped plan-act: synchronous MPC at 128 candidates, 2 plans of
      4 steps, the task's transition on;
-  11. Humanoid Track main path: 512 candidates x 41 steps, 10 knots, 3
+  11. Humanoid Track main path: 512 candidates x 41 steps, 10 knots, 2
      timed plans from `home` (the clip's first pose), checked and profiled
      as in phase 5 (bench.py's humanoid_track_ps512);
   12. Humanoid Track golden: the bounds of phase 9;
   13. Humanoid Track plan-act: as phase 10;
-  14. Shadow Reorient main path: 8192 candidates x 31 steps, 10 knots, 3
+  14. Shadow Reorient main path: 8192 candidates x 31 steps, 10 knots, 2
      timed plans from qpos0, checked and profiled as in phase 5
      (bench.py's shadow_ps8192);
   15. Shadow Reorient golden: the bounds of phase 9;
   16. Shadow Reorient plan-act: as phase 10;
   17. Particle iLQG main path: make_planner(spec, ILQG, 8, 51, 10) from
-     the task's start (bench.py's particle_ilqg), a warm-up and 5 timed
+     the task's start (bench.py's particle_ilqg), a warm-up and 3 timed
      iterations: p50, plans/s, the wall split into line search,
      derivatives and Riccati, both kernels' launches per iteration (and
      B1 at B (T - 1) D in the derivative pass), the escalation's host
@@ -80,13 +81,13 @@ Phases, one line each (any failure exits non-zero):
      state and policy (phase 17's first iteration's): A and B per knot
      within 1e-3 relative, best_return within 0.02, the same winning
      scale;
-  19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 2 timed
-     iterations, as phase 17;
+  19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 1 timed
+     iteration, as phase 17;
   20. Swimmer iLQG golden: as phase 18;
   21. the other planners on Cartpole at the flagship's width, 8192
      candidates x 101 steps, 10 knots, from (1.0, 3.14159): Cross
      Entropy, Sample Gradient, Gradient and iLQS through make_planner, a
-     warm-up and 5 timed iterations each: p50, plans/s, both kernels'
+     warm-up and 2 timed iterations each: p50, plans/s, both kernels'
      launches per iteration (checked against the path's rollouts and
      derivative pass), B1 at the derivative tangent's batch, iLQS's host
      reads and iLQG runs, best_return finite and <= nominal_return, and
@@ -105,14 +106,27 @@ Phases, one line each (any failure exits non-zero):
      quadruped_ps4096 with the reference's Robust instantiation): as
      phase 21, B2's group branch under body wrenches at B 60, both
      kernels checked and timed there;
-  24. testspeed for all seven planner ids on Cartpole: 128 samples, 0.1 s
-     simulated, 4 steps a plan; x_realtime and avg_cost (finite).
+  24. testspeed for all seven planner ids on Cartpole: 128 samples, 0.02 s
+     simulated, 4 steps a plan; x_realtime and avg_cost (finite);
+  25. Cube Solving main path: 512 candidates x 26 steps, 10 knots, 3
+     timed plans from `home` (bench.py's rubik_ps512), checked and
+     profiled as in phase 5, both kernels in their block instances (n and
+     nv 87), launches per plan beside the prediction (2 T and T);
+  26. Cube Solving golden: a 64-candidate plan, the bounds of phase 9.
+Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
+B2's block instance on random dense, one-hot and frictionloss rows at nv
+33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
+Cube Solving step gives them (B 512, 64 at `home`, the rest after 15
+steps of rollouts: B1 on qM and the Euler system within n eps32 cond(a),
+B2 with 384 dense rows, 30 one-hot and 66 frictionloss rows by 3e's rule,
+its near ties counted). Beside phase 4: both at Cube Solving's shapes and
+B1 at n 48 and 96 (random systems, B 512).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all eleven, the iLQG ones at
-the line search's shapes with B1's derivative tangent under "tangent",
+(top-level keys: the Quadruped path; "paths": all twelve, the iLQG ones
+at the line search's shapes with B1's derivative tangent under "tangent",
 the planner paths of phases 21-23 with their launches per iteration and
-their golden's best_return relative error), and as the last line
-{"ok": true, "device": {...}}.
+their golden's best_return relative error, Cube Solving's with its
+golden's), and as the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -131,16 +145,17 @@ HUMAN_SAMPLES = 512
 SHADOW_SAMPLES = 8192
 SPLINE_POINTS = 10
 CART_QPOS0 = (1.0, 3.14159)
-# timed plans and plan-act depth, cut to make room for phases 21-24
-# inside the run's time limit (Cartpole's plans were 10, the others 5;
-# the plan-act loops 1 s at Cartpole and 25 plans elsewhere; Particle's
-# and Swimmer's iLQG iterations 10 and 5)
-CART_PLANS = 5
-QUAD_PLANS = 3
-HUMAN_PLANS = 3
-SHADOW_PLANS = 3
-CART_PLAN_ACT_TIME = 0.5   # simulated seconds
-PLAN_ACT_STEPS = 32        # 8 plans of 4 steps
+# timed plans and plan-act depth, cut to make room for phases 21-26
+# inside the run's time limit (Cartpole's plans were 10, then 5, the
+# others 5; the plan-act loops 1 s at Cartpole and 25 plans elsewhere;
+# Particle's and Swimmer's iLQG iterations 10 and 5, then 5 and 2)
+CART_PLANS = 2
+QUAD_PLANS = 2
+HUMAN_PLANS = 2
+SHADOW_PLANS = 2
+CART_PLAN_ACT_TIME = 0.12  # simulated seconds (0.5 before Cube Solving's
+                           # phases joined)
+PLAN_ACT_STEPS = 8         # 2 plans of 4 steps (8 plans before)
 # Shadow states at qpos0 itself (phase 3g's first samples): the cube rests
 # unrotated there, and 8 of its hull vertices tie for the floor's 4 points
 SHADOW_QPOS0 = 256
@@ -152,34 +167,49 @@ SHADOW_PLAIN_REPS = 1
 # positions and depths are O(0.3 m) after a chain of 4 bodies
 POINT_ATOL = 1e-5
 NORMAL_ATOL = 1e-4
-# the plain versions at the Humanoid shapes, timed over a few calls: B1's
-# unrolls ~5,000 launches a call at n 23, B2's ~6 times as many
-HUMAN_PLAIN_REPS = 3
-TIME_REPS = 30
+# the plain versions at the Humanoid shapes, timed over one call (3 before
+# Cube Solving's phases joined): B1's unrolls ~5,000 launches a call at n
+# 23, B2's ~6 times as many
+HUMAN_PLAIN_REPS = 1
+TIME_REPS = 10             # calls a kernel is timed over (30 before Cube
+                           # Solving's phases joined)
 # B1 beyond the paths' sizes: the buckets the mesh-hull hands will use,
 # its plain version there timed over a few calls
 # iLQG, bench.py's particle_ilqg / swimmer_ilqg: make_planner(spec, ILQG,
 # 8, T, 10), timed iterations from the task's start
 ILQG_CANDIDATES = 8
-PARTICLE_ITERS = 5
-SWIMMER_ITERS = 2
+PARTICLE_ITERS = 3
+SWIMMER_ITERS = 1
 # calls the plain versions are timed over in phase 4 at the Cartpole,
-# Quadruped and iLQG shapes (one plain Newton call is up to ~5,000
-# launches, and the profiler's passes over 30 of them dominated phase 4)
-PLAIN_REPS = 3
+# Quadruped, iLQG, planner and Cube Solving shapes (one plain Newton call
+# is up to ~5,000 launches, and the profiler's passes over them dominated
+# phase 4: 30 calls, then 3, now 1)
+PLAIN_REPS = 1
 # phases 21-24: the other planners
 PLANNER_SAMPLES = 8192     # Cartpole's flagship width
-PLANNER_ITERS = 5
+PLANNER_ITERS = 2          # 5 before Cube Solving's phases joined
 FORCED_ITERS = 1           # iLQS with its iLQG branch forced
 GOLDEN_SAMPLES = 256
 ROBUST_SAMPLES = 4096      # Quadruped Flat (bench.py's quadruped_ps4096)
-ROBUST_ITERS = 5
+ROBUST_ITERS = 2           # 5 before Cube Solving's phases joined
 ROBUST_REROLLOUTS = 60     # DEFAULT_NCANDIDATES x DEFAULT_NREPETITIONS
-TESTSPEED_TIME = 0.1       # simulated seconds a planner (0.2 asked; cut
-                           # to keep the run inside its time limit)
+TESTSPEED_TIME = 0.02      # simulated seconds a planner, one plan (0.2
+                           # asked; cut to 0.1, then 0.02, to keep the run
+                           # inside its time limit)
 TESTSPEED_SAMPLES = 128    # Cartpole's sampling_trajectories
 SPD_EXTRA_N = (24, 32)
-SPD_EXTRA_PLAIN_REPS = 3
+SPD_EXTRA_PLAIN_REPS = 1
+# Cube Solving (bench.py's rubik_ps512): nv 87, both kernels' block
+# instances; phase 3l's task-shaped states come from rollouts of this many
+# planning steps from `home`, the first CUBE_HOME of them at `home` itself
+CUBE_SAMPLES = 512
+CUBE_PLANS = 3
+CUBE_GOLDEN_SAMPLES = 64
+CUBE_ROLLOUT_STEPS = 15
+CUBE_HOME = 64
+# B1 beside Cube Solving's n 87: random systems at the block instance's
+# other buckets and at 96, its largest
+SPD_WIDE_N = (33, 48, 64, 87, 96)
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
@@ -312,6 +342,13 @@ def bound(bytes_, flops):
                                      else 'operations')
 
 
+def kernel_name(kind, n):
+  """The device function of B1 ('chol_solve') or B2 ('newton') that size
+  n runs: the tile instance up to 32, the block instance (`_wide_`)
+  above."""
+  return f'{kind}_wide_kernel' if n > 32 else f'{kind}_kernel'
+
+
 def spd_bound(a):
   """B1's bound on a (B, n, n): read the lower triangle of a (all the
   factor needs) and b, write x; n^3/3 flops for the factor and 2 n^2 for
@@ -333,11 +370,13 @@ def expanded(args, gargs=(), condims=(), dmasks=()):
   return qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign
 
 
-def newton_cost(ex, qacc):
+def newton_cost(ex, qacc, friction=None):
   """The Newton solve's objective at qacc on expanded operands `ex`, in
   float64: 0.5 e'M e plus 0.5 D jar^2 over the active rows, contact
-  facets included, e = qacc - qs."""
+  facets included, e = qacc - qs, plus the frictionloss rows' Huber
+  cost."""
   import torch
+  from mujoco_mpc_tpu_torch.ops import newton
   qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = ex
   qacc = qacc.double()
   e = qacc - qs
@@ -346,11 +385,17 @@ def newton_cost(ex, qacc):
   act = (jar < 0) | (eqf > 0.5)
   cost = cost + 0.5 * torch.sum(torch.where(act, dvec, 0.0) * jar * jar, -1)
   jar = sign * qacc[:, dof] - s_aref
-  return cost + 0.5 * torch.sum(torch.where(jar < 0, s_dvec, 0.0) * jar
+  cost = cost + 0.5 * torch.sum(torch.where(jar < 0, s_dvec, 0.0) * jar
                                 * jar, -1)
+  if friction is not None:
+    f_aref, f_dvec, f_loss, fdof = friction
+    cost = cost + torch.sum(newton.huber_cost(
+        qacc[:, fdof.long()] - f_aref.double(), f_dvec.double(),
+        f_loss.double()), -1)
+  return cost
 
 
-def newton_bound(args, gargs, condims, dmasks, cap, tol):
+def newton_bound(args, gargs, condims, dmasks, cap, tol, friction=None):
   """B2's bound for these inputs, float32.
 
   Bytes: each operand read once, each output written once. Of qm only the
@@ -371,7 +416,8 @@ def newton_bound(args, gargs, condims, dmasks, cap, tol):
   import torch
   from mujoco_mpc_tpu_torch.ops import newton
   run = lambda c: newton.newton_reference(  # noqa: E731
-      *args, *gargs, cap=c, tol=tol, condims=condims, dmasks=dmasks)
+      *args, *gargs, cap=c, tol=tol, condims=condims, dmasks=dmasks,
+      friction=friction)
   final = run(cap)
   qm, qs, j, _, _, eqf, _, _, _, _ = args
   bsz, nv = qs.shape
@@ -383,12 +429,14 @@ def newton_bound(args, gargs, condims, dmasks, cap, tol):
     iters = torch.where(same, c, iters)
   row_cost = nv * nv + 3 * nv
   active_d = ((final[1] < 0) | (eqf > 0.5)).sum(-1)
+  nf = friction[0].shape[1] if friction is not None else 0
   per_iter = (6 * nv * nv + nv ** 3 / 3 + 16 * args[6].shape[1]
-              + j.shape[1] * (2 * nv + 15) + active_d * row_cost)
+              + 24 * nf + j.shape[1] * (2 * nv + 15) + active_d * row_cost)
+  goff = 3 + (friction is not None)
   for gi in range(len(condims)):
     nnz = (dmasks[gi] != 0).sum(-1)                          # (P,)
     contact = gargs[3 + 4 * gi] > 0                          # (B, P)
-    active = (final[3 + gi] < 0) & contact[:, None, :]       # (B, nrep, P)
+    active = (final[goff + gi] < 0) & contact[:, None, :]    # (B, nrep, P)
     nrep = active.shape[1]
     per_iter = (per_iter + float(12 * nnz.sum() + 24 * nrep * nnz.numel())
                 + 15 * nrep * contact.sum(-1)
@@ -402,7 +450,7 @@ def newton_bound(args, gargs, condims, dmasks, cap, tol):
 
   bytes_ = (bsz * nv * (nv + 1) // 2 * qm.element_size()
             + sum(read(t) for t in list(args[1:]) + list(gargs)
-                  + list(dmasks))
+                  + list(dmasks) + list(friction or ()))
             + sum(t.numel() * t.element_size() for t in final))
   return bound(bytes_, flops) + (float(iters.float().mean()),)
 
@@ -461,8 +509,8 @@ def time_spd(args, plain_reps=None):
   reps = {k: plain_reps if k == 'chol_plain' and plain_reps else TIME_REPS
           for k in fns}
   wall = {k: cuda_time_ms(f, reps[k]) for k, f in fns.items()}
-  dev = {k: device_us(f, reps[k], kernel='chol_solve_kernel'
-                      if k == 'chol_solve' else None)
+  name = kernel_name('chol_solve', args[1].shape[1])
+  dev = {k: device_us(f, reps[k], kernel=name if k == 'chol_solve' else None)
          for k, f in fns.items()}
   return wall, dev, spd_bound(args[0]), reps['chol_plain']
 
@@ -517,13 +565,14 @@ def random_groups(gen, bsz, nv, groups, share):
 
 
 def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
-                   tol=1e-6):
+                   tol=1e-6, friction=None):
   """Kernel vs plain version: (samples outside rtol 2e-3/atol 1e-3 of the
   plain version, max relative objective gap, max abs error, max relative
   objective gap over the samples outside the tolerance)."""
   import torch
   from mujoco_mpc_tpu_torch.ops import newton
-  kw = dict(cap=cap, tol=tol, condims=condims, dmasks=dmasks)
+  kw = dict(cap=cap, tol=tol, condims=condims, dmasks=dmasks,
+            friction=friction)
   got = newton.newton(*args, *gargs, **kw)
   want = newton.newton_reference(*args, *gargs, **kw)
   bsz = args[1].shape[0]
@@ -535,7 +584,8 @@ def compare_newton(args, gargs=(), condims=(), dmasks=(), cap=30,
       bad |= (torch.abs(g - w) > 1e-3 + 2e-3 * torch.abs(w)).any(-1)
       err = max(err, float(torch.max(torch.abs(g - w))))
   ex = expanded(args, gargs, condims, dmasks)
-  c_got, c_want = newton_cost(ex, got[0]), newton_cost(ex, want[0])
+  c_got = newton_cost(ex, got[0], friction)
+  c_want = newton_cost(ex, want[0], friction)
   gap = torch.abs(c_got - c_want) / torch.clamp(torch.abs(c_want), min=1.0)
   return (int(bad.sum()), float(gap.max()), err,
           float(torch.where(bad, gap, 0.0).max()))
@@ -675,11 +725,12 @@ def time_newton(args, gargs, kw, plain_reps=None):
   reps = {k: plain_reps if k == 'newton_plain' and plain_reps else TIME_REPS
           for k in fns}
   wall = {k: cuda_time_ms(f, reps[k]) for k, f in fns.items()}
-  dev = {k: device_us(f, reps[k], kernel='newton_kernel'
-                      if k == 'newton' else None)
+  name = kernel_name('newton', args[1].shape[1])
+  dev = {k: device_us(f, reps[k], kernel=name if k == 'newton' else None)
          for k, f in fns.items()}
   b_ms, by, iters = newton_bound(args, gargs, kw.get('condims', ()),
-                                 kw.get('dmasks', ()), kw['cap'], kw['tol'])
+                                 kw.get('dmasks', ()), kw['cap'], kw['tol'],
+                                 kw.get('friction'))
   return wall, dev, (b_ms, by), iters
 
 
@@ -707,13 +758,18 @@ def resident_blocks(nv, threads, smem):
 
 
 def newton_smem():
-  """[(nv, text)]: the dynamic shared memory B2 takes at the four paths'
-  shapes (the kernel sizes it at launch, 128 threads a block) and the
-  samples an SM then holds. The Humanoid's and Shadow's blocks are past
-  48 KB, through the kernel's opt-in attribute; Shadow's 228 facet rows
+  """[(nv, text)]: the dynamic shared memory B2 takes at the five paths'
+  shapes (the kernel sizes it at launch, 128 threads a block; at Cube
+  Solving's nv 87 a block of 256 a sample) and the samples an SM then
+  holds. The Humanoid's, Shadow's and Cube Solving's blocks are past 48
+  KB, through the kernel's opt-in attribute; Shadow's 228 facet rows
   leave room for one block an SM."""
   from mujoco_mpc_tpu_torch.ops import newton
-  out = []
+  smem = newton.sample_smem_bytes(87, 384, 30, (), 66)
+  blocks = resident_blocks(87, newton.WIDE_THREADS, smem)
+  out = [(87, f'dynamic shared memory at Cube Solving nv 87 n 384 ns 30 nf '
+          f'66: {smem} bytes a block of one sample; {blocks} samples '
+          'resident per SM')]
   for nv, shape, smem in (
       (2, 'Cartpole nv 2 ns 2', newton.sample_smem_bytes(2, 0, 2)),
       (18, 'Quadruped nv 18 ns 24, condim-3 P 20',
@@ -743,15 +799,17 @@ def ptxas_lines(name, lib):
   with open(lib + '.log') as f:
     log = f.read().splitlines()
   if name == 'chol_solve':
-    kernel, label, buckets = 'chol_solve_kernel', 'N', spd_solve.N_BUCKETS
+    label, buckets = 'N', spd_solve.N_BUCKETS
     smem = lambda nb: (  # noqa: E731
         f'; shared memory {spd_solve.block_smem_bytes(nb)} bytes a block of '
-        f'{spd_solve.THREADS // spd_solve.kernel_lanes(nb)} systems')
+        f'{max(1, spd_solve.THREADS // spd_solve.kernel_lanes(nb))} '
+        'systems')
   else:
-    kernel, label, buckets = 'newton_kernel', 'nv', newton.NV_BUCKETS
+    label, buckets = 'nv', newton.NV_BUCKETS
     smem = lambda nb: ''  # noqa: E731
   out, spilled = [], 0
   for nb in buckets:
+    kernel = kernel_name(name, nb)
     found = []
     for i, line in enumerate(log):
       if 'Compiling entry function' in line and f'{kernel}ILi{nb}E' in line:
@@ -777,21 +835,23 @@ def errors(got, want):
   return err, err / max(1.0, float(torch.max(torch.abs(want))))
 
 
-def solver_inputs(spec, d):
+def solver_inputs(spec, d, friction=False):
   """The operands one step of `spec` from states d hands both kernels:
-  (B1's (qM, qfrc_smooth), B2's (args, gargs, condims, dmasks))."""
+  (B1's (qM, qfrc_smooth), B2's (args, gargs, condims, dmasks)), and
+  with `friction` B2's frictionloss operands after its dmasks."""
   from mujoco_mpc_tpu_torch.physics import constraint, forward as fwd, smooth
   import torch
   m = spec.model
   d = fwd.fwd_actuation(m, fwd.fwd_velocity(m, fwd.fwd_position(m, d)))
   d = smooth.crb(m, d).replace(qfrc_constraint=torch.zeros_like(d.qvel))
   d = fwd.fwd_acceleration(m, d)
-  rows, scalar, points = constraint.make_rows_split(m, d)
-  args, gargs, condims, dmasks = constraint.newton_operands(m, d, rows,
-                                                            scalar, points)
+  args, gargs, condims, dmasks, fric = constraint.newton_operands(
+      m, d, *constraint.make_rows_split(m, d))
   args = tuple(t.contiguous() for t in args)
-  return (d.qM.contiguous(), d.qfrc_smooth.contiguous()), (
-      args, gargs, condims, dmasks)
+  n_in = (args, gargs, condims, dmasks)
+  if friction:
+    n_in += (tuple(t.contiguous() for t in fric) if fric else None,)
+  return (d.qM.contiguous(), d.qfrc_smooth.contiguous()), n_in
 
 
 def cartpole_states(spec, gen):
@@ -1010,22 +1070,22 @@ def euler_inputs(spec, d):
 
 
 def main_path(spec, d0, samples, reps, gen):
-  """Predictive Sampling plans of `spec` from d0: a warm-up, then `reps`
-  timed plans with the kernels' counts set to 0 just before and read just
-  after, then one profiled plan."""
+  """Predictive Sampling plans of `spec` from d0 through the planner
+  registry's entry point (make_planner(spec, 0, samples, T, 10)): a
+  warm-up, then `reps` timed plans with the kernels' counts set to 0 just
+  before and read just after, then one profiled plan."""
   import torch
   from mujoco_mpc_tpu_torch import agent
-  from mujoco_mpc_tpu_torch.ops import newton, spd_solve, spline
-  from mujoco_mpc_tpu_torch.planners import sampling
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  from mujoco_mpc_tpu_torch.planners import registry as planners
   t_steps = agent.horizon_steps(spec)
-  cfg = sampling.default_config(spec)
+  planner = planners.make_planner(spec, planners.SAMPLING, samples, t_steps,
+                                  SPLINE_POINTS)
 
   def plan(pol):
-    noise = sampling.sample_noise(spec, SPLINE_POINTS, samples, cfg, gen)
-    return sampling.optimize(spec, pol, d0, spec.default_params, cfg, noise,
-                             t_steps, int(spline.Interp.ZERO))
+    return planner.optimize(pol, d0, spec.default_params, gen)
 
-  pol, _ = plan(sampling.default_policy(spec, SPLINE_POINTS))   # warm-up
+  pol, _ = plan(planner.init())   # warm-up
   torch.cuda.synchronize()
   spd_solve.solve_spd.launches = 0
   newton.newton.launches = 0
@@ -1069,9 +1129,9 @@ def print_main_path(phase, name, samples, reps, r):
                     for n, c, us in r['top']))
 
 
-def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale):
-  """A 256-candidate plan on the card against the plain path on the CPU
-  with the same noise, from the default plan, and a 5-step batched
+def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale, samples=256):
+  """A `samples`-candidate plan on the card against the plain path on the
+  CPU with the same noise, from the default plan, and a 5-step batched
   rollout's qpos drift: (best_return card, CPU, rel err, winner card,
   CPU, winner within 2 % of the CPU best, drift)."""
   import torch
@@ -1082,7 +1142,8 @@ def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale):
   t_steps, interp = agent.horizon_steps(spec), int(spline.Interp.ZERO)
   cfg, cpu_cfg = (sampling.default_config(spec),
                   sampling.default_config(cpu_spec))
-  eps, use2 = sampling.sample_noise(spec, SPLINE_POINTS, 255, cfg, gen)
+  eps, use2 = sampling.sample_noise(spec, SPLINE_POINTS, samples - 1, cfg,
+                                    gen)
   pol = sampling.default_policy(spec, SPLINE_POINTS)
   _, info_gpu = sampling.optimize(spec, pol, d0, spec.default_params, cfg,
                                   (eps, use2), t_steps, interp)
@@ -1095,12 +1156,12 @@ def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale):
   rel = abs(br_gpu - br_cpu) / max(abs(br_cpu), 1e-9)
   win_gpu, win_cpu = int(info_gpu['winner']), int(info_cpu['winner'])
   near = float(info_cpu['returns'][win_gpu]) <= br_cpu * 1.02 + 1e-9
-  ctrl = ctrl_scale * torch.randn((256, 5, spec.model.nu), generator=gen,
-                                  device=DEV)
+  ctrl = ctrl_scale * torch.randn((samples, 5, spec.model.nu),
+                                  generator=gen, device=DEV)
   qpos_run = []
   for m, c, d in ((spec.model, ctrl, d0), (cpu_spec.model, ctrl.cpu(),
                                            d0_cpu)):
-    d = d.expand(256)
+    d = d.expand(samples)
     for k in range(5):
       d = fwd.step(m, d.replace(ctrl=c[:, k]))
     qpos_run.append(d.qpos.cpu())
@@ -2063,6 +2124,185 @@ def planner_phases(cart, cart_cpu, d0, d0_cpu, quad, quad_cpu, q_d0,
   return plan_main, golden_rel, forced
 
 
+# ---------------------------------------------------------------------------
+# Cube Solving: both kernels' block instances (nv 33-96), phases 3j-3l,
+# 25-26, and their rows in phase 4
+# ---------------------------------------------------------------------------
+
+
+def spd_tolerance(a):
+  """B1's relative tolerance against its plain version on systems a:
+  1e-4 (phase 3a's), or n eps32 cond(a) where that is larger (the forward
+  error bound of a Cholesky solve; cond in float64, the batch's worst):
+  Cube Solving's qM has cond ~2e3 at n 87."""
+  import torch
+  ev = torch.linalg.eigvalsh(a.double())
+  cond = float(torch.max(ev[:, -1] / torch.clamp(ev[:, 0], min=1e-300)))
+  return max(1e-4, a.shape[-1] * 2.0 ** -24 * cond), cond
+
+
+def check_spd_wide(gen):
+  """Phase 3j: B1's block instance against its plain version on random
+  systems (phase 3a's construction, cond <= ~10) at n 33, 48, 64, 87 and
+  96, B 1, 512 and 513."""
+  from mujoco_mpc_tpu_torch.ops import linalg, spd_solve
+  worst = 0.0
+  for n in SPD_WIDE_N:
+    for bsz in (1, CUBE_SAMPLES, CUBE_SAMPLES + 1):
+      a, b = random_spd(gen, bsz, n)
+      _, err = errors(spd_solve.solve_spd(a, b), linalg.solve_spd(a, b))
+      check(err <= 1e-4, f'chol_solve vs plain, n {n} B {bsz}: {err:.3g} '
+            f'> 1e-4')
+      worst = max(worst, err)
+  print(f'phase 3j chol_solve vs plain, block instance, n '
+        f'{"/".join(map(str, SPD_WIDE_N))}, B 1/{CUBE_SAMPLES}/'
+        f'{CUBE_SAMPLES + 1}: max rel err {worst:.3g} (tol 1e-4)')
+
+
+def random_friction(gen, bsz, nv, nf):
+  """nf frictionloss rows on distinct dofs: (f_aref, f_dvec, f_loss,
+  fdof), the loss between 0.1 and 1, so that the rows of a random problem
+  (jars O(1)) sit in all three zones."""
+  import torch
+  dofs = torch.randperm(nv, generator=gen, device=DEV)[:nf]
+  return (torch.randn((bsz, nf), generator=gen, device=DEV),
+          torch.nn.functional.softplus(
+              torch.randn((bsz, nf), generator=gen, device=DEV)),
+          0.1 + 0.9 * torch.rand((nf,), generator=gen, device=DEV),
+          dofs.to(torch.int32).contiguous())
+
+
+def check_newton_wide(gen):
+  """Phase 3k: B2's block instance against its plain version on random
+  dense, one-hot and frictionloss rows at nv 33 (its smallest) and 96
+  (its largest; 384 dense rows, 30 one-hot and 66 frictionloss as Cube
+  Solving's), B 512 and 513, cap 30. These random problems have 2-5 rows
+  per dof, 20 % of them equality rows, and sit on many kinks at their
+  optimum, so they are held to phase 3d's rule for dense problems (every
+  sample outside the tolerance a near tie, no count bound): at nv 96,
+  52-87 of 512 samples are near ties on an H100 (gaps <= 1.6e-7)."""
+  for (nv, n, ns, nf) in ((33, 48, 8, 16), (96, 384, 30, 66)):
+    for bsz in (CUBE_SAMPLES, CUBE_SAMPLES + 1):
+      fric = random_friction(gen, bsz, nv, nf)
+      nbad, gap, _, bad_gap = compare_newton(
+          random_newton(gen, bsz, nv, n, ns), friction=fric)
+      newton_ok(f'nv {nv}, n {n}, ns {ns}, nf {nf}', bsz, nbad, gap,
+                bad_gap, share=False)
+      print(f'phase 3k newton vs plain, block instance, nv {nv} n {n} ns '
+            f'{ns} nf {nf} B {bsz} cap 30: '
+            f'{newton_line(nbad, bsz, gap, bad_gap, share=False)}')
+
+
+def cube_states(spec, gen):
+  """CUBE_SAMPLES states of Cube Solving from `home` (the cube held 2 cm
+  above the palm), the first CUBE_HOME exactly `home` at rest, the rest
+  after CUBE_ROLLOUT_STEPS steps of the planning model under controls
+  drawn uniformly in the control range each step: the cube drops onto the
+  palm and its cubelets press on each other."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m, b = spec.model, CUBE_SAMPLES
+  clo, chi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  home = m.keyframe_qpos('home')
+  pm = agent.plan_model(spec)
+  d = make_data(m, b).replace(qpos=home.expand(b, -1).clone())
+  for _ in range(CUBE_ROLLOUT_STEPS):
+    d = fwd.step(pm, d.replace(ctrl=clo + (chi - clo) * torch.rand(
+        (b, m.nu), generator=gen, device=DEV)))
+  qpos, qvel, ctrl = d.qpos.clone(), d.qvel.clone(), d.ctrl.clone()
+  rest = slice(0, CUBE_HOME)
+  qpos[rest], qvel[rest], ctrl[rest] = home, 0.0, 0.0
+  return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def check_cube_kernels(spec, gen):
+  """Phase 3l: both kernels on the inputs the Cube Solving step gives
+  them at cube_states: B1 on qM and on the Euler system within
+  spd_tolerance, B2 (nv 87, 128 mesh-mesh rows and 256 capped facet rows
+  dense, the limit rows one-hot, 66 frictionloss rows) with phase 3e's
+  rule, its near ties counted. Returns (B1's (qM, rhs), B2's (args, kw),
+  B1's and B2's max abs errors)."""
+  import torch
+  from mujoco_mpc_tpu_torch.ops import newton
+  states = cube_states(spec, gen)
+  spd_in, (args, _, _, _, fric) = solver_inputs(spec, states, friction=True)
+  tol, cond = spd_tolerance(spd_in[0])
+  spd_abs, spd_err = check_spd_inputs(spd_in, tol, 'Cube Solving')
+  e_in = euler_inputs(spec, states)
+  e_tol, e_cond = spd_tolerance(e_in[0])
+  _, e_err = check_spd_inputs(e_in, e_tol, 'Cube Solving Euler')
+  kw = dict(cap=spec.model.opt.iterations, tol=1e-5, friction=fric)
+  nbad, gap, n_abs, bad_gap = compare_newton(args, **kw)
+  newton_ok('Cube Solving inputs', CUBE_SAMPLES, nbad, gap, bad_gap)
+  want = newton.newton_reference(*args, **kw)
+  contact = int((args[4] > 0).sum())
+  active = int(((want[1] < 0) & (args[4] > 0)).sum())
+  clamped = int((torch.abs(fric[1] * want[3]) > fric[2]).sum())
+  print(f'phase 3l Cube Solving step inputs (B {CUBE_SAMPLES}, the first '
+        f'{CUBE_HOME} at home, the rest {CUBE_ROLLOUT_STEPS} steps of '
+        f'rollouts from it): chol_solve n {spec.model.nv} rel err qM '
+        f'{spd_err:.3g} (tol {tol:.3g}, cond {cond:.4g}), Euler system '
+        f'{e_err:.3g} (tol {e_tol:.3g}, cond {e_cond:.4g}); newton nv '
+        f'{spec.model.nv}, {args[2].shape[1]} dense rows ({contact} with D '
+        f'> 0, {active} active at the solution), {args[6].shape[1]} one-hot, '
+        f'{fric[0].shape[1]} frictionloss ({clamped} clamped at the '
+        f'solution), cap {kw["cap"]}: {nbad} near ties; '
+        + newton_line(nbad, CUBE_SAMPLES, gap, bad_gap))
+  return spd_in, (args, kw), (spd_abs, n_abs)
+
+
+def time_cube_kernels(spec, spd_in, n_in, gen, kern):
+  """Phase 4's Cube Solving rows: B1 on the step's qM (n 87, B 512) and
+  on random systems at n 48 and 96 (B 512), B2 on the step's inputs, each
+  with its plain version (over PLAIN_REPS calls), B1 with the library
+  call, and the bounds. Fills kern['cube_solving']."""
+  args, kw = n_in
+  spd_times = time_spd(spd_in, PLAIN_REPS)
+  n_wall, n_dev, n_bound, iters = time_newton(args, (), kw, PLAIN_REPS)
+  kern['cube_solving'] = dict(wall={**spd_times[0], **n_wall},
+                              dev={**spd_times[1], **n_dev},
+                              spd_bound=spd_times[2], newton_bound=n_bound)
+  print(f'phase 4 timing cube_solving per call, wall / device only: '
+        + spd_timing_line(*spd_times, spd_in[0]) + '; '
+        + newton_timing_line(
+            f'B {CUBE_SAMPLES} nv {spec.model.nv} n {args[2].shape[1]} ns '
+            f'{args[6].shape[1]} nf {kw["friction"][0].shape[1]} cap '
+            f'{kw["cap"]}', n_wall, n_dev, n_bound, iters, PLAIN_REPS))
+  for n in (48, 96):
+    spd_args = random_spd(gen, CUBE_SAMPLES, n)
+    print(f'phase 4 timing, random systems, per call, wall / device only: '
+          + spd_timing_line(*time_spd(spd_args, PLAIN_REPS), spd_args[0]))
+
+
+def cube_phases(spec, cpu_spec, gen, elapsed):
+  """Phases 25-26: Cube Solving's main path (CUBE_SAMPLES x 26 from
+  `home`, bench.py's rubik_ps512) and its card-vs-CPU golden at
+  CUBE_GOLDEN_SAMPLES candidates. Returns the main path's record."""
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  home = spec.model.keyframe_qpos('home')[None]
+  d0 = make_data(spec.model).replace(qpos=home)
+  r = main_path(spec, d0, CUBE_SAMPLES, CUBE_PLANS, gen)
+  print_main_path(25, 'Cube Solving', CUBE_SAMPLES, CUBE_PLANS, r)
+  print(f'phase 25 launches per plan: chol_solve '
+        f'{r["launches"]["chol_solve"] // CUBE_PLANS}, newton '
+        f'{r["launches"]["newton"] // CUBE_PLANS} (predicted 2 T = '
+        f'{2 * r["t_steps"]} and T = {r["t_steps"]}: the candidates and the '
+        f'nominal roll out as one batch of {CUBE_SAMPLES + 1})')
+  elapsed('25')
+  d0_cpu = make_data(cpu_spec.model).replace(qpos=home.cpu())
+  br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+      spec, cpu_spec, d0, d0_cpu, gen, 0.2, CUBE_GOLDEN_SAMPLES)
+  print(f'phase 26 golden: Cube Solving {CUBE_GOLDEN_SAMPLES}-candidate plan '
+        f'best_return card {br_gpu:.6g} vs CPU plain {br_cpu:.6g}: rel err '
+        f'{rel:.3g} (tol 0.02); winner card {win_gpu} vs CPU {win_cpu} '
+        f'(match {win_gpu == win_cpu}); 5-step rollout qpos drift '
+        f'{drift:.3g} (tol 0.05)')
+  elapsed('26')
+  return r, rel
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2192,6 +2432,12 @@ def main():
   t_spd_abs, t_newton_abs = check_tangents(gen, swim,
                                            (q_args, q_gargs, q_kw))
 
+  check_spd_wide(gen)
+  check_newton_wide(gen)
+  cube = registry.get_task('Cube Solving')
+  c_spd_in, c_n_in, (c_spd_abs, c_newton_abs) = check_cube_kernels(cube,
+                                                                   gen)
+
   elapsed('1-3')
 
   # 4. timing at the four paths' shapes
@@ -2227,6 +2473,7 @@ def main():
     print(f'phase 4 timing, random systems, per call, wall / device only: '
           + spd_timing_line(*time_spd(spd_args, SPD_EXTRA_PLAIN_REPS),
                             spd_args[0]))
+  time_cube_kernels(cube, c_spd_in, c_n_in, gen, kern)
 
   elapsed('4')
 
@@ -2352,6 +2599,10 @@ def main():
       cart, cart_cpu, d0, d0_cpu, quad, quad_cpu, q_d0, q_d0_cpu, gen,
       elapsed)
 
+  # 25-26. Cube Solving (bench.py's rubik_ps512)
+  cube_main, cube_rel = cube_phases(
+      cube, registry.get_task('Cube Solving', device='cpu'), gen, elapsed)
+
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -2419,6 +2670,10 @@ def main():
                           ('shadow_reorient', sha_main))}
     paths.update({p: ilqg_entry(name, p) for p in ilqg_main})
     paths.update({p: plan_entry(name, p) for p in plan_main})
+    paths['cube_solving'] = entry(
+        name, 'cube_solving', cube_main['launches'],
+        c_spd_abs if name == 'chol_solve' else c_newton_abs)
+    paths['cube_solving']['golden_rel_err'] = cube_rel
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

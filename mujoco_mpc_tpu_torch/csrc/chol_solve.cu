@@ -42,9 +42,19 @@
 // behind no condition, and every tile does the same fixed work: a tile
 // past the end of the batch solves an identity system and writes nothing.
 // Only the warp synchronises, never the block.
+//
+// Above n 32 (buckets 48, 64 and 96: Cube Solving's nv 87) a system takes
+// a block of 128 threads (`chol_solve_wide_kernel`): its lower triangle
+// is copied into static shared memory (96 x 97 floats, 37 KB) by reads
+// that coalesce over the flat (n, n) block, then block_cholesky.cuh
+// factors it column by column and warp 0 solves. JAX sends these sizes to
+// its unrolled XLA path (pallas_linalg.py:129-135, MAX_UNROLL_N 24), a
+// TPU limit: the computation is the same.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "block_cholesky.cuh"
 
 namespace {
 
@@ -197,24 +207,61 @@ chol_solve_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+constexpr int kWideThreads = 128;
+
+template <int N>
+__global__ void __launch_bounds__(kWideThreads)
+chol_solve_wide_kernel(const float* __restrict__ a,
+                       const float* __restrict__ b, float* __restrict__ x,
+                       int n) {
+  constexpr int S = N + 1;
+  __shared__ float h[N * S];
+  __shared__ float v[N];
+  __shared__ float inv[N];
+  const long long sys = blockIdx.x;
+  const float* as = a + sys * n * n;
+  // the lower triangle, read in the flat order of a; identity past n
+  for (int e = threadIdx.x; e < n * n; e += blockDim.x) {
+    const int r = e / n, c = e - r * n;
+    if (c <= r) h[r * S + c] = __ldg(as + e);
+  }
+  for (int e = threadIdx.x; e < (N - n) * N; e += blockDim.x) {
+    const int r = n + e / N, c = e % N;
+    if (c <= r) h[r * S + c] = r == c ? 1.f : 0.f;
+  }
+  for (int i = threadIdx.x; i < N; i += blockDim.x) {
+    v[i] = i < n ? __ldg(b + sys * n + i) : 0.f;
+  }
+  mjpc::block_cholesky<N, S>(h, inv);
+  mjpc::warp_chol_solve<N, S>(h, inv, v);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += blockDim.x) x[sys * n + i] = v[i];
+}
+
 template <int N>
 void launch(const float* a, const float* b, float* x, int batch, int n,
             cudaStream_t stream) {
-  constexpr int kSystems = kThreads / lanes(N);
-  const int blocks = (batch + kSystems - 1) / kSystems;
-  chol_solve_kernel<N><<<blocks, kThreads, 0, stream>>>(a, b, x, batch, n);
+  if constexpr (N > 32) {
+    chol_solve_wide_kernel<N><<<batch, kWideThreads, 0, stream>>>(a, b, x,
+                                                                  n);
+  } else {
+    constexpr int kSystems = kThreads / lanes(N);
+    const int blocks = (batch + kSystems - 1) / kSystems;
+    chol_solve_kernel<N><<<blocks, kThreads, 0, stream>>>(a, b, x, batch,
+                                                          n);
+  }
 }
 
 }  // namespace
 
 // a (batch, n, n), b (batch, n), x (batch, n): contiguous float32 on the
-// device, 1 <= n <= 32. The factor uses a's lower triangle only. Returns
+// device, 1 <= n <= 96. The factor uses a's lower triangle only. Returns
 // cudaGetLastError() after the launch.
 extern "C" int mjpc_chol_solve_f32(const float* a, const float* b, float* x,
                                    int batch, int n, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (batch <= 0) return 0;
-  if (n < 1 || n > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > 96) return static_cast<int>(cudaErrorInvalidValue);
   if (n <= 1) launch<1>(a, b, x, batch, n, st);
   else if (n <= 2) launch<2>(a, b, x, batch, n, st);
   else if (n <= 3) launch<3>(a, b, x, batch, n, st);
@@ -224,6 +271,9 @@ extern "C" int mjpc_chol_solve_f32(const float* a, const float* b, float* x,
   else if (n <= 12) launch<12>(a, b, x, batch, n, st);
   else if (n <= 18) launch<18>(a, b, x, batch, n, st);
   else if (n <= 24) launch<24>(a, b, x, batch, n, st);
-  else launch<32>(a, b, x, batch, n, st);
+  else if (n <= 32) launch<32>(a, b, x, batch, n, st);
+  else if (n <= 48) launch<48>(a, b, x, batch, n, st);
+  else if (n <= 64) launch<64>(a, b, x, batch, n, st);
+  else launch<96>(a, b, x, batch, n, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,7 +58,31 @@
 // launch holds fewer tiles a block when 128 / L of them do not fit, and
 // refuses a warp of samples that does not.
 
+//
+// Above nv 32 (buckets 48, 64 and 96: Cube Solving's nv 87 with 384 dense
+// rows, 30 one-hot limit rows and 66 frictionloss rows) a block of 256
+// threads solves one sample (`newton_wide_kernel`), since a sample's rows
+// at stride NV + 1 no longer fit beside M and the factor. Shared memory
+// holds M (symmetric) and the Hessian, then its factor, at stride NV + 1,
+// the dof vectors, per dense row jar, D, the equality flag, J step and the
+// active list, the one-hot and frictionloss rows (dof, sign or loss kept
+// in device memory), and a staging buffer of 32 rows; ~98 KB a sample at
+// nv 87, two samples an SM. The dense rows stay in device memory: a warp
+// a row reads J coalesced for J qs and J step, and the active rows are
+// staged 32 at a time for the gradient and the lower triangle of J^T W J
+// (warp w rows w, w + 8, ...; lane l columns l, l + 32, ...). The factor
+// and the solves are block_cholesky.cuh's; the line search's and the exit
+// rule's sums are reduced over the block in a fixed order. Frictionloss
+// rows (JAX FrictionRows, pallas_newton.py:884-890, :906-910, :934-940)
+// are one-hot rows e_dof with the Huber cost: gradient clip(D jar, -loss,
+// loss), Hessian D where |D jar| <= loss, and the stability test compares
+// their zones (-1, 0, +1). The exit rule, the alphas and the floor are
+// the tile instance's. Contact-point groups at nv > 32 are refused by the
+// wrapper (no registered task has uncapped groups at that size).
+
 #include <cuda_runtime.h>
+
+#include "block_cholesky.cuh"
 
 // One factored contact-point group, batch-first and contiguous.
 struct MjpcNewtonGroup {
@@ -517,15 +541,397 @@ int blocks_per_sm(int threads, int smem, int* blocks) {
       blocks, newton_kernel<NV>, threads, static_cast<size_t>(smem)));
 }
 
+// ---------------------------------------------------------------------------
+// nv 33..96: a block a sample.
+// ---------------------------------------------------------------------------
+
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kChunk = 32;   // active rows staged at once for J^T W J
+
+// A sample's shared memory: offsets in floats (ops/newton.py
+// sample_smem_bytes mirrors the total).
+struct WideLayout {
+  int m, h, qs, qacc, e, me, step, inv, jbuf, cw, cwj, jar, dv, eq, js,
+      list, sjar, sdv, fjar, fdv, floss, red, nact, total;
+};
+
+WideLayout wide_layout(int bucket, int n, int ns, int nf) {
+  const int stride = bucket + 1;
+  WideLayout l;
+  int o = 0;
+  auto take = [&o](int k) {
+    const int at = o;
+    o += k;
+    return at;
+  };
+  l.m = take(bucket * stride);
+  l.h = take(bucket * stride);
+  l.qs = take(bucket);
+  l.qacc = take(bucket);
+  l.e = take(bucket);
+  l.me = take(bucket);
+  l.step = take(bucket);
+  l.inv = take(bucket);
+  l.jbuf = take(kChunk * bucket);
+  l.cw = take(kChunk);
+  l.cwj = take(kChunk);
+  l.jar = take(n);
+  l.dv = take(n);
+  l.eq = take(n);
+  l.js = take(n);
+  l.list = take(n);
+  l.sjar = take(ns);
+  l.sdv = take(ns);
+  l.fjar = take(nf);
+  l.fdv = take(nf);
+  l.floss = take(nf);
+  l.red = take(8 * kWideWarps);
+  l.nact = take(1);
+  l.total = o;
+  return l;
+}
+
+__device__ __forceinline__ float huber(float jc, float w, float loss) {
+  return fabsf(w * jc) <= loss
+             ? 0.5f * w * jc * jc
+             : loss * fabsf(jc) - 0.5f * loss * loss / fmaxf(w, 1e-30f);
+}
+
+__device__ __forceinline__ float huber_zone(float jf, float w, float loss) {
+  const float z = truncf(w * jf / fmaxf(loss, 1e-30f));
+  return z > 0.f ? 1.f : (z < 0.f ? -1.f : 0.f);
+}
+
+template <int NV>
+__global__ void __launch_bounds__(kWideThreads, 1) newton_wide_kernel(
+    const float* __restrict__ qm_g, const float* __restrict__ qs_g,
+    const float* __restrict__ j_g, const float* __restrict__ aref_g,
+    const float* __restrict__ dvec_g, const float* __restrict__ eqf_g,
+    const float* __restrict__ saref_g, const float* __restrict__ sdvec_g,
+    const int* __restrict__ dof_g, const float* __restrict__ sign_g,
+    const float* __restrict__ faref_g, const float* __restrict__ fdvec_g,
+    const float* __restrict__ floss_g, const int* __restrict__ fdof_g,
+    float* __restrict__ qacc_g, float* __restrict__ jard_g,
+    float* __restrict__ jars_g, float* __restrict__ jarf_g, int nv, int n,
+    int ns, int nf, int cap, float tol, const WideLayout lay) {
+  constexpr int S = NV + 1;
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const size_t b = blockIdx.x;
+  float* m = smem + lay.m;          // (NV, S) M, symmetric
+  float* h = smem + lay.h;          // (NV, S) Hessian, then its factor
+  float* qs = smem + lay.qs;
+  float* qacc = smem + lay.qacc;
+  float* e = smem + lay.e;          // qacc - qs
+  float* me = smem + lay.me;        // M e
+  float* step = smem + lay.step;    // the gradient, then the step
+  float* inv = smem + lay.inv;      // 1 / L_jj
+  float* jbuf = smem + lay.jbuf;    // (kChunk, NV) staged active rows
+  float* cw = smem + lay.cw;        // their D
+  float* cwj = smem + lay.cwj;      // their D jar
+  float* jar = smem + lay.jar;      // (n,) J qacc - aref
+  float* dv = smem + lay.dv;
+  float* eq = smem + lay.eq;
+  float* js = smem + lay.js;        // (n,) J step
+  int* list = reinterpret_cast<int*>(smem + lay.list);
+  float* sjar = smem + lay.sjar;
+  float* sdv = smem + lay.sdv;
+  float* fjar = smem + lay.fjar;
+  float* fdv = smem + lay.fdv;
+  float* floss = smem + lay.floss;
+  float* red = smem + lay.red;
+  int* nact_s = reinterpret_cast<int*>(smem + lay.nact);
+  const float* jb = j_g + b * n * nv;
+
+  // stage the sample
+  const float* qm_b = qm_g + b * nv * nv;
+  for (int i = tid; i < NV * NV; i += kWideThreads) {
+    const int r = i / NV, c = i - r * NV;
+    m[r * S + c] = (r < nv && c < nv)
+                       ? qm_b[c <= r ? r * nv + c : c * nv + r]  // lower
+                       : (r == c ? 1.f : 0.f);
+  }
+  for (int i = tid; i < NV; i += kWideThreads) {
+    qs[i] = i < nv ? qs_g[b * nv + i] : 0.f;
+    qacc[i] = qs[i];
+  }
+  for (int r = tid; r < n; r += kWideThreads) {
+    dv[r] = dvec_g[b * n + r];
+    eq[r] = eqf_g[b * n + r] > 0.5f ? 1.f : 0.f;
+  }
+  for (int r = tid; r < ns; r += kWideThreads) sdv[r] = sdvec_g[b * ns + r];
+  for (int r = tid; r < nf; r += kWideThreads) {
+    fdv[r] = fdvec_g[b * nf + r];
+    floss[r] = __ldg(floss_g + r);
+  }
+  __syncthreads();
+  // the initial jars: J qs - aref (a warp a dense row)
+  for (int r = warp; r < n; r += kWideWarps) {
+    float s = 0.f;
+    for (int c = lane; c < nv; c += 32) s += __ldg(jb + r * nv + c) * qs[c];
+    s = mjpc::warp_sum(s);
+    if (lane == 0) jar[r] = s - aref_g[b * n + r];
+  }
+  for (int r = tid; r < ns; r += kWideThreads) {
+    const int k = __ldg(dof_g + r);
+    const float x = (k >= 0 && k < nv) ? qs[k] : 0.f;
+    sjar[r] = __ldg(sign_g + r) * x - saref_g[b * ns + r];
+  }
+  for (int r = tid; r < nf; r += kWideThreads) {
+    const int k = __ldg(fdof_g + r);
+    const float x = (k >= 0 && k < nv) ? qs[k] : 0.f;
+    fjar[r] = x - faref_g[b * nf + r];
+  }
+  __syncthreads();
+
+  bool prev_exact = false;
+  for (int it = 0; it < cap; ++it) {
+    for (int i = tid; i < NV; i += kWideThreads) e[i] = qacc[i] - qs[i];
+    // the active dense rows (jar < 0 or an equality row, D != 0), in order
+    if (warp == 0) {
+      int cnt = 0;
+      for (int base = 0; base < n; base += 32) {
+        const int r = base + lane;
+        const bool a = r < n && dv[r] != 0.f && (jar[r] < 0.f || eq[r] != 0.f);
+        const unsigned mask = __ballot_sync(mjpc::kFull, a);
+        if (a) list[cnt + __popc(mask & ((1u << lane) - 1u))] = r;
+        cnt += __popc(mask);
+      }
+      if (lane == 0) *nact_s = cnt;
+    }
+    __syncthreads();
+    // M e, the gradient's start, and the lower triangle of M + 1e-10 I
+    for (int i = tid; i < NV; i += kWideThreads) {
+      float s = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < NV; ++c) s += m[i * S + c] * e[c];
+      me[i] = s;
+      step[i] = s;
+    }
+    for (int i = warp; i < NV; i += kWideWarps) {
+      for (int c = lane; c <= i; c += 32) {
+        h[i * S + c] = m[i * S + c] + (c == i ? kDamp : 0.f);
+      }
+    }
+    const int nact = *nact_s;
+    for (int c0 = 0; c0 < nact; c0 += kChunk) {
+      const int cn = nact - c0 < kChunk ? nact - c0 : kChunk;
+      __syncthreads();                 // the previous chunk is consumed
+      for (int i = tid; i < cn * NV; i += kWideThreads) {
+        const int c = i / NV, k = i - c * NV;
+        jbuf[i] = k < nv ? __ldg(jb + list[c0 + c] * nv + k) : 0.f;
+      }
+      for (int c = tid; c < cn; c += kWideThreads) {
+        const int r = list[c0 + c];
+        cw[c] = dv[r];
+        cwj[c] = dv[r] * jar[r];
+      }
+      __syncthreads();
+      for (int i = tid; i < NV; i += kWideThreads) {
+        float s = 0.f;
+        for (int c = 0; c < cn; ++c) s += jbuf[c * NV + i] * cwj[c];
+        step[i] += s;
+      }
+      for (int i = warp; i < NV; i += kWideWarps) {
+        for (int k = lane; k <= i; k += 32) {
+          float s = 0.f;
+          for (int c = 0; c < cn; ++c) {
+            s += cw[c] * jbuf[c * NV + i] * jbuf[c * NV + k];
+          }
+          h[i * S + k] += s;
+        }
+      }
+    }
+    __syncthreads();
+    // one-hot and frictionloss rows: thread i owns dof i (branch-free)
+    for (int i = tid; i < NV; i += kWideThreads) {
+      float gs = 0.f, hs = 0.f;
+      for (int r = 0; r < ns; ++r) {
+        const float jv = sjar[r];
+        const float w = (i < nv && __ldg(dof_g + r) == i && jv < 0.f)
+                            ? sdv[r] : 0.f;
+        gs += __ldg(sign_g + r) * (w * jv);
+        hs += w;
+      }
+      for (int r = 0; r < nf; ++r) {
+        if (i >= nv || __ldg(fdof_g + r) != i) continue;
+        const float w = fdv[r], loss = floss[r], wj = w * fjar[r];
+        gs += fminf(fmaxf(wj, -loss), loss);
+        hs += fabsf(wj) <= loss ? w : 0.f;
+      }
+      step[i] += gs;
+      h[i * S + i] += hs;
+    }
+    mjpc::block_cholesky<NV, S>(h, inv);
+    mjpc::warp_chol_solve<NV, S>(h, inv, step);
+    __syncthreads();
+
+    // exact line search on the piecewise-quadratic cost
+    float sums[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = tid; i < NV; i += kWideThreads) {
+      float ms = 0.f;
+#pragma unroll 4
+      for (int c = 0; c < NV; ++c) ms += m[i * S + c] * step[c];
+      sums[5] += step[i] * me[i];
+      sums[6] += step[i] * ms;
+      sums[7] += e[i] * me[i];
+    }
+    for (int r = warp; r < n; r += kWideWarps) {
+      float s = 0.f;
+      for (int c = lane; c < nv; c += 32) s += __ldg(jb + r * nv + c) * step[c];
+      s = mjpc::warp_sum(s);
+      if (lane == 0) js[r] = s;
+    }
+    __syncthreads();
+    for (int r = tid; r < n; r += kWideThreads) {
+      const float x = js[r], jv = jar[r], w = dv[r];
+      const bool q = eq[r] != 0.f;
+#pragma unroll
+      for (int a = 0; a < 5; ++a) {
+        const float jc = jv - kAlphas[a] * x;
+        sums[a] += 0.5f * ((jc < 0.f || q) ? w : 0.f) * jc * jc;
+      }
+    }
+    for (int r = tid; r < ns; r += kWideThreads) {
+      const int k = __ldg(dof_g + r);
+      const float x = (k >= 0 && k < nv) ? __ldg(sign_g + r) * step[k] : 0.f;
+      const float jv = sjar[r], w = sdv[r];
+#pragma unroll
+      for (int a = 0; a < 5; ++a) {
+        const float jc = jv - kAlphas[a] * x;
+        sums[a] += 0.5f * (jc < 0.f ? w : 0.f) * jc * jc;
+      }
+    }
+    for (int r = tid; r < nf; r += kWideThreads) {
+      const int k = __ldg(fdof_g + r);
+      const float x = (k >= 0 && k < nv) ? step[k] : 0.f;
+#pragma unroll
+      for (int a = 0; a < 5; ++a) {
+        sums[a] += huber(fjar[r] - kAlphas[a] * x, fdv[r], floss[r]);
+      }
+    }
+    mjpc::block_sum<8>(sums, red);
+    int best = 0;
+    float best_cost = 0.f;
+#pragma unroll
+    for (int a = 0; a < 5; ++a) {
+      const float al = kAlphas[a];
+      const float c = 0.5f * sums[7] - al * sums[5] + 0.5f * al * al * sums[6]
+                      + sums[a];
+      if (a == 0 || c < best_cost) {
+        best = a;
+        best_cost = c;
+      }
+    }
+    const float alpha = kAlphas[best];
+
+    // take the step; carry the jars; compare the active sets and zones
+    float norms[2] = {0.f, 0.f};
+    for (int i = tid; i < NV; i += kWideThreads) {
+      const float qn = qacc[i] - alpha * step[i];
+      norms[0] += qn * qn;
+      norms[1] += step[i] * step[i];
+      qacc[i] = qn;
+    }
+    bool flipped = false;
+    for (int r = tid; r < n; r += kWideThreads) {
+      const float jv = jar[r], jn = jv - alpha * js[r];
+      const bool q = eq[r] != 0.f;
+      flipped |= ((jv < 0.f) || q) != ((jn < 0.f) || q);
+      jar[r] = jn;
+    }
+    for (int r = tid; r < ns; r += kWideThreads) {
+      const int k = __ldg(dof_g + r);
+      const float x = (k >= 0 && k < nv) ? __ldg(sign_g + r) * step[k] : 0.f;
+      const float jv = sjar[r], jn = jv - alpha * x;
+      flipped |= (jv < 0.f) != (jn < 0.f);
+      sjar[r] = jn;
+    }
+    for (int r = tid; r < nf; r += kWideThreads) {
+      const int k = __ldg(fdof_g + r);
+      const float x = (k >= 0 && k < nv) ? step[k] : 0.f;
+      const float jv = fjar[r], jn = jv - alpha * x;
+      flipped |= huber_zone(jv, fdv[r], floss[r])
+                 != huber_zone(jn, fdv[r], floss[r]);
+      fjar[r] = jn;
+    }
+    const bool stable = !__syncthreads_or(flipped);
+    mjpc::block_sum<2>(norms, red);
+    const bool exact = best == 1 && stable;
+    const bool small = sqrtf(norms[1]) <= tol * (1.f + sqrtf(norms[0]));
+    const bool done = (exact && prev_exact) || small;
+    prev_exact = exact;
+    if (done) break;                   // the same on every thread
+  }
+
+  __syncthreads();
+  for (int i = tid; i < nv; i += kWideThreads) qacc_g[b * nv + i] = qacc[i];
+  for (int r = tid; r < n; r += kWideThreads) jard_g[b * n + r] = jar[r];
+  for (int r = tid; r < ns; r += kWideThreads) jars_g[b * ns + r] = sjar[r];
+  for (int r = tid; r < nf; r += kWideThreads) jarf_g[b * nf + r] = fjar[r];
+}
+
+template <int NV>
+int launch_wide(const float* qm, const float* qs, const float* j,
+                const float* aref, const float* dvec, const float* eqf,
+                const float* s_aref, const float* s_dvec, const int* dof,
+                const float* sign, const float* f_aref, const float* f_dvec,
+                const float* f_loss, const int* fdof, float* qacc,
+                float* jar_d, float* jar_s, float* jar_f, int batch, int nv,
+                int n, int ns, int nf, int cap, float tol,
+                cudaStream_t stream) {
+  const WideLayout lay = wide_layout(NV, n, ns, nf);
+  const size_t bytes = sizeof(float) * static_cast<size_t>(lay.total);
+  int device = 0, limit = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         device);
+  if (bytes > static_cast<size_t>(limit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaFuncSetAttribute(newton_wide_kernel<NV>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_wide_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  newton_wide_kernel<NV><<<batch, kWideThreads, bytes, stream>>>(
+      qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, f_aref, f_dvec,
+      f_loss, fdof, qacc, jar_d, jar_s, jar_f, nv, n, ns, nf, cap, tol, lay);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int NV>
+int wide_blocks_per_sm(int threads, int smem, int* blocks) {
+  cudaFuncSetAttribute(newton_wide_kernel<NV>,
+                       cudaFuncAttributePreferredSharedMemoryCarveout,
+                       cudaSharedmemCarveoutMaxShared);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        newton_wide_kernel<NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, newton_wide_kernel<NV>, threads, static_cast<size_t>(smem)));
+}
+
 }  // namespace
 
 // The blocks of `threads` threads and `smem` bytes of dynamic shared
 // memory that one SM of the current device holds at once, for nv's bucket
-// instance, with the attributes launch() sets (the CUDA occupancy
+// instance, with the attributes the launch sets (the CUDA occupancy
 // calculator's answer, written to *blocks). Returns a CUDA error code.
 extern "C" int mjpc_newton_blocks_per_sm(int nv, int threads, int smem,
                                          int* blocks) {
-  if (nv < 1 || nv > 32) return static_cast<int>(cudaErrorInvalidValue);
+  if (nv < 1 || nv > 96) return static_cast<int>(cudaErrorInvalidValue);
+  if (nv > 64) return wide_blocks_per_sm<96>(threads, smem, blocks);
+  if (nv > 48) return wide_blocks_per_sm<64>(threads, smem, blocks);
+  if (nv > 32) return wide_blocks_per_sm<48>(threads, smem, blocks);
   if (nv <= 2) return blocks_per_sm<2>(threads, smem, blocks);
   if (nv <= 4) return blocks_per_sm<4>(threads, smem, blocks);
   if (nv <= 8) return blocks_per_sm<8>(threads, smem, blocks);
@@ -586,4 +992,35 @@ extern "C" int mjpc_newton_f32(const float* qm, const float* qs,
   else if (nv <= 24) MJPC_NEWTON_LAUNCH(24);
   else MJPC_NEWTON_LAUNCH(32);
 #undef MJPC_NEWTON_LAUNCH
+}
+
+// The nv 33..96 instance, a block a sample: as mjpc_newton_f32 without
+// contact-point groups, with nf frictionloss rows: f_aref/f_dvec
+// (batch, nf) float32, f_loss (nf,) float32 and fdof (nf,) int32 in
+// [0, nv), shared by all samples; writes jar_f (batch, nf). nf, n and ns
+// may be 0 (their pointers are then not read). Returns the launch's CUDA
+// error code, or cudaErrorInvalidValue for operands it does not take,
+// among them a sample whose shared memory exceeds what a block may hold.
+extern "C" int mjpc_newton_wide_f32(
+    const float* qm, const float* qs, const float* j, const float* aref,
+    const float* dvec, const float* eqf, const float* s_aref,
+    const float* s_dvec, const int* dof, const float* sign,
+    const float* f_aref, const float* f_dvec, const float* f_loss,
+    const int* fdof, float* qacc, float* jar_d, float* jar_s, float* jar_f,
+    int batch, int nv, int n, int ns, int nf, int cap, float tol,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (batch <= 0) return 0;
+  if (nv < 33 || nv > 96 || n < 0 || ns < 0 || nf < 0
+      || (nf > 0 && (!f_aref || !f_dvec || !f_loss || !fdof || !jar_f))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+#define MJPC_NEWTON_WIDE(NV)                                                \
+  return launch_wide<NV>(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof,   \
+                         sign, f_aref, f_dvec, f_loss, fdof, qacc, jar_d,   \
+                         jar_s, jar_f, batch, nv, n, ns, nf, cap, tol, st)
+  if (nv <= 48) MJPC_NEWTON_WIDE(48);
+  else if (nv <= 64) MJPC_NEWTON_WIDE(64);
+  else MJPC_NEWTON_WIDE(96);
+#undef MJPC_NEWTON_WIDE
 }

@@ -3,9 +3,10 @@
 No JAX counterpart: it stands in for the compile step `pl.pallas_call`
 does. Each source compiles on first use, for Hopper (sm_90a), into a
 shared library with a plain C interface under build/kernels/ at the root
-of the checkout, named by a hash of the source and the flags, so a changed
-source never loads a stale library. Also the device check the kernel
-wrappers share. Nothing here runs when a module is imported.
+of the checkout, named by a hash of the source, the headers of csrc/ and
+the flags, so a changed source never loads a stale library. Also the
+device check the kernel wrappers share. Nothing here runs when a module
+is imported.
 """
 
 from __future__ import annotations
@@ -36,8 +37,11 @@ def build(name: str) -> str:
   """Compile csrc/<name>.cu if its library is missing; return its path.
   The compiler's register/spill report goes to <library>.log."""
   src = os.path.join(CSRC, name + '.cu')
-  with open(src, 'rb') as f:
-    digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+  digest = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+  for path in [src] + sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                             if f.endswith('.cuh')):
+    with open(path, 'rb') as f:
+      digest.update(f.read())
   lib = os.path.join(BUILD_DIR, f'{name}-{digest.hexdigest()[:16]}.so')
   if os.path.exists(lib):
     return lib

@@ -12,10 +12,11 @@ and not on B1.
 
 JAX switches to a blocked factorization above n = 24 (linalg.py:59) and to
 XLA's own above n = 128; both compute the same factorization in another
-order. The port unrolls for every n. On the card the CUDA kernel takes
-every batched solve up to n = 32, and the wrappers refuse a larger n
-(ops/spd_solve.py, ops/newton.py): planner models reach nv 87 (Cube
-Solving), and their design lands with the mesh-hull slice (ROADMAP A7).
+order. The port unrolls up to n = UNROLL_N and above it runs the same
+Cholesky-Crout column by column on (B, n)-wide slices (`solve_spd_wide`),
+which keeps a plain solve at Cube Solving's nv 87 to a few hundred ops
+where the unrolled form takes ~n^3 / 6. On the card the CUDA kernel takes
+every batched solve up to n = 96 (ops/spd_solve.py).
 """
 
 from __future__ import annotations
@@ -61,6 +62,33 @@ def chol_solve(col, b: torch.Tensor) -> torch.Tensor:
   return torch.stack(x, dim=-1)
 
 
+UNROLL_N = 32
+
+
+def solve_spd_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solve SPD a x = b, a (..., n, n), b (..., n), by the same
+  Cholesky-Crout (diagonal floored at 1e-30) and substitutions, each
+  column and row a slice op."""
+  n = a.shape[-1]
+  lo = torch.zeros_like(a)
+  for j in range(n):
+    s = a[..., j:, j] - (lo[..., j:, :j] @ lo[..., j, :j, None])[..., 0]
+    ljj = torch.sqrt(torch.clamp(s[..., 0], min=1e-30))
+    lo[..., j, j] = ljj
+    lo[..., j + 1:, j] = s[..., 1:] / ljj[..., None]
+  y = torch.zeros_like(b)
+  for i in range(n):
+    y[..., i] = (b[..., i] - torch.sum(lo[..., i, :i] * y[..., :i], -1)
+                 ) / lo[..., i, i]
+  x = torch.zeros_like(b)
+  for i in reversed(range(n)):
+    x[..., i] = (y[..., i] - torch.sum(lo[..., i + 1:, i] * x[..., i + 1:],
+                                       -1)) / lo[..., i, i]
+  return x
+
+
 def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """Solve SPD a x = b; a (..., n, n), b (..., n)."""
+  if a.shape[-1] > UNROLL_N:
+    return solve_spd_wide(a, b)
   return chol_solve(chol_factor(a), b)

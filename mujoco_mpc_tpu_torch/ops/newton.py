@@ -6,8 +6,13 @@ _newton_kernel (:222) behind newton_batched (:631), for dense rows,
 one-hot-scalar rows and the factored pyramidal contact-point groups; the
 facet table PYRAMID_FACETS (:79), expand_group (:90) and materialize_jd
 (:126), the group stacking of _newton_reference (:807-815) as
-`expand_groups`; and the reference loop _newton_reference (:792) as
-`newton_reference`, batch first. The kernel is csrc/newton.cu.
+`expand_groups`; the frictionloss rows' Huber cost _huber_cost (:784);
+and the reference loop _newton_reference (:792-938) as
+`newton_reference`, batch first. The kernel is csrc/newton.cu, in two
+instances: nv 1-32 (dense, one-hot and group rows, a tile of lanes a
+sample) and nv 33-96 (dense, one-hot and frictionloss rows, a block a
+sample). JAX sends nv > 32 and frictionloss models to its reference
+(MAX_NV, :46, :1015-1021): a TPU VMEM limit, not another computation.
 
 Dispatch is by device only: a CPU tensor takes `newton_reference`, a CUDA
 tensor the kernel, and anything the kernel cannot take raises.
@@ -21,8 +26,10 @@ H solve goes through ops/spd_solve.SpdSolve, so on the card the tangent
 runs on the kernel B1, and under `torch.func.jacfwd` the tangent
 directions fold into one B1 launch. Its `vmap` rule folds the mapped
 dimension into the batch: one B2 launch. The kernel is launched only from
-`forward`, which sees plain tensors. Not ported yet: elliptic-cone and
-frictionloss rows and their tangents (ROADMAP A8).
+`forward`, which sees plain tensors. The frictionloss rows' tangent is
+:1139-1179's: the quadratic zone's rows in H, the clamped zones' force
+constant. Not ported yet: elliptic-cone rows and their tangent (ROADMAP
+A8).
 """
 
 from __future__ import annotations
@@ -36,12 +43,19 @@ from mujoco_mpc_tpu_torch.ops import cuda_build
 from mujoco_mpc_tpu_torch.ops import linalg
 from mujoco_mpc_tpu_torch.ops import spd_solve
 
-MAX_NV = 32
+MAX_NV = 96
 MAX_GROUPS = 4
-# The kernel's compile-time dof buckets, and the shared memory one block
-# may hold on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
-NV_BUCKETS = (2, 4, 8, 12, 18, 24, 32)
+# The kernel's compile-time dof buckets (a tile of lanes a sample up to
+# TILE_NV, a block a sample above), and the shared memory one block may
+# hold on Hopper (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+NV_BUCKETS = (2, 4, 8, 12, 18, 24, 32, 48, 64, 96)
+TILE_NV = 32
+WIDE_THREADS = 256
+WIDE_CHUNK = 32
 SMEM_LIMIT = 232448
+# what the instances do not take names its ROADMAP item
+_WIDE_ITEM = ("ROADMAP Queue B, 'B2: point groups at nv > 32 and "
+              "frictionloss rows at nv <= 32'")
 _DAMP = 1e-10
 _ALPHAS = (0.0, 1.0, 0.5, 0.25, 0.0625)
 
@@ -99,16 +113,33 @@ def expand_groups(j, aref, dvec, eqf, gargs, condims, dmasks):
   return j, aref, dvec, eqf, gsizes
 
 
+def huber_cost(jc, w, loss):
+  """Frictionloss row cost: 0.5 w jar^2 while |w jar| <= loss, linear
+  loss |jar| - loss^2 / (2 w) beyond (two-sided, always active)."""
+  quad = torch.abs(w * jc) <= loss
+  lin = loss * torch.abs(jc) - 0.5 * loss * loss / torch.clamp(w, min=1e-30)
+  return torch.where(quad, 0.5 * w * jc * jc, lin)
+
+
+def huber_zone(jf, w, loss):
+  """A frictionloss row's zone: -1 clamped low, 0 quadratic, +1 clamped
+  high."""
+  return torch.sign(torch.trunc(w * jf / torch.clamp(loss, min=1e-30)))
+
+
 def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
-                     *gargs, cap: int, tol: float, condims=(), dmasks=()):
+                     *gargs, cap: int, tol: float, condims=(), dmasks=(),
+                     friction=None):
   """Plain batch-first Newton solve.
 
   qm (B, nv, nv), qs (B, nv), j (B, n, nv), aref/dvec/eqf (B, n),
   s_aref/s_dvec (B, ns), dof (ns,) int, sign (ns,) float; with point
   groups (`condims` non-empty), gargs = (cdofc (B, nv, 6), then per group
   g (B, P, ndirs, 6), aref (B, nrep, P), dvec (B, P), mu (B, 3, P)) and
-  `dmasks` the groups' (P, nv) masks -> (qacc (B, nv), jar_d (B, n),
-  jar_s (B, ns), *jar_g (B, nrep, P)).
+  `dmasks` the groups' (P, nv) masks; `friction` None or the frictionloss
+  rows (f_aref (B, nf), f_dvec (B, nf), f_loss (nf,), fdof (nf,) int) ->
+  (qacc (B, nv), jar_d (B, n), jar_s (B, ns)[, jar_f (B, nf)],
+  *jar_g (B, nrep, P)).
 
   The groups are facet-expanded into the dense block and their jars split
   back out, as _newton_reference does (:799-815). Runs `cap` iterations
@@ -126,6 +157,10 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   zero = torch.zeros((), dtype=qs.dtype, device=qs.device)
   eye = torch.eye(nv, dtype=qs.dtype, device=qs.device)
   jt = j.transpose(1, 2)
+  if friction is not None:
+    f_aref, f_dvec, f_loss, fdof = friction
+    fdof = fdof.long()
+  nf = 0 if friction is None else f_aref.shape[1]
 
   def mv(a, x):
     return (a @ x[..., None])[..., 0]
@@ -133,6 +168,7 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   qacc = qs
   jar_d = mv(j, qs) - aref
   jar_s = sign * qs[:, dof] - s_aref
+  jar_f = qs[:, fdof] - f_aref if nf else None
   done = torch.zeros(bsz, dtype=torch.bool, device=qs.device)
   prev_exact = done
   for _ in range(cap):
@@ -150,9 +186,15 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
       w_s = torch.where(active_s, s_dvec, zero)
       g = g.index_add(1, dof, sign * (w_s * jar_s))
       h = h + torch.diag_embed(torch.zeros_like(qs).index_add(1, dof, w_s))
+    if nf:
+      quad_f = torch.abs(f_dvec * jar_f) <= f_loss
+      g = g.index_add(1, fdof, torch.clamp(f_dvec * jar_f, -f_loss, f_loss))
+      h = h + torch.diag_embed(torch.zeros_like(qs).index_add(
+          1, fdof, torch.where(quad_f, f_dvec, zero)))
     step = linalg.solve_spd(h, g)
     js_d = mv(j, step)
     js_s = sign * step[:, dof]
+    js_f = step[:, fdof] if nf else None
     sme = torch.sum(step * me, -1)
     sms = torch.sum(step * mv(qm, step), -1)
     eme = torch.sum(e * me, -1)
@@ -167,6 +209,9 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
         jc = jar_s - a * js_s
         pc = torch.where(jc < 0, s_dvec, zero)
         pen = pen + 0.5 * torch.sum(pc * jc * jc, -1)
+      if nf:
+        pen = pen + torch.sum(huber_cost(jar_f - a * js_f, f_dvec, f_loss),
+                              -1)
       costs.append(0.5 * eme - a * sme + 0.5 * a * a * sms + pen)
     best = torch.argmin(torch.stack(costs, -1), -1)
     alpha = torch.zeros_like(sme)
@@ -181,6 +226,11 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
           torch.logical_or(jar_d_new < 0, eq) == active_d, -1)
     if ns:
       stable = stable & torch.all((jar_s_new < 0) == active_s, -1)
+    if nf:
+      jar_f_new = jar_f - alpha[:, None] * js_f
+      stable = stable & torch.all(
+          huber_zone(jar_f_new, f_dvec, f_loss)
+          == huber_zone(jar_f, f_dvec, f_loss), -1)
     exact = (best == 1) & stable
     small = (torch.linalg.vector_norm(step, dim=-1)
              <= tol * (1.0 + torch.linalg.vector_norm(qacc_new, dim=-1)))
@@ -188,6 +238,8 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
     qacc = torch.where(live[:, None], qacc_new, qacc)
     jar_d = torch.where(live[:, None], jar_d_new, jar_d)
     jar_s = torch.where(live[:, None], jar_s_new, jar_s)
+    if nf:
+      jar_f = torch.where(live[:, None], jar_f_new, jar_f)
     prev_exact_new = torch.where(live, exact, prev_exact)
     done = done | ((exact & prev_exact) | small)
     prev_exact = prev_exact_new
@@ -196,7 +248,10 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   for (nrep, p) in gsizes:
     jar_groups.append(jar_d[:, off:off + nrep * p].reshape(bsz, nrep, p))
     off += nrep * p
-  return (qacc, jar_d[:, :n_dense], jar_s) + tuple(jar_groups)
+  return ((qacc, jar_d[:, :n_dense], jar_s)
+          + (() if friction is None else
+             (jar_f if nf else torch.zeros_like(f_aref),))
+          + tuple(jar_groups))
 
 
 class _Group(ctypes.Structure):
@@ -219,20 +274,44 @@ def _entry():
   return fn
 
 
+@functools.lru_cache(maxsize=None)
+def _wide_entry():
+  fn = cuda_build.load('newton').mjpc_newton_wide_f32
+  p = ctypes.c_void_p
+  i = ctypes.c_int
+  fn.argtypes = [p] * 18 + [i] * 6 + [ctypes.c_float, p]
+  fn.restype = ctypes.c_int
+  return fn
+
+
+def _nv_bucket(nv):
+  return next(b for b in NV_BUCKETS if b >= nv)
+
+
 def kernel_lanes(nv):
-  """Lanes of the tile that solves one sample: the smallest power of two
-  >= nv's bucket (csrc/newton.cu `lanes`)."""
-  bucket = next(b for b in NV_BUCKETS if b >= nv)
-  return max(2, 1 << (bucket - 1).bit_length())
+  """Lanes of the tile that solves one sample at nv <= TILE_NV: the
+  smallest power of two >= nv's bucket (csrc/newton.cu `lanes`)."""
+  return max(2, 1 << (_nv_bucket(nv) - 1).bit_length())
 
 
-def sample_smem_bytes(nv, n, ns, groups=()):
+def sample_smem_bytes(nv, n, ns, groups=(), nf=0):
   """Shared memory the kernel stages one sample into, in bytes, for n
-  dense rows, ns one-hot rows and point groups ((condim, P), ...): its
-  rows (dense, then facet) at a stride of the bucket plus one, five floats
-  per row, M, the factor or (while staging) one group's G and mu, the
-  step, and two floats per one-hot row (csrc/newton.cu `layout`)."""
-  bucket = next(b for b in NV_BUCKETS if b >= nv)
+  dense rows, ns one-hot rows, point groups ((condim, P), ...) and nf
+  frictionloss rows.
+
+  nv <= TILE_NV: its rows (dense, then facet) at a stride of the bucket
+  plus one, five floats per row, M, the factor or (while staging) one
+  group's G and mu, the step, and two floats per one-hot row
+  (csrc/newton.cu `layout`). nv > TILE_NV, a block a sample: M and the
+  Hessian at a stride of the bucket plus one, six dof vectors, WIDE_CHUNK
+  staged rows and their two weights, five floats per dense row, two per
+  one-hot row, three per frictionloss row, eight per warp for the sums,
+  and the active count (csrc/newton.cu `wide_layout`)."""
+  bucket = _nv_bucket(nv)
+  if bucket > TILE_NV:
+    return 4 * (2 * bucket * (bucket + 1) + 6 * bucket
+                + WIDE_CHUNK * (bucket + 2) + 5 * n + 2 * ns + 3 * nf
+                + 8 * WIDE_THREADS // 32 + 1)
   rows = n + sum(len(PYRAMID_FACETS[c]) * p for c, p in groups)
   stage = max([bucket * (bucket + 1)]
               + [p * (6 * c + 3) for c, p in groups])
@@ -240,18 +319,21 @@ def sample_smem_bytes(nv, n, ns, groups=()):
 
 
 def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
-           gargs, condims, dmasks):
+           gargs, condims, dmasks, friction=None):
   """Refuse what the kernel does not take (it never falls back)."""
+  fric = tuple(friction) if friction is not None else ()
   floats = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, sign) + tuple(
-      gargs) + tuple(dmasks)
-  cuda_build.require_cuda(*floats, dof)
-  if any(t.device != qs.device for t in floats + (dof,)):
+      gargs) + tuple(dmasks) + fric[:3]
+  ints = (dof,) + fric[3:]
+  cuda_build.require_cuda(*floats, *ints)
+  if any(t.device != qs.device for t in floats + ints):
     raise ValueError('all operands must be on one device')
   if any(t.dtype != torch.float32 for t in floats):
     raise TypeError('the kernel takes float32 operands, got '
                     f'{sorted({str(t.dtype) for t in floats})}')
-  if dof.dtype != torch.int32:
-    raise TypeError(f'dof must be int32, got {dof.dtype}')
+  if any(t.dtype != torch.int32 for t in ints):
+    raise TypeError(f'dof and fdof must be int32, got '
+                    f'{sorted({str(t.dtype) for t in ints})}')
   if qs.dim() != 2:
     raise ValueError(f'qs must be (B, nv), got {tuple(qs.shape)}')
   bsz, nv = qs.shape
@@ -262,6 +344,11 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
           'eqf': (eqf, (bsz, n)), 's_aref': (s_aref, (bsz, ns)),
           's_dvec': (s_dvec, (bsz, ns)), 'dof': (dof, (ns,)),
           'sign': (sign, (ns,))}
+  if fric:
+    nf = fric[0].shape[1] if fric[0].dim() == 2 else -1
+    want.update({'f_aref': (fric[0], (bsz, nf)),
+                 'f_dvec': (fric[1], (bsz, nf)),
+                 'f_loss': (fric[2], (nf,)), 'fdof': (fric[3], (nf,))})
   if len(condims) > MAX_GROUPS or len(set(condims)) != len(condims) \
      or any(c not in PYRAMID_FACETS for c in condims):
     raise ValueError(f'the kernel takes at most one group per condim in '
@@ -289,53 +376,74 @@ def _check(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, cap,
                        f'{tuple(t.shape)}')
   if not 1 <= nv <= MAX_NV:
     raise ValueError(f'the kernel takes 1 <= nv <= {MAX_NV}, got {nv}')
-  # a block holds at least one warp of samples
-  warp = 32 // kernel_lanes(nv) * sample_smem_bytes(
-      nv, n, ns, [(c, gargs[1 + 4 * gi].shape[1])
-                  for gi, c in enumerate(condims)])
-  if warp > SMEM_LIMIT:
-    raise ValueError(f'one warp of samples needs {warp} bytes of shared '
-                     f'memory, more than the {SMEM_LIMIT} a block may hold '
-                     f'on Hopper')
+  if nv > TILE_NV and condims:
+    raise ValueError(f'contact-point groups at nv {nv} > {TILE_NV} are not '
+                     f'taken by the kernel ({_WIDE_ITEM})')
+  if nv <= TILE_NV and fric:
+    raise ValueError(f'frictionloss rows at nv {nv} <= {TILE_NV} are not '
+                     f'taken by the kernel ({_WIDE_ITEM})')
+  # a block holds at least one warp of samples, or (wide) one sample
+  per = sample_smem_bytes(nv, n, ns, [(c, gargs[1 + 4 * gi].shape[1])
+                                      for gi, c in enumerate(condims)],
+                          fric[0].shape[1] if fric else 0)
+  if nv <= TILE_NV:
+    per *= 32 // kernel_lanes(nv)
+  if per > SMEM_LIMIT:
+    raise ValueError(f'one block needs {per} bytes of shared memory, more '
+                     f'than the {SMEM_LIMIT} a block may hold on Hopper')
   if cap < 0:
     raise ValueError(f'cap must be >= 0, got {cap}')
-  if not all(t.is_contiguous() for t in floats + (dof,)):
+  if not all(t.is_contiguous() for t in floats + ints):
     raise ValueError('the kernel takes contiguous tensors')
 
 
 def _newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
-            cap: int, tol: float, condims=(), dmasks=()):
+            cap: int, tol: float, condims=(), dmasks=(), friction=None):
   """The device dispatch on plain tensors: newton_reference on the CPU,
   the kernel on CUDA."""
   operands = (qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign)
+  fric = tuple(friction) if friction is not None else ()
   if all(t.device.type == 'cpu'
-         for t in operands + tuple(gargs) + tuple(dmasks)):
+         for t in operands + tuple(gargs) + tuple(dmasks) + fric):
     return newton_reference(*operands, *gargs, cap=cap, tol=tol,
-                            condims=condims, dmasks=dmasks)
-  _check(*operands, cap, gargs, condims, dmasks)
+                            condims=condims, dmasks=dmasks,
+                            friction=friction)
+  _check(*operands, cap, gargs, condims, dmasks, friction)
   bsz, nv = qs.shape
   n, ns = j.shape[1], s_aref.shape[1]
   qacc = torch.empty_like(qs)
   jar_d = torch.empty_like(aref)
   jar_s = torch.empty_like(s_aref)
+  jar_f = (torch.empty_like(fric[0]),) if fric else ()
   jar_g = tuple(torch.empty_like(gargs[2 + 4 * gi])
                 for gi in range(len(condims)))
   if bsz == 0:
-    return (qacc, jar_d, jar_s) + jar_g
-  groups = (_Group * MAX_GROUPS)()
-  for gi, cdim in enumerate(condims):
-    g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
-    groups[gi] = _Group(g.data_ptr(), garef.data_ptr(), gdvec.data_ptr(),
-                        gmu.data_ptr(), dmasks[gi].data_ptr(),
-                        jar_g[gi].data_ptr(), g.shape[1], cdim)
-  err = _entry()(
-      *(t.data_ptr() for t in operands), qacc.data_ptr(), jar_d.data_ptr(),
-      jar_s.data_ptr(), bsz, nv, n, ns, int(cap), float(tol),
-      gargs[0].data_ptr() if condims else None, groups, len(condims),
-      torch.cuda.current_stream(qs.device).cuda_stream)
+    return (qacc, jar_d, jar_s) + jar_f + jar_g
+  entry = _wide_entry() if nv > TILE_NV else _entry()
+  stream = torch.cuda.current_stream(qs.device).cuda_stream
+  if nv > TILE_NV:
+    nf = fric[0].shape[1] if fric else 0
+    ptrs = (tuple(t.data_ptr() for t in fric) if fric else (None,) * 4)
+    err = entry(
+        *(t.data_ptr() for t in operands), *ptrs, qacc.data_ptr(),
+        jar_d.data_ptr(), jar_s.data_ptr(),
+        jar_f[0].data_ptr() if fric else None, bsz, nv, n, ns, nf, int(cap),
+        float(tol), stream)
+  else:
+    groups = (_Group * MAX_GROUPS)()
+    for gi, cdim in enumerate(condims):
+      g, garef, gdvec, gmu = gargs[1 + 4 * gi:5 + 4 * gi]
+      groups[gi] = _Group(g.data_ptr(), garef.data_ptr(), gdvec.data_ptr(),
+                          gmu.data_ptr(), dmasks[gi].data_ptr(),
+                          jar_g[gi].data_ptr(), g.shape[1], cdim)
+    err = entry(
+        *(t.data_ptr() for t in operands), qacc.data_ptr(),
+        jar_d.data_ptr(), jar_s.data_ptr(), bsz, nv, n, ns, int(cap),
+        float(tol), gargs[0].data_ptr() if condims else None, groups,
+        len(condims), stream)
   cuda_build.check(err, 'newton kernel')
   newton.launches += 1
-  return (qacc, jar_d, jar_s) + jar_g
+  return (qacc, jar_d, jar_s) + jar_f + jar_g
 
 
 def _mv(a, x):
@@ -375,37 +483,46 @@ def _expand_group_jvp(g, garef, gdvec, gmu, cdofc, dmask, tangents, condim):
 class NewtonSolve(torch.autograd.Function):
   """The Newton solve (operands and results as newton_reference) with the
   frozen-active-set tangent and a vmap rule that folds the mapped
-  dimension into B. `apply(cap, tol, condims, qm, qs, j, aref, dvec, eqf,
-  s_aref, s_dvec, dof, sign, *gargs, *dmasks)`."""
+  dimension into B. `apply(cap, tol, condims, fric, qm, qs, j, aref, dvec,
+  eqf, s_aref, s_dvec, dof, sign[, f_aref, f_dvec, f_loss, fdof], *gargs,
+  *dmasks)`, the four frictionloss operands present when `fric`."""
 
   @staticmethod
-  def forward(cap, tol, condims, *operands):
+  def forward(cap, tol, condims, fric, *operands):
     k = len(operands) - len(condims)
-    out = _newton(*operands[:k], cap=cap, tol=tol, condims=condims,
-                  dmasks=operands[k:])
+    nf = 4 if fric else 0
+    out = _newton(*operands[:10], *operands[10 + nf:k], cap=cap, tol=tol,
+                  condims=condims, dmasks=operands[k:],
+                  friction=operands[10:10 + nf] if fric else None)
     # an output may not be an input (cap 0 returns qs itself)
     return tuple(o.clone() if any(o is t for t in operands) else o
                  for o in out)
 
   @staticmethod
   def setup_context(ctx, inputs, output):
-    cap, tol, condims, *operands = inputs
+    cap, tol, condims, fric, *operands = inputs
     ctx.condims = condims
+    ctx.fric = fric
     ctx.save_for_forward(*operands, *output)
 
   @staticmethod
-  def jvp(ctx, _dcap, _dtol, _dcondims, *tangents):
+  def jvp(ctx, _dcap, _dtol, _dcondims, _dfric, *tangents):
     condims = ctx.condims
+    nfo = 4 if ctx.fric else 0
     saved = ctx.saved_tensors
     nin = len(tangents)
     operands, outs = saved[:nin], saved[nin:]
     k = nin - len(condims)
     qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign = operands[:10]
-    gargs, dmasks = operands[10:k], operands[k:]
+    f_aref, f_dvec, f_loss, fdof = (operands[10:14] if nfo
+                                    else (None,) * 4)
+    gargs, dmasks = operands[10 + nfo:k], operands[k:]
     dqm, dqs, dj, daref, ddvec, _, ds_aref, ds_dvec = tangents[:8]
-    dgargs = tangents[10:k]
+    df_aref, df_dvec, df_loss = (tangents[10:13] if nfo else (None,) * 3)
+    dgargs = tangents[10 + nfo:k]
     qacc, jar_d, jar_s = outs[:3]
-    jar_groups = outs[3:]
+    jar_f = outs[3] if nfo else None
+    jar_groups = outs[3 + (1 if nfo else 0):]
     if dj is None:
       dj = torch.zeros_like(j)
     if daref is None:
@@ -434,6 +551,7 @@ class NewtonSolve(torch.autograd.Function):
       jar_d = torch.cat([jar_d, jar_groups[gi].reshape(bsz, -1)], 1)
 
     n, ns = j.shape[1], s_aref.shape[1]
+    nf = f_aref.shape[1] if nfo else 0
     dof = dof.long()
     e = qacc - qs
     h = qm + _DAMP * torch.eye(nv, dtype=qs.dtype, device=qs.device)
@@ -464,6 +582,22 @@ class NewtonSolve(torch.autograd.Function):
         ds = ds - w_s * ds_aref
       if torch.is_tensor(ds):
         rhs = rhs.index_add(1, dof, sign * ds)
+    if nf:
+      # the quadratic zone's rows enter H, and their tangent dw jar - w
+      # daref the right-hand side; a clamped row's force is +-loss
+      fd = fdof.long()
+      quad = torch.abs(f_dvec * jar_f) <= f_loss
+      zero = torch.zeros_like(f_dvec)
+      h = h + torch.diag_embed(torch.zeros_like(qs).index_add(
+          1, fd, torch.where(quad, f_dvec, zero)))
+      dq = zero
+      if df_dvec is not None:
+        dq = dq + df_dvec * jar_f
+      if df_aref is not None:
+        dq = dq - f_dvec * df_aref
+      dc = (torch.sign(f_dvec * jar_f) * df_loss if df_loss is not None
+            else zero)
+      rhs = rhs.index_add(1, fd, torch.where(quad, dq, dc))
     dqacc = -spd_solve.SpdSolve.apply(h, rhs)
     if n:
       djar_d = _mv(dj, qacc) + _mv(j, dqacc) - daref
@@ -472,43 +606,55 @@ class NewtonSolve(torch.autograd.Function):
     djar_s = sign * dqacc[:, dof]
     if ds_aref is not None:
       djar_s = djar_s - ds_aref
+    djar_f = ()
+    if nfo:
+      djar_f = dqacc[:, fdof.long()]
+      if df_aref is not None:
+        djar_f = djar_f - df_aref
+      djar_f = (djar_f,)
     djar_groups = []
     off = n_dense
     for (nrep, p) in gsizes:
       djar_groups.append(djar_d[:, off:off + nrep * p].reshape(-1, nrep, p))
       off += nrep * p
-    return (dqacc, djar_d[:, :n_dense], djar_s) + tuple(djar_groups)
+    return ((dqacc, djar_d[:, :n_dense], djar_s) + djar_f
+            + tuple(djar_groups))
 
   @staticmethod
-  def vmap(info, in_dims, cap, tol, condims, *operands):
+  def vmap(info, in_dims, cap, tol, condims, fric, *operands):
     size = info.batch_size
-    dims = in_dims[3:]
+    dims = in_dims[4:]
     k = len(operands) - len(condims)
-    # dof, sign and the dmasks are model constants, shared by every sample
-    shared = {8, 9} | set(range(k, len(operands)))
+    # dof, sign, the friction rows' loss and dof and the dmasks are model
+    # constants, shared by every sample
+    shared = {8, 9} | ({12, 13} if fric else set()) | set(
+        range(k, len(operands)))
     if any(dims[i] is not None for i in shared):
-      raise ValueError('dof, sign and the dmasks must not be mapped')
+      raise ValueError('dof, sign, f_loss, fdof and the dmasks must not be '
+                       'mapped')
     folded = [t if i in shared else spd_solve.fold_batch(t, dims[i], size)
               for i, t in enumerate(operands)]
-    out = NewtonSolve.apply(cap, tol, condims, *folded)
+    out = NewtonSolve.apply(cap, tol, condims, fric, *folded)
     return (tuple(o.reshape(size, o.shape[0] // size, *o.shape[1:])
                   for o in out), (0,) * len(out))
 
 
 def newton(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign, *gargs,
-           cap: int, tol: float, condims=(), dmasks=()):
-  """Newton solve over dense rows, one-hot rows and factored point groups;
-  operands and results as newton_reference, through `NewtonSolve`.
+           cap: int, tol: float, condims=(), dmasks=(), friction=None):
+  """Newton solve over dense rows, one-hot rows, frictionloss rows and
+  factored point groups; operands and results as newton_reference,
+  through `NewtonSolve`.
 
   On the CPU, newton_reference; on CUDA, the kernel, which adds one to
-  `newton.launches` per launch and expands each sample's facet rows from
-  (G, cdofc, dmask) into shared memory itself: the (B, nrep*P, nv) facet
-  block never reaches device memory. The kernel
+  `newton.launches` per launch and, at nv <= TILE_NV, expands each
+  sample's facet rows from (G, cdofc, dmask) into shared memory itself:
+  the (B, nrep*P, nv) facet block never reaches device memory. The kernel
   reads dof only to compare it with 0..nv-1, so an out-of-range dof drops
   the row instead of reaching outside the sample's memory."""
-  return NewtonSolve.apply(int(cap), float(tol), tuple(condims), qm, qs, j,
-                           aref, dvec, eqf, s_aref, s_dvec, dof, sign,
-                           *gargs, *dmasks)
+  fric = tuple(friction) if friction is not None else ()
+  return NewtonSolve.apply(int(cap), float(tol), tuple(condims), bool(fric),
+                           qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof,
+                           sign, *fric, *gargs, *dmasks)
 
 
 newton.launches = 0

@@ -17,9 +17,12 @@ sees plain tensors; `jvp` and `vmap` call the Function again.
 
 Dispatch is by device only: a CPU tensor takes the plain version, a CUDA
 tensor the kernel, and anything the kernel cannot take raises. There is
-no size gate: the TPU's MIN_PALLAS_N = 12 (:28) was a TPU measurement, and
-on the card the kernel takes every n from 1 to 32 (a gate that sent small
-n to the plain version or a library call would be a fallback).
+no size gate: the TPU's MIN_PALLAS_N = 12 (:28) and MAX_UNROLL_N = 24
+(:27, above which JAX keeps linalg.solve_spd) are TPU limits, and on the
+card the kernel takes every n from 1 to 96 (a gate that sent some n to
+the plain version or a library call would be a fallback): up to
+TILE_N in tiles of lanes, a system each, above it in a block a system
+(Cube Solving's nv 87).
 """
 
 from __future__ import annotations
@@ -32,10 +35,12 @@ import torch
 from mujoco_mpc_tpu_torch.ops import cuda_build
 from mujoco_mpc_tpu_torch.ops import linalg
 
-MAX_N = 32
+MAX_N = 96
+TILE_N = 32
 # the kernel's compile-time sizes: n runs in the smallest bucket >= n
-N_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 18, 24, 32)
+N_BUCKETS = (1, 2, 3, 4, 6, 8, 12, 18, 24, 32, 48, 64, 96)
 THREADS = 64
+WIDE_THREADS = 128
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,17 +59,23 @@ def _bucket(n: int) -> int:
 
 
 def kernel_lanes(n: int) -> int:
-  """Lanes of the tile that solves one system: the smallest power of two
-  >= n's bucket, at least 2 and at most 8 (csrc/chol_solve.cu `lanes`);
-  a lane holds ceil(bucket / lanes) rows."""
+  """Lanes that solve one system: at n <= TILE_N the tile's, the
+  smallest power of two >= n's bucket, at least 2 and at most 8
+  (csrc/chol_solve.cu `lanes`; a lane holds ceil(bucket / lanes) rows);
+  above, the block's WIDE_THREADS."""
+  if _bucket(n) > TILE_N:
+    return WIDE_THREADS
   return min(8, max(2, 1 << (_bucket(n) - 1).bit_length()))
 
 
 def block_smem_bytes(n: int) -> int:
   """Static shared memory a block of the kernel takes, in bytes: THREADS
   / L systems, each an (N, N + 1) float32 block for the bucket N
-  (csrc/chol_solve.cu `block_floats`)."""
+  (csrc/chol_solve.cu `block_floats`); above TILE_N one system's block,
+  its right-hand side and its factor's inverse diagonal."""
   bucket = _bucket(n)
+  if bucket > TILE_N:
+    return 4 * (bucket * (bucket + 1) + 2 * bucket)
   return 4 * THREADS // kernel_lanes(n) * bucket * (bucket + 1)
 
 

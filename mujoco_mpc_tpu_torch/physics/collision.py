@@ -4,11 +4,12 @@ Port of mujoco_mpc_tpu/physics/collision.py: ContactPoint :32,
 _make_frame :44, _make_frames :59, _plane_sphere :81, _plane_capsule :87,
 _plane_box :103, _sphere_sphere :116, the convex-hull colliders
 (_points_vs_halfspaces :395, _hull_world :416, _plane_mesh :426,
-_sphere_mesh :439, _box_mesh :452), narrowphase :604 (plane against
-sphere, capsule, box and mesh; sphere against sphere and mesh; box and
-capsule against mesh), the batched hull clusters (_hull_sig :712,
-contact_clusters :717, _hulls_local :762, plane_mesh_batched :783,
-box_mesh_batched :809, capsule_mesh_batched :949, sphere_mesh_batched
+_sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), narrowphase :604
+(plane against sphere, capsule, box and mesh; sphere against sphere and
+mesh; box, capsule and mesh against mesh), the batched hull clusters
+(_hull_sig :712, contact_clusters :717, _hulls_local :762,
+plane_mesh_batched :783, box_mesh_batched :809, mesh_mesh_batched :874
+with its broadphase, capsule_mesh_batched :949, sphere_mesh_batched
 :983), PairParams :1005 and pair_params :1015. As in JAX, each static geom
 pair emits a fixed number of candidate points (inactive ones are masked
 by distance later), so every shape is static; here each field carries a
@@ -25,7 +26,7 @@ unless the caller enables TF32.
 
 Not ported yet, and refused where reached: the other primitive pairs
 (sphere, capsule and box pairs, box-box, cylinder and ellipsoid: ROADMAP
-A6) and the mesh-mesh hulls and height fields (A7).
+A6) and height fields (A7).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.physics.model import Data, GeomType, Model
@@ -190,6 +192,16 @@ def _box_mesh(m: Model, d: Data, g1, g2, signs):
   return pts + _points_vs_halfspaces(verts_w, box_n, box_b)
 
 
+def _mesh_mesh(m: Model, d: Data, g1: int, g2: int):
+  """Hull vs hull: the k deepest vertices of g1 in g2 (normal flipped to
+  g1 -> g2), then the k deepest vertices of g2 in g1."""
+  v1, n1, b1 = _hull_world(m, d, g1)
+  v2, n2, b2 = _hull_world(m, d, g2)
+  pts = [ContactPoint(c.dist, c.pos, -c.normal)
+         for c in _points_vs_halfspaces(v1, n2, b2)]
+  return pts + _points_vs_halfspaces(v2, n1, b1)
+
+
 def _unported(t1: int, t2: int) -> NotImplementedError:
   mesh = {int(GeomType.MESH), int(GeomType.HFIELD)}
   item = 'A7' if t1 in mesh or t2 in mesh else 'A6'
@@ -225,6 +237,8 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
     return [cp for sgn in (-1.0, 1.0)
             for cp in _sphere_mesh(m, d, p1 + (sgn * s1[1]) * m1[..., 2],
                                    s1[0], g2)]
+  elif t1 == GeomType.MESH and t2 == GeomType.MESH:
+    return _mesh_mesh(m, d, g1, g2)
   raise _unported(t1, t2)
 
 
@@ -418,6 +432,97 @@ def sphere_mesh_batched(m: Model, d: Data, cl: HullCluster):
   return _flat(*_spheres_vs_hulls(c, cl.size1[:, 0], cl, xp2, xm2))
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshCluster:
+  """A mesh-mesh cluster's model constants, stacked once: its pairs, the
+  device indices of their geoms, both hulls' tables, and each pair's
+  summed hull circumradii for the broadphase (JAX's `_rb`, computed in
+  float32 from the float32 tables as JAX does)."""
+  pairs: Tuple[Tuple[int, int], ...]
+  g1: torch.Tensor       # (K,) long
+  g2: torch.Tensor       # (K,) long
+  hull1: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (K, V, 3), ...
+  hull2: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+  radii: torch.Tensor    # (K,)
+
+
+def mesh_cluster(m: Model, pairs) -> MeshCluster:
+  """The MeshCluster of mesh-mesh `pairs` (one hull shape pair), on the
+  model's device."""
+  pairs = tuple((int(a), int(b)) for a, b in pairs)
+
+  def radius(g):
+    v = m.geom_mesh[g][0].detach().cpu().numpy().astype(np.float32)
+    return float(np.linalg.norm(v, axis=-1).max())
+
+  radii = np.asarray([radius(a) for a, _ in pairs]) + np.asarray(
+      [radius(b) for _, b in pairs])
+  return MeshCluster(
+      pairs, torch.tensor([a for a, _ in pairs], device=m.device),
+      torch.tensor([b for _, b in pairs], device=m.device),
+      *(tuple(torch.stack([m.geom_mesh[g[side]][i] for g in pairs])
+              for i in range(3)) for side in (0, 1)),
+      torch.as_tensor(radii, dtype=m.dtype, device=m.device))
+
+
+def _one_way(va, xpa, xma, fnb, fbb, xpb, xmb, k, sign):
+  """Vertices va (B, K, V, 3) of hull a against the halfspaces (fnb
+  (B, K, F, 3), fbb (B, K, F)) of hull b, in b's frame: the k deepest
+  per pair, each with the mean of the normals of every face at its
+  maximum (collision.py :906-937). Returns (dist, pos, normal) flat,
+  pair-major, normal `sign` times b's outward normal."""
+  rel = torch.einsum('bkcd,bkce->bkde', xmb, xma)             # b^T a
+  t = torch.einsum('bked,bke->bkd', xmb, xpa - xpb)
+  va_in_b = t[:, :, None] + torch.einsum('bkde,bkve->bkvd', rel, va)
+  phi = torch.einsum('bkve,bkfe->bkvf', va_in_b, fnb) + fbb[:, :, None]
+  depth = torch.amax(phi, -1)                                 # (B, K, V)
+  oh = (phi >= depth[..., None]).to(phi.dtype)
+  oh = oh / torch.clamp(torch.sum(oh, -1, keepdim=True), min=1.0)
+  normals = torch.einsum('bkvf,bkfe->bkve', oh, fnb)
+  idx = _deepest(depth, k)                                    # (B, K, k)
+  dist = torch.gather(depth, 2, idx)
+  vsel = xpb[:, :, None] + torch.einsum('bked,bkid->bkie', xmb,
+                                        _take(va_in_b, idx))
+  nsel = torch.einsum('bked,bkid->bkie', xmb, _take(normals, idx))
+  nsel = nsel / torch.clamp(
+      torch.linalg.vector_norm(nsel, dim=-1, keepdim=True), min=1e-12)
+  return _flat(dist, vsel - 0.5 * dist[..., None] * nsel, sign * nsel)
+
+
+def mesh_mesh_batched(m: Model, d: Data, cl: MeshCluster, k: int = 4,
+                      pair_cap: int = 64):
+  """_mesh_mesh over a cluster of hull pairs. Broadphase: past
+  `pair_cap` pairs, only the pair_cap nearest by centre distance minus
+  the hulls' circumradii (the lower index first among equals, lax.top_k's
+  order) get a narrowphase, chosen per sample. Returns (dist (B, P), pos
+  (B, P, 3), normal (B, P, 3), pair_idx (B, P)) with P = 2 k
+  min(pair_cap, K): the k deepest vertices of each first hull in its
+  second, then of each second in its first, pair-major, normals g1 ->
+  g2, and the index into the cluster's pairs of each point."""
+  bsz = d.qpos.shape[0]
+  npairs = len(cl.pairs)
+  if pair_cap and npairs > pair_cap:
+    cdist = (torch.linalg.vector_norm(
+        d.geom_xpos[:, cl.g1] - d.geom_xpos[:, cl.g2], dim=-1) - cl.radii)
+    sel = _deepest(cdist, pair_cap)                           # (B, cap)
+  else:
+    sel = torch.arange(npairs, device=d.qpos.device).expand(bsz, npairs)
+  h1 = tuple(x[sel] for x in cl.hull1)                       # (B, k', ...)
+  h2 = tuple(x[sel] for x in cl.hull2)
+  i1, i2 = cl.g1[sel], cl.g2[sel]                             # (B, k')
+  rows = torch.arange(bsz, device=d.qpos.device)[:, None]
+  xp1, xm1 = d.geom_xpos[rows, i1], d.geom_xmat[rows, i1]
+  xp2, xm2 = d.geom_xpos[rows, i2], d.geom_xmat[rows, i2]
+  kk = min(k, h1[0].shape[2])
+  d12, p12, n12 = _one_way(h1[0], xp1, xm1, h2[1], h2[2], xp2, xm2, kk,
+                           -1.0)
+  d21, p21, n21 = _one_way(h2[0], xp2, xm2, h1[1], h1[2], xp1, xm1, kk,
+                           1.0)
+  base = sel.repeat_interleave(kk, dim=1)
+  return (torch.cat([d12, d21], 1), torch.cat([p12, p21], 1),
+          torch.cat([n12, n21], 1), torch.cat([base, base], 1))
+
+
 class PairParams(NamedTuple):
   """Combined contact parameters for a pair (mj_contactParam rules)."""
   friction: torch.Tensor       # (3,) sliding, torsional, rolling
@@ -470,6 +575,9 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
             (GeomType.BOX, GeomType.MESH): 8}
   if (t1, t2) == (GeomType.PLANE, GeomType.MESH):
     return min(4, m.geom_mesh[g2][0].shape[0])
+  if (t1, t2) == (GeomType.MESH, GeomType.MESH):
+    return (min(4, m.geom_mesh[g1][0].shape[0])
+            + min(4, m.geom_mesh[g2][0].shape[0]))
   if (t1, t2) not in counts:
     raise _unported(t1, t2)
   return counts[(t1, t2)]

@@ -1,25 +1,28 @@
 """Soft-constraint rows and the primal Newton solve, batch-first.
 
 Port of mujoco_mpc_tpu/physics/constraint.py: impedance :77, kbi :97,
-ScalarRows :37, Rows :66, _limit_rows_scalar :115, the pyramidal contacts
-(ContactBlock :452, PointRows :465, _pair_param_arrays :496,
-_contact_groups :516 with the batched hull clusters, _Stacked :631,
-contact_blocks :648, dof_anchored_axes :793, contact_point_groups :890,
-point_rows_jd :970, expand_point_rows :977), make_rows_split :1213 and
-solve :1240. The solve itself is ops/newton.py (the fused Newton kernel
-B2 on CUDA, its plain PyTorch version on the CPU); contacts reach it in
-the factored point form, so the facet rows are built inside the kernel.
+ScalarRows :37, FrictionRows :53, Rows :66, _limit_rows_scalar :115,
+_friction_rows :143, the pyramidal contacts (ContactBlock :452, PointRows
+:465, _contact_capacity :485, _pair_param_arrays :496, _contact_groups
+:516 with the batched hull clusters and the mesh-mesh clusters' top-k
+selection :575-594, _Stacked :631, contact_blocks :648, _dyn_contact_rows
+:750, dof_anchored_axes :793, _capped_point_rows :808,
+contact_point_groups :890, point_rows_jd :970, expand_point_rows :977),
+_concat_rows :1205, make_rows_split :1213 and solve :1240. The solve
+itself is ops/newton.py (the fused Newton kernel B2 on CUDA, its plain
+PyTorch version on the CPU); uncapped contacts reach it in the factored
+point form, so the facet rows are built inside the kernel, and the
+dynamically selected rows (the mesh-mesh clusters' and the capped
+groups') as dense rows.
 
 What JAX computes from model constants at trace time (the pair
-parameters, body ids and ancestor-mask differences of each condim group)
-the port computes once per model, in `contact_table`, which
-physics/model.py from_arrays stores as Model.contact.
+parameters, body ids and ancestor-mask differences of each condim group,
+the mesh-mesh clusters' pair parameters) the port computes once per
+model, in `contact_table` and `dyn_table`, which physics/model.py
+from_arrays stores as Model.contact and Model.contact_dyn.
 
-Not ported yet, and refused where a model needs them: equality rows and
-tendon limits (ROADMAP A8), contact groups over contact_point_cap
-(_capped_point_rows, A6), the mesh-mesh clusters and their dynamic rows
-(A7),
-joint frictionloss rows and elliptic cones (A8).
+Not ported yet, and refused where a model needs them: equality rows,
+tendon limits and elliptic cones (ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -48,6 +51,16 @@ class ScalarRows(NamedTuple):
   aref: torch.Tensor
   d: torch.Tensor
   active: torch.Tensor
+
+
+class FrictionRows(NamedTuple):
+  """Joint-dof frictionloss rows: J row = e_dof, pos 0, a two-sided Huber
+  cost (quadratic while |d jar| <= loss, linear beyond). dof (F,) int32
+  and loss (F,) are model constants; aref and d are (B, F)."""
+  dof: torch.Tensor
+  aref: torch.Tensor
+  d: torch.Tensor
+  loss: torch.Tensor
 
 
 class Rows(NamedTuple):
@@ -114,6 +127,20 @@ def _limit_rows_scalar(m: Model, d: Data) -> Optional[ScalarRows]:
                     margin2.expand_as(pos), aref, dd, pos < 0.0)
 
 
+def _friction_rows(m: Model, d: Data) -> Optional[FrictionRows]:
+  """Frictionloss rows: D from the dof's solimpfriction impedance at pos 0
+  over dof_invweight0, aref = -B v (no position term)."""
+  if not m.friction_dof:
+    return None
+  dofs = m.idx.friction_dof
+  v = d.qvel[:, dofs]
+  _, b, imp = kbi(m.dof_friction_solref, m.dof_friction_solimp,
+                  torch.zeros_like(v))
+  iw = m.dof_invweight0[dofs]
+  dd = imp / (1.0 - imp) / torch.clamp(iw, min=1e-12)
+  return FrictionRows(dofs, -b * v, dd, m.dof_frictionloss)
+
+
 class ContactBlock(NamedTuple):
   """One condim group of contact points as dense rows, with what decodes
   the facet forces back to contact wrenches."""
@@ -176,6 +203,25 @@ class GroupConsts:
   b1: np.ndarray         # (P,) body ids
   b2: np.ndarray
   dmask: torch.Tensor    # (P, nv) float32: ancestor mask of b2 minus b1
+  bodies: torch.Tensor   # (2, P) long: b1 and b2 on the device
+
+
+@dataclasses.dataclass(frozen=True)
+class DynConsts:
+  """A mesh-mesh cluster's model constants for the dynamically selected
+  condim-1 rows: the cluster and its pairs' parameters, (K, ...)."""
+  cluster: collision.MeshCluster
+  margin: torch.Tensor   # (K,)
+  solref: torch.Tensor   # (K, 2)
+  solimp: torch.Tensor   # (K, 5)
+  invw: torch.Tensor     # (K,)
+  bodies: torch.Tensor   # (2, K) long: b1 and b2
+
+
+def _contact_capacity(m: Model, total: int) -> int:
+  """The cap on a mesh-mesh cluster's selected rows: the model's
+  `contact_cap` numeric when set, else JAX's default of 256."""
+  return min(m.contact_cap or 256, total)
 
 
 def _pair_param_arrays(m: Model, pairs, dtype):
@@ -206,10 +252,7 @@ def contact_table(m: Model) -> Tuple[GroupConsts, ...]:
   1, 3, 4, 6), each with its sources in JAX's order and each pair's
   parameters repeated over the candidate points it emits
   (_contact_groups :541-628)."""
-  mm, sm, pm, bm, cm, clustered = collision.contact_clusters(m)
-  if mm:
-    raise NotImplementedError(
-        'mesh-mesh contacts are not ported yet (ROADMAP A7)')
+  _, sm, pm, bm, cm, clustered = collision.contact_clusters(m)
   by_condim = {}      # condim -> ([Source], [pair of each point])
   for kind, clusters in (('sm', sm), ('cm', cm), ('pm', pm), ('bm', bm)):
     _, reps, halves = CLUSTERS[kind]
@@ -236,7 +279,22 @@ def contact_table(m: Model) -> Tuple[GroupConsts, ...]:
         condim=condim, sources=tuple(srcs), margin=pp['margin'][idx],
         solref=pp['solref'][idx], solimp=pp['solimp'][idx],
         mu=pp['mu'][idx], invw=pp['invw'][idx], b1=b1, b2=b2,
-        dmask=(a_body[b2] - a_body[b1]).to(torch.float32).contiguous()))
+        dmask=(a_body[b2] - a_body[b1]).to(torch.float32).contiguous(),
+        bodies=torch.as_tensor(np.stack([b1, b2]), device=m.device)))
+  return tuple(out)
+
+
+def dyn_table(m: Model) -> Tuple[DynConsts, ...]:
+  """The mesh-mesh clusters (condim 1) with their pairs' parameters
+  (_contact_groups :575-594)."""
+  mm = collision.contact_clusters(m)[0]
+  out = []
+  for cl in mm:
+    pp = _pair_param_arrays(m, cl, m.dtype)
+    out.append(DynConsts(
+        collision.mesh_cluster(m, cl), pp['margin'], pp['solref'],
+        pp['solimp'], pp['invw'],
+        torch.as_tensor(np.stack([pp['b1'], pp['b2']]), device=m.device)))
   return tuple(out)
 
 
@@ -271,12 +329,12 @@ class _Stacked:
                                              consts.solimp)
     self.mu, self.invw = consts.mu, consts.invw
     self.b1, self.b2, self.dmask = consts.b1, consts.b2, consts.dmask
+    self.bodies = consts.bodies
 
 
 def _contact_groups(m: Model, d: Data):
   """Narrowphase output stacked per condim, {condim: _Stacked} (JAX also
-  returns the dynamically selected mesh-mesh rows, which the port
-  refuses)."""
+  returns the mesh-mesh clusters' selected points: `_dyn_contacts`)."""
   groups = {}
   for consts in m.contact:
     parts = [collision.narrowphase(m, d, *src.pairs[0])
@@ -291,6 +349,114 @@ def _dapprox(s: _Stacked, condim: int) -> torch.Tensor:
   if condim == 1:
     return s.invw
   return s.invw * 2.0 * s.mu[:, 0] ** 2 * (1.0 + s.mu[:, 0] ** 2)
+
+
+def _dyn_contacts(m: Model, d: Data):
+  """Each mesh-mesh cluster's `_contact_capacity` deepest candidates
+  (dist - margin, the lower index first among equals), with their pairs'
+  parameters and body ids gathered per sample: a list of dicts of
+  (B, cap, ...) tensors (_contact_groups :575-594)."""
+  out = []
+  for dc in m.contact_dyn:
+    dist, pos, normal, pair_idx = collision.mesh_mesh_batched(
+        m, d, dc.cluster)
+    cap = _contact_capacity(m, dist.shape[1])
+    sel = collision._deepest(dist - dc.margin[pair_idx], cap)  # (B, cap)
+    pidx = torch.gather(pair_idx, 1, sel)
+    out.append({
+        'pos3': collision._take(pos, sel),
+        'normal': collision._take(normal, sel),
+        'dist': torch.gather(dist, 1, sel), 'margin': dc.margin[pidx],
+        'solref': dc.solref[pidx], 'solimp': dc.solimp[pidx],
+        'invw': dc.invw[pidx], 'b1': dc.bodies[0][pidx],
+        'b2': dc.bodies[1][pidx]})
+  return out
+
+
+def _point_jac(m: Model, d: Data, pos3, bodies):
+  """Translational and rotational Jacobians (B, P, nv, 3) of points pos3
+  (B, P, 3) on per-sample bodies (B, P) (the traced-index batch_jac of
+  _dyn_contact_rows and _capped_point_rows): the ancestor masks are
+  gathered per sample."""
+  off = pos3 - torch.gather(
+      d.subtree_com, 1,
+      m.idx.body_rootid[bodies][..., None].expand(-1, -1, 3))
+  mask = m.idx.a_body[bodies][..., None]                       # (B, P, nv, 1)
+  jp = (d.cdof[:, None, :, 3:]
+        + tm.cross(d.cdof[:, None, :, :3], off[:, :, None, :]))
+  return jp * mask, d.cdof[:, None, :, :3] * mask
+
+
+def _dyn_contact_rows(m: Model, d: Data) -> Optional[Rows]:
+  """Dense condim-1 normal rows of the mesh-mesh clusters' selected
+  contacts, `_contact_capacity` of them a cluster (_dyn_contact_rows
+  :750-790)."""
+  if not m.collision_pairs or not m.contact_dyn:
+    return None
+  parts = []
+  for g in _dyn_contacts(m, d):
+    pos = g['dist'] - g['margin']
+    k, b, imp = kbi(g['solref'], g['solimp'], pos)
+    jp2, _ = _point_jac(m, d, g['pos3'], g['b2'])
+    jp1, _ = _point_jac(m, d, g['pos3'], g['b1'])
+    jn = torch.einsum('bpns,bps->bpn', jp2 - jp1, g['normal'])
+    vel = (jn @ d.qvel[..., None])[..., 0]
+    parts.append(Rows(
+        jn, pos, g['margin'], -b * vel - k * imp * pos,
+        imp / (1.0 - imp) / torch.clamp(g['invw'], min=1e-12), pos < 0.0,
+        torch.zeros_like(pos, dtype=torch.bool)))
+  return _concat_rows(parts)
+
+
+def _capped_point_rows(m: Model, d: Data, s: _Stacked, condim: int,
+                       cap: int) -> Rows:
+  """Dense facet rows of the `cap` deepest points of a stacked condim
+  group (dist - margin, the lower index first among equals), chosen per
+  sample (_capped_point_rows :808-887)."""
+  sel = collision._deepest(s.dist - s.margin, cap)            # (B, cap)
+  pos3 = collision._take(s.pos3, sel)
+  normal = collision._take(s.normal, sel)
+  tan_hint = collision._take(s.tangent, sel)
+  margin = s.margin[sel]
+  solref, solimp = s.solref[sel], s.solimp[sel]
+  mu, invw = s.mu[sel], s.invw[sel]                           # (B, cap, 3)
+  pos = torch.gather(s.dist, 1, sel) - margin
+  k, b, imp = kbi(solref, solimp, pos)
+  if condim == 1:
+    dapprox = invw
+  else:
+    dapprox = invw * 2.0 * mu[..., 0] ** 2 * (1.0 + mu[..., 0] ** 2)
+  jp2, jr2 = _point_jac(m, d, pos3, s.bodies[1][sel])
+  jp1, jr1 = _point_jac(m, d, pos3, s.bodies[0][sel])
+  jp = jp2 - jp1
+  proj = lambda jac, v: torch.einsum('bpns,bps->bpn', jac, v)  # noqa: E731
+  jn = proj(jp, normal)
+  t1, t2 = collision._make_frames(normal, tan_hint)
+  if condim == 1:
+    jmat = jn
+  else:
+    mus = mu[..., 0:1]
+    jt1, jt2 = proj(jp, t1), proj(jp, t2)
+    facets = [jn + mus * jt1, jn - mus * jt1, jn + mus * jt2, jn - mus * jt2]
+    if condim >= 4:
+      jr = jr2 - jr1
+      mut = mu[..., 1:2]
+      jrn = proj(jr, normal)
+      facets += [jn + mut * jrn, jn - mut * jrn]
+      if condim == 6:
+        mur = mu[..., 2:3]
+        jrt1, jrt2 = proj(jr, t1), proj(jr, t2)
+        facets += [jn + mur * jrt1, jn - mur * jrt1, jn + mur * jrt2,
+                   jn - mur * jrt2]
+    jmat = torch.cat(facets, 1)                       # (B, nrep*cap, nv)
+  nrep = jmat.shape[1] // cap
+  posr = pos.repeat(1, nrep)
+  vel = (jmat @ d.qvel[..., None])[..., 0]
+  return Rows(
+      jmat, posr, margin.repeat(1, nrep),
+      -b.repeat(1, nrep) * vel - (k * imp).repeat(1, nrep) * posr,
+      (imp / (1.0 - imp) / torch.clamp(dapprox, min=1e-12)).repeat(1, nrep),
+      posr < 0.0, torch.zeros_like(posr, dtype=torch.bool))
 
 
 def contact_blocks(m: Model, d: Data, condims=(1, 3, 4, 6)):
@@ -368,22 +534,21 @@ def dof_anchored_axes(m: Model, d: Data) -> torch.Tensor:
 
 def contact_point_groups(m: Model, d: Data):
   """Pyramidal contacts in factored point-direction form, one PointRows
-  per condim group (the dense twin is contact_blocks), and None for the
-  capped rows. Direction velocities for aref come from the masked
-  projection cw[p] = sum_n cdofc[n] dmask[p, n] qvel[n], so nothing here
-  is (P, ndirs, nv) wide."""
+  per condim group (the dense twin is contact_blocks), and the dense
+  facet rows of the groups over m.contact_point_cap (_capped_point_rows),
+  or None. Direction velocities for aref come from the masked projection
+  cw[p] = sum_n cdofc[n] dmask[p, n] qvel[n], so nothing here is
+  (P, ndirs, nv) wide."""
   if not m.collision_pairs:
     return [], None
   groups = _contact_groups(m, d)
   cdofc = dof_anchored_axes(m, d)
-  out = []
+  out, capped = [], []
   for condim, s in groups.items():
     cap = m.contact_point_cap
     if cap and s.dist.shape[1] > cap:
-      raise NotImplementedError(
-          f'a condim-{condim} group of {s.dist.shape[1]} points is over '
-          f'contact_point_cap {cap}; capped point rows are not ported yet '
-          '(ROADMAP A6)')
+      capped.append(_capped_point_rows(m, d, s, condim, cap))
+      continue
     pos = s.dist - s.margin
     k, b, imp = kbi(s.solref, s.solimp, pos)
     dvec = imp / (1.0 - imp) / torch.clamp(_dapprox(s, condim), min=1e-12)
@@ -411,7 +576,7 @@ def contact_point_groups(m: Model, d: Data):
     out.append(PointRows(
         g=gfac, cdofc=cdofc, dmask=s.dmask, aref=aref, dvec=dvec,
         mu=s.mu.T.expand(d.qpos.shape[0], 3, -1), condim=condim))
-  return out, None
+  return out, _concat_rows(capped)
 
 
 def point_rows_jd(pr: PointRows) -> torch.Tensor:
@@ -428,30 +593,40 @@ def expand_point_rows(pr: PointRows):
                                 pr.condim)
 
 
+def _concat_rows(blocks) -> Optional[Rows]:
+  blocks = [b for b in blocks if b is not None]
+  if not blocks:
+    return None
+  return Rows(*(torch.cat(parts, 1) for parts in zip(*blocks)))
+
+
 def make_rows_split(m: Model, d: Data):
-  """(dense Rows | None, ScalarRows | None, list[PointRows]): joint
-  limits one-hot, pyramidal contacts in point-direction form (JAX also
-  returns cone and frictionloss blocks; the port refuses models that have
-  them)."""
+  """(dense Rows | None, ScalarRows | None, list[PointRows],
+  FrictionRows | None): the dense rows are the mesh-mesh clusters'
+  selected rows, then the capped groups' facet rows; joint limits and
+  frictionloss rows one-hot; the other pyramidal contacts in
+  point-direction form (JAX also returns the elliptic-cone block, which
+  the port refuses)."""
   if m.neq:
     raise NotImplementedError('equality rows are not ported yet (ROADMAP A8)')
   if any(m.tendon_limited):
     raise NotImplementedError('tendon limits are not ported yet (ROADMAP A8)')
-  if m.friction_dof:
-    raise NotImplementedError(
-        'frictionloss rows are not ported yet (ROADMAP A8)')
   if m.collision_pairs and m.opt.cone == 1:
     raise NotImplementedError(
         'elliptic friction cones are not ported yet (ROADMAP A8)')
-  points, _ = contact_point_groups(m, d)
-  return None, _limit_rows_scalar(m, d), points
+  dyn = _dyn_contact_rows(m, d)
+  points, capped = contact_point_groups(m, d)
+  return (_concat_rows([dyn, capped]), _limit_rows_scalar(m, d), points,
+          _friction_rows(m, d))
 
 
 def newton_operands(m: Model, d: Data, rows: Optional[Rows],
                     scalar: Optional[ScalarRows],
-                    points: List[PointRows] = ()):
+                    points: List[PointRows] = (),
+                    friction: Optional[FrictionRows] = None):
   """The operands solve hands ops/newton.newton: (the ten dense and
-  one-hot operands, the group operands, condims, dmasks)."""
+  one-hot operands, the group operands, condims, dmasks, the frictionloss
+  operands (aref, d, loss, dof) or None)."""
   bsz = d.qpos.shape[0]
   kw = dict(dtype=d.qpos.dtype, device=d.qpos.device)
   if rows is not None:
@@ -474,14 +649,17 @@ def newton_operands(m: Model, d: Data, rows: Optional[Rows],
   for p in points:
     group_args += [p.g.contiguous(), p.aref.contiguous(),
                    p.dvec.contiguous(), p.mu.contiguous()]
+  fric = (None if friction is None else
+          (friction.aref, friction.d, friction.loss, friction.dof))
   return ((d.qM, d.qacc, j_mat, aref_d, dvec_d, eqf, aref_s, dvec_s, dof,
            sign), tuple(group_args), tuple(p.condim for p in points),
-          tuple(p.dmask for p in points))
+          tuple(p.dmask for p in points), fric)
 
 
 def solve(m: Model, d: Data, rows: Optional[Rows],
           scalar: Optional[ScalarRows] = None,
           points: List[PointRows] = (),
+          friction: Optional[FrictionRows] = None,
           max_iterations: Optional[int] = None,
           tolerance: Optional[float] = None) -> Data:
   """Primal Newton solve for qacc given constraint rows; d.qacc holds
@@ -491,14 +669,17 @@ def solve(m: Model, d: Data, rows: Optional[Rows],
     max_iterations = m.opt.iterations
   if tolerance is None:
     tolerance = 1e-5 if d.qpos.dtype == torch.float32 else 1e-8
-  if rows is None and scalar is None and not points:
+  if rows is None and scalar is None and not points and friction is None:
     return d.replace(qfrc_constraint=torch.zeros_like(d.qvel))
 
-  args, group_args, condims, dmasks = newton_operands(m, d, rows, scalar,
-                                                      points)
-  qacc, jar_d, jar_s, *jar_pts = newton_op.newton(
+  args, group_args, condims, dmasks, fric = newton_operands(
+      m, d, rows, scalar, points, friction)
+  out = newton_op.newton(
       *args, *group_args, cap=int(max_iterations), tol=float(tolerance),
-      condims=condims, dmasks=dmasks)
+      condims=condims, dmasks=dmasks, friction=fric)
+  qacc, jar_d, jar_s = out[:3]
+  jar_f = out[3] if fric is not None else None
+  jar_pts = out[3 + (fric is not None):]
   _, _, j_mat, _, dvec_d, _, _, dvec_s, dof, sign = args
 
   qfrc_constraint = torch.zeros_like(d.qvel)
@@ -509,6 +690,9 @@ def solve(m: Model, d: Data, rows: Optional[Rows],
   if scalar is not None:
     f_s = torch.where(jar_s < 0, -dvec_s * jar_s, torch.zeros_like(jar_s))
     qfrc_constraint = qfrc_constraint.index_add(1, dof, sign * f_s)
+  if friction is not None:
+    f_f = -torch.clamp(friction.d * jar_f, -friction.loss, friction.loss)
+    qfrc_constraint = qfrc_constraint.index_add(1, friction.dof, f_f)
   for p, jar_g in zip(points, jar_pts):
     # facet force f = max(0, -D jar), folded back through the facet table
     # into per-direction coefficients (the transpose of the expansion),

@@ -76,8 +76,7 @@ def forward(m: Model, d: Data) -> Data:
   d = smooth.crb(m, d)
   d = d.replace(qfrc_constraint=torch.zeros_like(d.qvel))
   d = fwd_acceleration(m, d)   # qacc_smooth
-  rows, scalar, points = constraint.make_rows_split(m, d)
-  return constraint.solve(m, d, rows, scalar, points)
+  return constraint.solve(m, d, *constraint.make_rows_split(m, d))
 
 
 def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,

@@ -20,12 +20,14 @@ margin/gap, body_invweight0, geom_names, contact_point_cap, contact_cap)
 are carried for the colliders (physics/collision.py), and so are the
 convex hulls of the mesh, cylinder and ellipsoid geoms (geom_mesh, :255,
 built by put_model at :569-620 and kept as JAX keeps them, float32
-values, promoted to the model's dtype). Model fields not carried yet
-(their consumers are still to be ported; ROADMAP A7-A8): the height
-fields (geom_hfield: a model with an hfield geom is refused where
-contacts or ground_height reach it), frictionloss rows
-(dof_frictionloss, dof_friction_solref/solimp), equality data (eq_*), tendons (ten_*, tendon_*), sensors
-(sensor_*, nsensordata), site_size, site_type, magnetic-field consumers.
+values, promoted to the model's dtype), and so are the frictionloss
+rows' constants (dof_frictionloss, dof_friction_solref/solimp, :225-228,
+one entry per dof of friction_dof). Model fields not carried yet (their
+consumers are still to be ported; ROADMAP A7-A8): the height fields
+(geom_hfield: a model with an hfield geom is refused where contacts or
+ground_height reach it), equality data (eq_*), tendons (ten_*,
+tendon_*), sensors (sensor_*, nsensordata), site_size, site_type,
+magnetic-field consumers.
 Data fields not carried yet: sensordata and the tendon quantities. A model
 that needs any of them is refused where it would be used
 (NotImplementedError), never silently computed without them.
@@ -145,6 +147,10 @@ OPTION_ARRAYS = ('timestep', 'gravity', 'wind', 'magnetic', 'density',
 # The arrays of one convex hull in Model.geom_mesh, in from_arrays' `arrays`
 # dict as 'geom_mesh/<geom id>/<name>'.
 HULL_ARRAYS = ('verts', 'normals', 'offsets')
+# The frictionloss rows' constants, (F,), (F, 2) and (F, 5) for the F dofs
+# of friction_dof: in a snapshot only where F > 0, empty otherwise.
+FRICTION_ARRAYS = {'dof_frictionloss': (), 'dof_friction_solref': (2,),
+                   'dof_friction_solimp': (5,)}
 # Tensor fields of Model, in from_arrays' `arrays` dict.
 ARRAY_FIELDS = (
     'qpos0', 'qpos_spring', 'body_pos', 'body_quat', 'body_ipos',
@@ -265,6 +271,9 @@ class Model(_Replace):
   key_qvel: torch.Tensor
   key_act: torch.Tensor
   key_ctrl: torch.Tensor
+  dof_frictionloss: torch.Tensor
+  dof_friction_solref: torch.Tensor
+  dof_friction_solimp: torch.Tensor
   opt: Option
   idx: structure.Indices
   # convex hulls, geom id -> (verts (V, 3), face normals (F, 3), face
@@ -273,6 +282,8 @@ class Model(_Replace):
   # per-condim contact groups of the collision pairs
   # (physics/constraint.py contact_table), built by from_arrays
   contact: tuple = ()
+  # mesh-mesh clusters of dynamically selected rows (constraint.dyn_table)
+  contact_dyn: tuple = ()
 
   @property
   def device(self) -> torch.device:
@@ -315,8 +326,9 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
   """Build a Model from numpy arrays and static fields.
 
   arrays: ARRAY_FIELDS plus 'opt.<OPTION_ARRAYS>' -> numpy arrays (the
-  JAX Model's leaves), and for each hull geom g 'geom_mesh/<g>/verts',
-  '.../normals' and '.../offsets' (HULL_ARRAYS); static: STATIC_FIELDS
+  JAX Model's leaves), for each hull geom g 'geom_mesh/<g>/verts',
+  '.../normals' and '.../offsets' (HULL_ARRAYS), and FRICTION_ARRAYS
+  where friction_dof is not empty; static: STATIC_FIELDS
   plus 'opt.<OPTION_STATIC>' -> ints, bools, strings or (nested)
   sequences of them."""
   device = resolve_device(device)
@@ -332,6 +344,10 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
     a = np.array(arrays[k])   # a copy: the source may be read-only
     t[k] = torch.as_tensor(a, device=device,
                            dtype=torch.bool if a.dtype == bool else dtype)
+  for k, shape in FRICTION_ARRAYS.items():
+    a = (np.array(arrays[k]) if k in arrays
+         else np.zeros((len(s['friction_dof']),) + shape))
+    t[k] = torch.as_tensor(a, device=device, dtype=dtype)
   opt = Option(
       **{k: torch.as_tensor(np.array(arrays['opt.' + k]), dtype=dtype,
                             device=device) for k in OPTION_ARRAYS},
@@ -346,7 +362,8 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
             geom_mesh=geom_mesh)
   if m.collision_pairs:
     from mujoco_mpc_tpu_torch.physics import constraint
-    m = m.replace(contact=constraint.contact_table(m))
+    m = m.replace(contact=constraint.contact_table(m),
+                  contact_dyn=constraint.dyn_table(m))
   return m
 
 

@@ -251,6 +251,7 @@ class Indices:
   lim_dof: torch.Tensor
   lim_dof2: torch.Tensor       # (2L,) int32 one-hot limit rows: dof
   lim_sign: torch.Tensor       # (2L,) float: +1 lower, -1 upper side
+  friction_dof: torch.Tensor   # (F,) int32 dofs with frictionloss rows
   sq: torch.Tensor             # joint_coords
   sd: torch.Tensor
   sj: torch.Tensor
@@ -364,6 +365,7 @@ def build_indices(s: dict, device, dtype) -> Indices:
                     for sz in (-1, 1)]),
       lim_ids=li(lim_ids), lim_qadr=li(lim_qadr), lim_dof=li(lim_dof),
       lim_dof2=li(np.concatenate([lim_dof, lim_dof])).to(torch.int32),
+      friction_dof=li(s['friction_dof']).to(torch.int32),
       lim_sign=fl(np.concatenate([np.ones(nl), -np.ones(nl)])),
       sq=li(sq), sd=li(sd), sj=li(sj), quat_q=li(quat_q).reshape(-1, 4),
       quat_d=li(quat_d).reshape(-1, 3), qj=li(qj),

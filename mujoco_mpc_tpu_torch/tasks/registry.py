@@ -5,13 +5,13 @@ Particle and ParticleFixed (:133-171), Swimmer (:254-280),
 Quadruped Flat (_make_quadruped :354-699, registered at :702), Humanoid
 Stand and Walk (_make_humanoid :722-765, registered at :767-782),
 Shadow Reorient (_hand_task :925-988 without a goal schedule, registered
-at :991-995) and Humanoid Track (:1381-1508, its procedural clip). The
-JAX registry compiles models/*.xml with `mujoco`; the port loads the
-compiled model, the task parameters and the task's own arrays (Track's
-clip) from mujoco_mpc_tpu_torch/assets/ (written by
-tools/export_torch_snapshot.py), so it runs where neither `mujoco` nor
-JAX is installed. Residuals are batch-first; a transition takes the
-B = 1 simulation state.
+at :991-995), Cube Solving (:1003-1116) and Humanoid Track (:1381-1508,
+its procedural clip). The JAX registry compiles models/*.xml with
+`mujoco`; the port loads the compiled model, the task parameters and the
+task's own arrays (Track's clip, Cube Solving's scramble tables) from
+mujoco_mpc_tpu_torch/assets/ (written by tools/export_torch_snapshot.py),
+so it runs where neither `mujoco` nor JAX is installed. Residuals are
+batch-first; a transition takes the B = 1 simulation state.
 
 Tasks load on the card unless the caller asks for another device
 (`device='cpu'` in the tests); with no CUDA device the default raises.
@@ -485,8 +485,8 @@ def _humanoid_track(spec: base.TaskSpec, task: dict):
   if 'marker_sites' in task:
     raise NotImplementedError(
         'Humanoid Track on the CMU clips (marker sites, site_linvel) is not '
-        'ported yet: it waits for the CMU clip files in the repository '
-        '(ROADMAP, Queue A item 1)')
+        'ported: the CMU clip files are absent from the repository (ROADMAP, '
+        '"Not to port": tasks/reference.py and the CMU branch)')
   m = spec.model
   idx = {n: i for i, n in enumerate(spec.residual_param_names)}
   # JAX's float32 table, promoted to the model's dtype in the residual
@@ -557,8 +557,9 @@ def _hand_task(spec: base.TaskSpec, task: dict):
   above the palm. The cube's free joint is the first joint."""
   if 'goal_schedule' in task:
     raise NotImplementedError(
-        'a hand task with a goal schedule (Cube Solving) is not ported yet '
-        '(ROADMAP, Queue A item 3)')
+        "the goal-schedule branch of the JAX _hand_task is not ported: no "
+        "registered task uses it (Cube Solving has its own maker, "
+        "_cube_solving)")
   m = spec.model
   cube = m.body('cube')
   cube_site, palm_site = m.site('cube_site'), m.site('palm_site')
@@ -594,6 +595,100 @@ def _hand_task(spec: base.TaskSpec, task: dict):
   return residual, transition
 
 
+# ---------------------------------------------------------------------------
+# Cube Solving (reference: mjpc/tasks/rubik/solve.cc), registry.py
+# :1003-1116: the interlocked 3x3x3 of models/rubik.py in the generated
+# hand, unscrambled move by move through the goal-cache state machine.
+# ---------------------------------------------------------------------------
+
+_CUBE_RESET = (0.0, 0.0, 0.072, 1.0, 0.0, 0.0, 0.0)
+_FACE_QADR = 7     # the cube's free joint (7), then its 6 face hinges
+_HAND_QADR = 93    # free 7 + face hinges 6 + 20 ring ball quaternions 80
+
+
+def _cube_solving(spec: base.TaskSpec, task: dict):
+  """Cube Solving: task['states'] (n_moves + 1, 93), the exact cube
+  states of the scramble, and task['cache'] (n_moves + 1, 6), their face
+  angles (rubik.scramble_states(5, seed=11), float32 as JAX holds them,
+  :1015, :1023-1024). The residual follows the face goals while `_mode`
+  is on; the transition steps the goal index down as moves are achieved,
+  snaps the cube onto the exact state it reached, and puts a dropped cube
+  back into the hand."""
+  m = spec.model
+  idx = {n: i for i, n in enumerate(spec.residual_param_names)}
+  gi_at, mode_at = idx['_goal_index'], idx['_mode']
+  states = torch.as_tensor(np.asarray(task['states'], np.float32),
+                           device=m.device)
+  cache = torch.as_tensor(np.asarray(task['cache'], np.float32),
+                          device=m.device)
+  n_moves = states.shape[0] - 1
+  cube = m.body('cube')
+  cube_site, palm_site = m.site('cube_site'), m.site('palm_site')
+  goal_mocap = m.body_mocapid[m.body('goal')]
+  home_hand = m.keyframe_qpos('home')[_HAND_QADR:]
+  kw = dict(device=m.device, dtype=m.dtype)
+  above_palm = torch.tensor([0.0, 0.0, 0.05], **kw)
+  reset_pose = torch.tensor(_CUBE_RESET, **kw)
+
+  def rings_near(qring, gi):
+    """Every ring ball quaternion within the cam-backlash cone (0.6 rad)
+    of the exact state gi."""
+    qq = qring.reshape(20, 4)
+    tq = states[gi, 13:93].reshape(20, 4)
+    dots = torch.abs(torch.sum(qq * tq, -1))
+    ang = 2.0 * torch.arccos(torch.clamp(dots, 0.0, 1.0))
+    return torch.all(ang < 0.6)
+
+  def residual(m, d, rp):
+    """Reference: solve.cc Residual."""
+    bsz = d.qpos.shape[0]
+    r_pos = d.site_xpos[:, cube_site] - (d.site_xpos[:, palm_site]
+                                         + above_palm)
+    r_quat = tm.quat_sub(d.xquat[:, cube], d.mocap_quat[:, goal_mocap])
+    faces = d.qpos[:, _FACE_QADR:_FACE_QADR + 6]
+    r_faces = torch.where(torch.round(rp[mode_at]) > 0.5, faces - rp[0:6],
+                          torch.zeros_like(faces))
+    r_hand = d.qpos[:, _HAND_QADR:_HAND_QADR + m.nu] - home_hand
+    r_progress = rp[gi_at].expand(bsz, 1)
+    return torch.cat([r_pos, r_quat, d.cvel[:, cube, 3:],
+                      d.actuator_force * 0.1, r_faces, r_hand, r_progress],
+                     -1)
+
+  def transition(m, d, params, generator):
+    """On the B = 1 state (solve.cc:209-230): a move is achieved when the
+    face hinges are within 0.4 of the goal and every ring cubelet sits in
+    the goal state's slot; then the goal index steps down (at 0 the mode
+    turns off), the cube's internal coordinates snap onto the exact state
+    and their velocities are zeroed. A cube that fell below -0.12 goes
+    back above the palm at rest, the schedule kept."""
+    rp = params.residual_params
+    gi = torch.clamp(torch.round(rp[gi_at]).long(), 0, n_moves)
+    mode = torch.round(rp[mode_at])
+    qpos, qvel = d.qpos[0], d.qvel[0]
+    faces = qpos[_FACE_QADR:_FACE_QADR + 6]
+    err = torch.linalg.vector_norm(faces - cache[gi].to(rp.dtype))
+    achieved = (mode > 0.5) & (err < 0.4) & rings_near(qpos[13:93], gi)
+    solved = achieved & (gi == 0)
+    gi_new = torch.where(achieved & (gi > 0), gi - 1, gi)
+    rp = rp.clone()
+    rp[0:6] = cache[gi_new]      # the goal now published
+    rp[gi_at] = gi_new
+    rp[mode_at] = torch.where(solved, 0.0, mode)
+    snap = torch.cat([qpos[:7], states[gi, 7:].to(qpos.dtype),
+                      qpos[_HAND_QADR:]])
+    qpos = torch.where(achieved, snap, qpos)
+    cube_dofs = torch.zeros_like(qvel)
+    cube_dofs[6:72] = 1.0
+    qvel = torch.where(achieved, qvel * (1.0 - cube_dofs), qvel)
+    dropped = d.site_xpos[0, cube_site, 2] < -0.12
+    qpos = torch.where(dropped, torch.cat([reset_pose, qpos[7:]]), qpos)
+    qvel = torch.where(dropped, torch.zeros_like(qvel), qvel)
+    return (d.replace(qpos=qpos[None], qvel=qvel[None]),
+            params.replace(residual_params=rp))
+
+  return residual, transition
+
+
 # task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
 # transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
@@ -608,7 +703,8 @@ TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
                             functools.partial(_humanoid, walk=False)),
          'Humanoid Walk': ('humanoid_walk.npz',
                            functools.partial(_humanoid, walk=True)),
-         'Shadow Reorient': ('shadow_reorient.npz', _hand_task)}
+         'Shadow Reorient': ('shadow_reorient.npz', _hand_task),
+         'Cube Solving': ('cube_solving.npz', _cube_solving)}
 
 
 def task_names():

@@ -386,12 +386,14 @@ def test_contact_clusters_match_jax(shadow):
                                                         [15]]
 
 
-@pytest.mark.parametrize('pair,item', [((2, 2), 'A7'), ('hfield', 'A7'),
+@pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('hfield', 'A7'),
                                        ((7, 4), 'A6'), ((3, 3), 'A6')])
 def test_unported_pairs_raise(shadow, pair, item):
-  """No pair falls back to nothing: mesh-mesh and height fields raise
-  naming A7, the other primitive pairs A6, in narrowphase, in the point
-  count and when a model with such a pair builds its contact table."""
+  """No pair falls back to nothing: a mesh before a plane (the pair order
+  no collider takes) and height fields raise naming A7, the other
+  primitive pairs A6, in narrowphase, in the point count and when a model
+  with such a pair builds its contact table. (Mesh-mesh, refused here
+  before Cube Solving's slice, is ported: test_mesh_mesh_cluster_raises.)"""
   _, m, d, _, _ = shadow
   if pair == 'hfield':
     m = m.replace(geom_type=(int(model_lib.GeomType.HFIELD),)
@@ -407,9 +409,17 @@ def test_unported_pairs_raise(shadow, pair, item):
 
 def test_mesh_mesh_cluster_raises(shadow):
   """Eight condim-1 mesh-mesh pairs of one hull shape form JAX's mm
-  cluster, with its dynamic rows: refused, naming A7."""
-  _, m, _, _, _ = shadow
+  cluster, with its dynamic rows. Refused before Cube Solving's slice;
+  now no condim group takes them (contact_table), dyn_table does, and
+  its rows are the cluster's min(contact capacity, 8 x 8 candidates)
+  deepest; a mesh-mesh pair outside a cluster goes through narrowphase's
+  own collider. Nothing raises."""
+  _, m, d, _, _ = shadow
   m = m.replace(collision_pairs=((2, 2),) * 8,
                 geom_condim=tuple(1 for _ in m.geom_condim))
-  with pytest.raises(NotImplementedError, match='mesh-mesh.*ROADMAP A7'):
-    constraint.contact_table(m)
+  assert constraint.contact_table(m) == ()
+  m = m.replace(contact=(), contact_dyn=constraint.dyn_table(m))
+  assert len(m.contact_dyn) == 1
+  rows = constraint._dyn_contact_rows(m, fwd.forward(m, d))
+  assert rows.j.shape == (d.batch, 64, m.nv)
+  assert len(collision.narrowphase(m, d, 2, 2)) == 8

@@ -83,8 +83,8 @@ def test_wrapper_takes_plain_version_on_cpu():
 
 def test_kernel_tiles_and_shared_memory_follow_the_buckets():
   """kernel_lanes and block_smem_bytes against the bucket list and the
-  kernel's source: its dispatch, its block size and its 48 KB of static
-  shared memory."""
+  kernel's source: its dispatch, its block sizes and its 48 KB of static
+  shared memory, in tiles up to TILE_N and a block a system above."""
   with open(os.path.join(os.path.dirname(os.path.dirname(
       os.path.abspath(__file__))), 'mujoco_mpc_tpu_torch', 'csrc',
                          'chol_solve.cu')) as f:
@@ -92,7 +92,13 @@ def test_kernel_tiles_and_shared_memory_follow_the_buckets():
   assert tuple(sorted({int(k) for k in re.findall(r'launch<(\d+)>', src)})
                ) == spd_solve.N_BUCKETS
   assert f'kThreads = {spd_solve.THREADS};' in src
-  for n in range(1, spd_solve.MAX_N + 1):
+  assert f'kWideThreads = {spd_solve.WIDE_THREADS};' in src
+  for n in range(spd_solve.TILE_N + 1, spd_solve.MAX_N + 1):
+    bucket = min(k for k in spd_solve.N_BUCKETS if k >= n)
+    assert spd_solve.kernel_lanes(n) == spd_solve.WIDE_THREADS
+    smem = spd_solve.block_smem_bytes(n)
+    assert smem == 4 * (bucket * (bucket + 1) + 2 * bucket) <= 48 * 1024
+  for n in range(1, spd_solve.TILE_N + 1):
     bucket = min(k for k in spd_solve.N_BUCKETS if k >= n)
     lanes = spd_solve.kernel_lanes(n)
     assert lanes in (2, 4, 8) and (lanes >= bucket or lanes == 8)
@@ -103,7 +109,7 @@ def test_kernel_tiles_and_shared_memory_follow_the_buckets():
   assert [spd_solve.kernel_lanes(n) for n in (1, 2, 3, 5, 9, 17, 32)] == [
       2, 2, 4, 8, 8, 8, 8]
   assert spd_solve.block_smem_bytes(18) == 10944   # 8 systems of 18 x 19
-  for n in (0, 33):
+  for n in (0, spd_solve.MAX_N + 1):
     for fn in (spd_solve.kernel_lanes, spd_solve.block_smem_bytes):
       with pytest.raises(ValueError):
         fn(n)

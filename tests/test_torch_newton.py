@@ -8,6 +8,8 @@ regenerated with numpy, and on Cartpole-shaped inputs.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -232,3 +234,28 @@ def test_shared_memory_footprint():
   # a tile per sample: the power of two at or above the bucket
   assert [newton.kernel_lanes(nv) for nv in (1, 2, 3, 8, 9, 13, 18, 32)] \
       == [2, 2, 4, 8, 16, 32, 32, 32]
+
+
+def test_block_instance_shared_memory():
+  """Above nv 32 a block solves a sample: Cube Solving's shapes (nv 87 in
+  the 96 bucket, 384 dense rows, 30 one-hot, 66 frictionloss) take
+  98,316 bytes, two blocks an SM; the wrapper's constants are the
+  kernel's (csrc/newton.cu kWideThreads, kChunk, the 48/64/96 dispatch)."""
+  # M and H at stride 97, 6 vectors, 32 staged rows and their 2 weights,
+  # 5 floats a dense row, 2 a one-hot row, 3 a frictionloss row, 8 a warp
+  # for the sums, the active count
+  floats = (2 * 96 * 97 + 6 * 96 + 32 * 98 + 5 * 384 + 2 * 30 + 3 * 66
+            + 8 * 8 + 1)
+  assert newton.sample_smem_bytes(87, 384, 30, (), 66) == 4 * floats == 98316
+  assert 2 * 98316 <= newton.SMEM_LIMIT
+  with open(os.path.join(os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), 'mujoco_mpc_tpu_torch', 'csrc',
+                         'newton.cu')) as f:
+    src = f.read()
+  assert f'kWideThreads = {newton.WIDE_THREADS};' in src
+  assert f'kChunk = {newton.WIDE_CHUNK};' in src
+  wide = sorted({int(k) for k in re.findall(r'MJPC_NEWTON_WIDE\((\d+)\)',
+                                             src)})
+  assert tuple(wide) == tuple(b for b in newton.NV_BUCKETS
+                              if b > newton.TILE_NV)
+  assert newton.MAX_NV == wide[-1]

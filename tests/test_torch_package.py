@@ -20,6 +20,7 @@
 
 import collections
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -139,6 +140,45 @@ def test_shadow_reorient_steps_without_jax_or_mujoco():
   assert proc.stdout.split() == ['21', '32', '[2]', '27', '1']
 
 
+def test_cube_solving_steps_without_jax_or_mujoco():
+  """Cube Solving's hulls, frictionloss constants and scramble travel in
+  the snapshot: one CPU step from `home` runs its mesh-mesh, capped and
+  frictionloss rows, residual, cost and transition with nothing of JAX or
+  mujoco importable, and reaches both kernels' device dispatch at n and
+  nv 87 (B1 for qacc_smooth and the Euler system, B2 once), where a CUDA
+  tensor launches the block instances."""
+  proc = _run(BLOCK + (
+      "import torch\n"
+      "from mujoco_mpc_tpu_torch.ops import newton, spd_solve\n"
+      "from mujoco_mpc_tpu_torch.physics import forward\n"
+      "from mujoco_mpc_tpu_torch.physics.model import make_data\n"
+      "from mujoco_mpc_tpu_torch.tasks import registry\n"
+      "calls = []\n"
+      "solve, newt = spd_solve._solve, newton._newton\n"
+      "def rec_solve(a, b):\n"
+      "  calls.append(('chol_solve', b.shape[1]))\n"
+      "  return solve(a, b)\n"
+      "def rec_newton(*args, **kw):\n"
+      "  calls.append(('newton', args[1].shape[1], args[2].shape[1],\n"
+      "                kw['friction'][0].shape[1]))\n"
+      "  return newt(*args, **kw)\n"
+      "spd_solve._solve, newton._newton = rec_solve, rec_newton\n"
+      "spec = registry.get_task('Cube Solving', device='cpu')\n"
+      "m, p = spec.model, spec.default_params\n"
+      "d = make_data(m).replace(qpos=m.keyframe_qpos('home')[None])\n"
+      "d = forward.step(m, d)\n"
+      "d, p = spec.transition_fn(m, forward.forward(m, d), p, None)\n"
+      "c = spec.cost(spec.residual_fn(m, d, p.residual_params), p)\n"
+      "print(m.nv, len(m.collision_pairs), len(m.geom_mesh),\n"
+      "      spec.num_residual, int(torch.isfinite(c).all()\n"
+      "      and torch.isfinite(d.qpos).all()), calls[:3])\n"))
+  assert proc.returncode == 0, proc.stderr
+  nv, pairs, hulls, nres, ok, calls = proc.stdout.split(maxsplit=5)
+  assert (nv, pairs, hulls, nres, ok) == ('87', '507', '26', '46', '1')
+  assert calls.strip() == ("[('chol_solve', 87), ('newton', 87, 384, 66), "
+                           "('chol_solve', 87)]")
+
+
 def test_particle_and_swimmer_plan_without_jax_or_mujoco():
   """Particle (Euler, limit rows) and Swimmer (fluid drag, the implicit
   integrator) load, take a transition and run one iLQG iteration through
@@ -232,6 +272,40 @@ def test_ilqg_task_snapshots_are_current(name):
   _check_snapshot(name)
 
 
+def test_cube_snapshot_is_current():
+  """The 26 cubelet hulls, the frictionloss constants
+  ('model/dof_frictionloss', '.../dof_friction_solref', '.../solimp') and
+  the scramble ('task/states', 'task/cache', float32 as JAX holds them)
+  included."""
+  _check_snapshot('Cube Solving')
+
+
+def test_refusals_name_their_item_not_a_number(no_plain):
+  """What the port does not take names its reason or its ROADMAP item by
+  title, never by a queue number that moves when the ROADMAP is
+  re-anchored: Humanoid Track's CMU branch, the goal-schedule branch of
+  the hand task, and the kernel instances' limits."""
+  track = registry.get_task('Humanoid Track', device='cpu')
+  messages = []
+  for call in (
+      lambda: registry._humanoid_track(track, {'marker_sites': 0}),
+      lambda: registry._hand_task(track, {'goal_schedule': 0}),
+      lambda: newton.newton(*_newton_args(nv=40), *_group_args(nv=40)[0],
+                            cap=8, tol=1e-5, condims=(3,),
+                            dmasks=(_group_args(nv=40)[1],)),
+      lambda: newton.newton(*_newton_args(), cap=8, tol=1e-5, friction=(
+          _meta(4, 2), _meta(4, 2), _meta(2),
+          _meta(2, dtype=torch.int32)))):
+    with pytest.raises((NotImplementedError, ValueError)) as err:
+      call()
+    messages.append(str(err.value))
+  for msg in messages:
+    assert not re.search(r'item \d|Queue [A-C] item', msg), msg
+  assert 'CMU clip files are absent' in messages[0]
+  assert 'no registered task' in messages[1]
+  assert all('ROADMAP' in msg for msg in messages[2:])
+
+
 def test_port_uses_no_compiler_or_jit():
   pkg = os.path.join(ROOT, 'mujoco_mpc_tpu_torch')
   for dirpath, _, files in os.walk(pkg):
@@ -318,7 +392,7 @@ def _malformed(case):
     ((_meta(8, 3, 3, dtype=torch.float16), _meta(8, 3, dtype=torch.float16)),
      TypeError),
     ((_meta(8, 0, 0), _meta(8, 0)), ValueError),
-    ((_meta(8, 33, 33), _meta(8, 33)), ValueError),
+    ((_meta(8, 97, 97), _meta(8, 97)), ValueError),
     ((_meta(8, 3, 3), _meta(8, 4)), ValueError),
     ((_meta(8, 3, 3).transpose(1, 2), _meta(8, 3)), ValueError),
     ((_meta(8, 3, 3), _meta(8, 6)[:, ::2]), ValueError),
@@ -337,7 +411,7 @@ def test_spd_wrapper_refuses(no_plain, monkeypatch, args, error):
 @pytest.mark.parametrize('kwargs,error', [
     (dict(dtype=torch.float64), TypeError),
     (dict(dof_dtype=torch.int64), TypeError),
-    (dict(nv=33), ValueError),
+    (dict(nv=97), ValueError),
 ])
 def test_newton_wrapper_refuses(no_plain, kwargs, error):
   with pytest.raises(error):

@@ -5,16 +5,18 @@ Run from the repository root on a machine with an NVIDIA GPU:
     python3 tools/chol_check.py [timing]
 
 It builds csrc/chol_solve.cu only and prints ptxas's register, stack and
-spill report for every bucket instance (N 1 to 32) with the shared memory
-a block takes, then runs chip_smoke.py's B1 checks against the plain
-version (phase 3a: every n from 1 to 32 at B 1, 8192 and 8193; 3c, 3e, 3f
-and 3g: the Cartpole, Quadruped, Humanoid Track and Shadow Reorient
-steps' inputs, same tolerances) and times the kernel, the plain version
-and torch.linalg's cholesky_ex + cholesky_solve at n 2 (B 8192, the
-Cartpole step's systems), n 18 (B 4096, the Quadruped's), n 23 (B 512,
-the Humanoid's), n 21 (B 8192, Shadow's) and n 24 and 32 (B 4096, random
-systems), each with its
-bound, beside the card's name and power limit. A failed check exits
+spill report for every bucket instance (N 1 to 32 in tiles, 48, 64 and 96
+a block a system) with the shared memory a block takes, then runs
+chip_smoke.py's B1 checks against the plain version (phase 3a: every n
+from 1 to 32 at B 1, 8192 and 8193; 3j: n 33-96 at B 1, 512 and 513; 3c,
+3e, 3f, 3g and 3l: the Cartpole, Quadruped, Humanoid Track, Shadow
+Reorient and Cube Solving steps' inputs, same tolerances) and times the
+kernel, the plain version and torch.linalg's cholesky_ex +
+cholesky_solve at n 2 (B 8192, the Cartpole step's systems), n 18 (B
+4096, the Quadruped's), n 23 (B 512, the Humanoid's), n 21 (B 8192,
+Shadow's), n 87 (B 512, Cube Solving's), n 24 and 32 (B 4096, random
+systems) and n 48 and 96 (B 512, random systems), each with its bound,
+beside the card's name and power limit. A failed check exits
 non-zero at once; a spilling instance, after the timing. With `timing` it
 skips the checks.
 """
@@ -49,6 +51,7 @@ def main():
   gen = torch.Generator(device=cs.DEV).manual_seed(0)
   if checks:
     cs.check_spd_random(gen)
+    cs.check_spd_wide(gen)
   shapes = []
   for name, states, tol, phase, plain_reps in (
       ('Cartpole', cs.cartpole_states, 1e-5, '3c', cs.TIME_REPS),
@@ -56,9 +59,12 @@ def main():
       ('Humanoid Track', cs.humanoid_states, 1e-4, '3f',
        cs.HUMAN_PLAIN_REPS),
       ('Shadow Reorient', cs.shadow_states, 1e-4, '3g',
-       cs.SHADOW_PLAIN_REPS)):
+       cs.SHADOW_PLAIN_REPS),
+      ('Cube Solving', cs.cube_states, None, '3l', cs.PLAIN_REPS)):
     task = registry.get_task(name, device=cs.DEV)
     spd_in, _ = cs.solver_inputs(task, states(task, gen))
+    if tol is None:
+      tol = cs.spd_tolerance(spd_in[0])[0]
     if checks:
       _, err = cs.check_spd_inputs(spd_in, tol, name)
       print(f'phase {phase} {name} step inputs (B {spd_in[0].shape[0]}, n '
@@ -68,6 +74,8 @@ def main():
   shapes += [
       (cs.random_spd(gen, cs.QUAD_SAMPLES, n), cs.SPD_EXTRA_PLAIN_REPS)
       for n in cs.SPD_EXTRA_N]
+  shapes += [(cs.random_spd(gen, cs.CUBE_SAMPLES, n), cs.PLAIN_REPS)
+             for n in (48, 96)]
   for spd_in, plain_reps in shapes:
     print(f'timing per call, wall (median of {cs.TIME_REPS}, CUDA events) / '
           'device only (profiler): '

@@ -10,6 +10,14 @@ changing a task's MJCF or the port's Model fields:
 
 tests/test_torch_package.py re-exports in memory and fails when a
 committed snapshot is stale.
+
+    python tools/export_torch_snapshot.py --cube-golden
+
+writes assets/cube_solving_golden.npz instead: one Cube Solving step at
+two states and a 4-candidate x 3-step plan, computed by the JAX package
+in float64 (~7 minutes on a CPU, most of it compiling the JAX step once),
+which tests/test_torch_cube.py holds the port to; the file records its
+inputs, the JAX version and this command.
 """
 
 from __future__ import annotations
@@ -50,6 +58,9 @@ def model_snapshot(m):
   arrays = {k: np.asarray(getattr(m, k)) for k in port_model.ARRAY_FIELDS}
   arrays.update({'opt.' + k: np.asarray(getattr(m.opt, k))
                  for k in port_model.OPTION_ARRAYS})
+  if m.friction_dof:
+    arrays.update({k: np.asarray(getattr(m, k))
+                   for k in port_model.FRICTION_ARRAYS})
   for g, hull in (m.geom_mesh or {}).items():
     arrays.update({f'geom_mesh/{int(g)}/{part}': np.asarray(a)
                    for part, a in zip(port_model.HULL_ARRAYS, hull)})
@@ -74,8 +85,17 @@ def track_arrays(spec):
   return out
 
 
+def rubik_arrays(spec):
+  """Cube Solving's scramble, which JAX keeps in its transition's closure
+  (registry.py :1015, :1023-1024): the exact cube states and their face
+  angles, float32 as the task holds them."""
+  env = inspect.getclosurevars(spec.transition_fn).nonlocals
+  return {'states': np.asarray(env['states']),
+          'cache': np.asarray(env['cache'])}
+
+
 # task name -> its arrays beside Model and TaskParams ('task/<name>')
-TASK_ARRAYS = {'Humanoid Track': track_arrays}
+TASK_ARRAYS = {'Humanoid Track': track_arrays, 'Cube Solving': rubik_arrays}
 
 
 def task_snapshot(spec):
@@ -103,12 +123,190 @@ def task_snapshot(spec):
   return arrays, json.loads(json.dumps(static, sort_keys=True))
 
 
+# ---------------------------------------------------------------------------
+# Cube Solving's golden: a JAX Cube Solving step compiles for minutes, so
+# tests/test_torch_cube.py holds the port's slice to this file.
+# ---------------------------------------------------------------------------
+
+CUBE_GOLDEN = 'cube_solving_golden.npz'
+GOLDEN_CANDIDATES, GOLDEN_STEPS, GOLDEN_KNOTS = 4, 3, 10
+GOLDEN_COMMAND = 'python tools/export_torch_snapshot.py --cube-golden'
+
+
+def cube_contact_state(home):
+  """Cube Solving's qpos with the cube lowered 3 cm, 4 mm into the palm
+  (`home` holds its lowest point 7 mm above), its six faces turned
+  0.1-0.3 rad off their detents and its 20 ring cubelets rattled by ~0.05
+  rad, so that cubelets interpenetrate (numpy, seeded)."""
+  rng = np.random.default_rng(7)
+  q = np.array(home, dtype=np.float64)
+  q[2] -= 0.03
+  q[7:13] += rng.choice([-1.0, 1.0], 6) * rng.uniform(0.1, 0.3, 6)
+  ring = q[13:93].reshape(20, 4) + 0.025 * rng.normal(size=(20, 4))
+  q[13:93] = (ring / np.linalg.norm(ring, axis=1, keepdims=True)).ravel()
+  return q
+
+
+def cube_golden_inputs(home, nv, nu):
+  """The golden's inputs (numpy, seeded): two states for the step
+  (`home` and cube_contact_state, random velocities and controls), and
+  the plan's nominal knots and candidate noise."""
+  rng = np.random.default_rng(11)
+  return {
+      'step/qpos': np.stack([home, cube_contact_state(home)]),
+      'step/qvel': rng.normal(scale=0.1, size=(2, nv)),
+      'step/ctrl': rng.normal(scale=0.3, size=(2, nu)),
+      'plan/values': rng.uniform(-0.5, 0.5, (GOLDEN_KNOTS, nu)),
+      'plan/eps': rng.normal(size=(GOLDEN_CANDIDATES, GOLDEN_KNOTS, nu)),
+      'plan/use2': rng.uniform(size=GOLDEN_CANDIDATES) < 0.2,
+  }
+
+
+def cube_step(spec, inputs):
+  """The port's Cube Solving step (a float64 CPU spec) at the golden's
+  states: qacc, qfrc_constraint, the residual and the next qpos, qvel."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+  q, v, u = (torch.from_numpy(np.asarray(inputs['step/' + k]))
+             for k in ('qpos', 'qvel', 'ctrl'))
+  d = fwd.forward(m, make_data(m, q.shape[0]).replace(qpos=q, qvel=v,
+                                                       ctrl=u))
+  d2 = fwd.integrate(m, d)
+  return {'qacc': d.qacc.numpy(), 'qfrc_constraint':
+          d.qfrc_constraint.numpy(), 'residual': spec.residual_fn(
+              m, d, spec.default_params.residual_params).numpy(),
+          'next_qpos': d2.qpos.numpy(), 'next_qvel': d2.qvel.numpy()}
+
+
+def cube_plan(spec, inputs, candidates=False):
+  """The port's Predictive Sampling plan (a float64 CPU spec) from `home`
+  with the golden's knots and noise: its returns and winner; with
+  `candidates`, also each candidate's actions (K + 1, T, nu) and the
+  nominal's knot times, from the port's spline."""
+  import torch
+  from mujoco_mpc_tpu_torch.ops import spline
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.planners import sampling
+  m = spec.model
+  interp = int(spline.Interp.ZERO)
+  d0 = make_data(m).replace(qpos=m.keyframe_qpos('home')[None])
+  cfg = sampling.default_config(spec)
+  pol = sampling.SamplingPolicy(
+      torch.linspace(0.0, 1.0, GOLDEN_KNOTS, dtype=torch.float64),
+      torch.from_numpy(np.asarray(inputs['plan/values'])))
+  eps = torch.from_numpy(np.asarray(inputs['plan/eps']))
+  use2 = torch.from_numpy(np.asarray(inputs['plan/use2']))
+  _, info = sampling.optimize(spec, pol, d0, spec.default_params, cfg,
+                              (eps, use2), GOLDEN_STEPS, interp)
+  out = {'returns': info['returns'].numpy(),
+         'winner': np.asarray(int(info['winner']))}
+  if candidates:
+    nominal = sampling.resample_nominal(spec, pol, d0.time[0], GOLDEN_STEPS,
+                                        cfg, interp)
+    out['cands'] = sampling.candidates_from_noise(spec, nominal, eps, use2,
+                                                  cfg).numpy()
+    out['times'] = nominal.times.numpy()
+    out['timestep'] = float(cfg.timestep)
+  return out
+
+
+def jax_cube_golden(inputs):
+  """The golden's outputs from the JAX package in float64: its step
+  (forward, residual, Euler) jitted once with XLA's quick compile and
+  called a sample at a time, at the step's states, and over the plan's
+  candidates (the nominal first; knots -> actions by JAX's spline) for
+  GOLDEN_STEPS steps, summed to returns by JAX's rollout."""
+  import jax
+  import jax.numpy as jnp
+  import torch
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  from mujoco_mpc_tpu.planners import rollout as jrollout
+  from mujoco_mpc_tpu.planners import sampling as jsampling
+  from mujoco_mpc_tpu.tasks import registry
+  from mujoco_mpc_tpu_torch.ops import spline
+  jax.config.update('jax_enable_x64', True)
+  jspec = registry.get_task('Cube Solving')
+  f64 = lambda t: jax.tree.map(  # noqa: E731
+      lambda x: x.astype(jnp.float64)
+      if jnp.issubdtype(getattr(x, 'dtype', np.int32), jnp.floating) else x,
+      t)
+  jm, jp = f64(jspec.model), f64(jspec.default_params)
+  jd0 = jmake_data(jm, dtype=jnp.float64)
+
+  def one(q, v, u):
+    d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
+    res = jspec.residual_fn(jm, d, jp.residual_params)
+    d2 = jfwd.integrate(jm, d)
+    return (d.qacc, d.qfrc_constraint, res, jspec.cost(res, jp), d2.qpos,
+            d2.qvel)
+
+  q0, v0, u0 = (jnp.asarray(inputs['step/' + k][0])
+                for k in ('qpos', 'qvel', 'ctrl'))
+  step = jax.jit(one).lower(q0, v0, u0).compile(compiler_options={
+      'xla_backend_optimization_level': 0,
+      'xla_llvm_disable_expensive_passes': True})
+
+  def run(q, v, u):
+    outs = [step(*(jnp.asarray(x[i]) for x in (q, v, u)))
+            for i in range(len(q))]
+    return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(6)]
+
+  out = {}
+  qacc, qfrc, res, _, qpos, qvel = run(
+      *(inputs['step/' + k] for k in ('qpos', 'qvel', 'ctrl')))
+  out.update({'step/qacc': qacc, 'step/qfrc_constraint': qfrc,
+              'step/residual': res, 'step/next_qpos': qpos,
+              'step/next_qvel': qvel})
+  port = port_registry.get_task('Cube Solving', device='cpu',
+                                dtype=torch.float64)
+  plan = cube_plan(port, inputs, candidates=True)
+  acts = np.asarray(jax.vmap(lambda vals: jsampling.candidate_actions(
+      jnp.asarray(plan['times']), vals, GOLDEN_STEPS, plan['timestep'],
+      int(spline.Interp.ZERO)))(jnp.asarray(plan['cands'])))
+  k = acts.shape[0]
+  q = np.tile(np.asarray(jm.keyframe_qpos('home')), (k, 1))
+  v = np.zeros((k, jm.nv))
+  costs = []
+  for t in range(GOLDEN_STEPS):
+    *_, cost, q, v = run(q, v, acts[:, t])
+    costs.append(cost)
+  returns = np.asarray(jrollout.total_return(jnp.stack(costs, -1)))
+  out.update({'plan/returns': returns,
+              'plan/winner': np.asarray(int(np.argmin(returns)))})
+  return out
+
+
+def write_cube_golden(path):
+  """Write Cube Solving's golden (inputs, JAX outputs, provenance)."""
+  import jax
+  from mujoco_mpc_tpu.tasks import registry
+  m = registry.get_task('Cube Solving').model
+  inputs = cube_golden_inputs(np.asarray(m.keyframe_qpos('home'),
+                                         np.float64), m.nv, m.nu)
+  out = jax_cube_golden(inputs)
+  np.savez(path, **inputs, **out,
+           provenance=np.asarray(json.dumps({
+               'jax': jax.__version__, 'dtype': 'float64',
+               'command': GOLDEN_COMMAND,
+               'inputs': 'cube_golden_inputs: numpy default_rng(11); '
+                         'cube_contact_state: default_rng(7)'})))
+
+
 def write(path: str, arrays: dict, static: dict) -> None:
   np.savez(path, static=np.asarray(json.dumps(static, sort_keys=True)),
            **arrays)
 
 
 def main():
+  if '--cube-golden' in sys.argv[1:]:
+    path = os.path.join(port_registry.ASSETS, CUBE_GOLDEN)
+    write_cube_golden(path)
+    print(f'wrote {os.path.relpath(path, ROOT)} '
+          f'({os.path.getsize(path)} bytes)')
+    return
   from mujoco_mpc_tpu.tasks import registry
   for name, (fname, _) in port_registry.TASKS.items():
     path = os.path.join(port_registry.ASSETS, fname)

@@ -6,12 +6,15 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
 It builds csrc/newton.cu only and prints ptxas's register, stack and
 spill report for each nv bucket (a spill fails the run at its end), then
-runs chip_smoke.py's B2 checks against the plain version (phases 3b-3g:
-random dense and one-hot rows, the Cartpole step's inputs, random contact
-groups, the Quadruped, Humanoid Track and Shadow Reorient steps' inputs)
-and phase 4's B2 timing at the four paths' shapes, with the bound and the
+runs chip_smoke.py's B2 checks against the plain version (phases 3b-3g,
+3k and 3l: random dense and one-hot rows, the Cartpole step's inputs,
+random contact groups, the Quadruped, Humanoid Track and Shadow Reorient
+steps' inputs, the block instance's random dense, one-hot and
+frictionloss rows at nv 33 and 96, the Cube Solving step's inputs) and
+phase 4's B2 timing at the five paths' shapes, with the bound and the
 card's name and power limit; then the time by iteration cap at each shape
-(Shadow's at one block of 4 samples an SM), and at the
+(Shadow's at one block of 4 samples an SM, Cube Solving's at a block a
+sample), and at the
 Quadruped shapes the time on states from three seeds with the iterations
 per sample they take, the profiler's records counted both ways. Any
 failed check exits non-zero. With `timing` it skips the checks (about 6
@@ -92,6 +95,7 @@ def main():
     print(f'phase 3c Cartpole step inputs (B {cs.CART_SAMPLES}, {active} '
           f'active limit rows): newton rel err {err:.3g} (tol 1e-4)')
     cs.check_newton_groups(gen)
+    cs.check_newton_wide(gen)
   shapes = {}
   for name, states, phase in (('Quadruped Flat', cs.quadruped_states, '3e'),
                               ('Humanoid Track', cs.humanoid_states, '3f'),
@@ -106,6 +110,16 @@ def main():
       print(f'phase {phase} {name} step inputs (B {args[1].shape[0]}): '
             f'{line}')
     shapes[name] = (task, args, gargs, kw)
+  cube = registry.get_task('Cube Solving', device=cs.DEV)
+  _, (c_args, _, _, _, c_fric) = cs.solver_inputs(
+      cube, cs.cube_states(cube, gen), friction=True)
+  c_kw = dict(cap=cube.model.opt.iterations, tol=1e-5, friction=c_fric)
+  if checks:
+    nbad, gap, _, bad_gap = cs.compare_newton(c_args, **c_kw)
+    cs.newton_ok('Cube Solving inputs', c_args[1].shape[0], nbad, gap,
+                 bad_gap)
+    print(f'phase 3l Cube Solving step inputs (B {c_args[1].shape[0]}): '
+          + cs.newton_line(nbad, c_args[1].shape[0], gap, bad_gap))
 
   timed = [(f'Cartpole B {cs.CART_SAMPLES} nv 2 ns 2 cap {cart_cap}',
             cart_args, (), dict(cap=cart_cap, tol=1e-5), None)]
@@ -116,6 +130,11 @@ def main():
         f'{kw["cap"]}', args, gargs, kw,
         {'Humanoid Track': cs.HUMAN_PLAIN_REPS,
          'Shadow Reorient': cs.SHADOW_PLAIN_REPS}.get(name)))
+  timed.append((
+      f'Cube B {c_args[1].shape[0]} nv {cube.model.nv} n '
+      f'{c_args[2].shape[1]} ns {c_args[6].shape[1]} nf '
+      f'{c_fric[0].shape[1]} cap {c_kw["cap"]}', c_args, (), c_kw,
+      cs.PLAIN_REPS))
   for label, args, gargs, kw, plain_reps in timed:
     print(f'phase 4 timing per call, wall (median of {cs.TIME_REPS}, CUDA '
           f'events) / device only (profiler): '

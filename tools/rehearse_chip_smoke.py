@@ -7,12 +7,13 @@ profiler's device times are 0. It checks the script's paths, shapes and
 control flow before a run on the card; none of its numbers is a device
 measurement. Run from the repository root (a few minutes):
 
-    python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners]
+    python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
 at `candidates`, goldens at 32 candidates, 2 timed iterations, testspeed
-over 0.05 s at 8 samples).
+over 0.05 s at 8 samples), with `cube` tools/cube_check.py (Cube
+Solving's phases at `candidates`, its golden at 8).
 """
 
 import os
@@ -61,11 +62,11 @@ def _fake_build(name):
   every bucket instance in ptxas's format, with no registers or spills."""
   lib = os.path.join(ROOT, 'build', 'rehearsal', name + '.so')
   os.makedirs(os.path.dirname(lib), exist_ok=True)
-  kernel, buckets = (('chol_solve_kernel', spd_solve.N_BUCKETS)
-                     if name == 'chol_solve'
-                     else ('newton_kernel', newton.NV_BUCKETS))
+  buckets = (spd_solve.N_BUCKETS if name == 'chol_solve'
+             else newton.NV_BUCKETS)
   with open(lib + '.log', 'w') as f:
     for nb in buckets:
+      kernel = chip_smoke.kernel_name(name, nb)
       f.write(f"ptxas info : Compiling entry function '{kernel}ILi{nb}E' "
               "(rehearsal)\n"
               'ptxas info : 0 bytes stack frame, 0 bytes spill stores, 0 '
@@ -74,7 +75,7 @@ def _fake_build(name):
 
 
 def main():
-  modes = ('ilqg', 'planners')
+  modes = ('ilqg', 'planners', 'cube')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -92,6 +93,10 @@ def main():
   chip_smoke.FORCED_ITERS = 1
   chip_smoke.TESTSPEED_TIME = 0.05
   chip_smoke.TESTSPEED_SAMPLES = 8
+  chip_smoke.CUBE_SAMPLES = samples
+  chip_smoke.CUBE_HOME = samples // 4
+  chip_smoke.CUBE_PLANS = 2
+  chip_smoke.CUBE_GOLDEN_SAMPLES = 8
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -118,6 +123,10 @@ def main():
   elif mode == 'planners':
     from tools import planner_check
     planner_check.main()
+  elif mode == 'cube':
+    from tools import cube_check
+    sys.argv = sys.argv[:1]
+    cube_check.main()
   else:
     chip_smoke.main()
 
