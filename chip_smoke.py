@@ -43,7 +43,7 @@ Phases, one line each (any failure exits non-zero):
      2048 with the derivative tangent at B 500, Robust's re-rollouts at B
      60 under body wrenches; each also checked against its plain
      version), and B1 at n 24 and 32
-     (B 4096, random systems), wall per call (CUDA events, median of 10;
+     (B 4096, random systems), wall per call (CUDA events, median of 5;
      the plain versions over one call) and
      device time (profiler), with each kernel's bound and its device time
      as a multiple of the bound;
@@ -70,7 +70,7 @@ Phases, one line each (any failure exits non-zero):
   15. Shadow Reorient golden: the bounds of phase 9;
   16. Shadow Reorient plan-act: as phase 10;
   17. Particle iLQG main path: make_planner(spec, ILQG, 8, 51, 10) from
-     the task's start (bench.py's particle_ilqg), a warm-up and 3 timed
+     the task's start (bench.py's particle_ilqg), a warm-up and 2 timed
      iterations: p50, plans/s, the wall split into line search,
      derivatives and Riccati, both kernels' launches per iteration (and
      B1 at B (T - 1) D in the derivative pass), the escalation's host
@@ -82,12 +82,12 @@ Phases, one line each (any failure exits non-zero):
      within 1e-3 relative, best_return within 0.02, the same winning
      scale;
   19. Swimmer iLQG main path: 8 x 201 (bench.py's swimmer_ilqg), 1 timed
-     iteration, as phase 17;
+     iteration, as phase 17 but with no profiled iteration;
   20. Swimmer iLQG golden: as phase 18;
   21. the other planners on Cartpole at the flagship's width, 8192
      candidates x 101 steps, 10 knots, from (1.0, 3.14159): Cross
      Entropy, Sample Gradient, Gradient and iLQS through make_planner, a
-     warm-up and 2 timed iterations each: p50, plans/s, both kernels'
+     warm-up and 1 timed iteration each: p50, plans/s, both kernels'
      launches per iteration (checked against the path's rollouts and
      derivative pass), B1 at the derivative tangent's batch, iLQS's host
      reads and iLQG runs, best_return finite and <= nominal_return, and
@@ -112,21 +112,43 @@ Phases, one line each (any failure exits non-zero):
      timed plans from `home` (bench.py's rubik_ps512), checked and
      profiled as in phase 5, both kernels in their block instances (n and
      nv 87), launches per plan beside the prediction (2 T and T);
-  26. Cube Solving golden: a 64-candidate plan, the bounds of phase 9.
+  26. Cube Solving golden: a 64-candidate plan, the bounds of phase 9;
+  27. sensors: Quadruped Flat's sensordata (all 45 columns: 42 USER,
+     zero, and one FRAMEPOS) of phase 3e's task-shaped states after
+     forward, card vs the CPU plain path; then the other sensor types on
+     the models of tests/test_torch_sensors.py (assets/sensor_models.npz,
+     64 MuJoCo-made states each), card vs CPU;
+  28. EKF on Quadruped Flat from `home` (all sensors, ndx 36): a truth
+     simulated on the card, measurements with seeded numpy noise, the
+     filter started off the truth; one update card vs the CPU plain path
+     (qpos, qvel, covariance); 20 updates timed (p50), the kernels'
+     launches an update against the prediction (B1 8, 3 at B 1 and 5 at
+     B 36 in its Jacobians' tangents; B2 2 at B 1), the busy share, and
+     the trunk position (the framepos sensor's) tracked;
+  29. UKF: as phase 28, its 73 sigma points one batch (B1 3, B2 2 an
+     update, at B 73);
+  30. batch estimator: a window of 32 configurations off a card-simulated
+     trajectory, 3 Gauss-Newton iterations, in float64: final cost and z
+     card vs the CPU plain path, the update's p50 (no kernel: inverse
+     dynamics); in float32 its cost trace card vs CPU.
 Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
 B2's block instance on random dense, one-hot and frictionloss rows at nv
 33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
 Cube Solving step gives them (B 512, 64 at `home`, the rest after 15
 steps of rollouts: B1 on qM and the Euler system within n eps32 cond(a),
 B2 with 384 dense rows, 30 one-hot and 66 frictionloss rows by 3e's rule,
-its near ties counted). Beside phase 4: both at Cube Solving's shapes and
-B1 at n 48 and 96 (random systems, B 512).
+its near ties counted); 3m both on the operands of one EKF and one UKF
+update on Quadruped Flat (B1 at B 1, 36 and 73; B2 at B 1 and 73, by
+3d's rule for dense problems). Beside phase 4: both at Cube Solving's
+shapes, B1 at n 48 and 96 (random systems, B 512), and both at the
+estimators' shapes (3m's operands).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all twelve, the iLQG ones
+(top-level keys: the Quadruped path; "paths": all fourteen, the iLQG ones
 at the line search's shapes with B1's derivative tangent under "tangent",
 the planner paths of phases 21-23 with their launches per iteration and
 their golden's best_return relative error, Cube Solving's with its
-golden's), and as the last line {"ok": true, "device": {...}}.
+golden's, and the EKF's and UKF's with their launches, p50 and busy
+share an update), and as the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -171,15 +193,20 @@ NORMAL_ATOL = 1e-4
 # Cube Solving's phases joined): B1's unrolls ~5,000 launches a call at n
 # 23, B2's ~6 times as many
 HUMAN_PLAIN_REPS = 1
-TIME_REPS = 10             # calls a kernel is timed over (30 before Cube
-                           # Solving's phases joined)
+TIME_REPS = 5              # calls a kernel is timed over (30 before Cube
+                           # Solving's phases joined, 10 before the
+                           # estimators')
 # B1 beyond the paths' sizes: the buckets the mesh-hull hands will use,
 # its plain version there timed over a few calls
 # iLQG, bench.py's particle_ilqg / swimmer_ilqg: make_planner(spec, ILQG,
 # 8, T, 10), timed iterations from the task's start
 ILQG_CANDIDATES = 8
-PARTICLE_ITERS = 3
+PARTICLE_ITERS = 2         # 3 before the estimators' phases joined
 SWIMMER_ITERS = 1
+# Swimmer's iLQG iteration is not profiled (its device trace, ~600,000
+# launches, took 133-145 s to read; profiled before the estimators' phases
+# joined): a cut of measurement depth that keeps the run inside its limit
+SWIMMER_PROFILE = False
 # calls the plain versions are timed over in phase 4 at the Cartpole,
 # Quadruped, iLQG, planner and Cube Solving shapes (one plain Newton call
 # is up to ~5,000 launches, and the profiler's passes over them dominated
@@ -187,11 +214,13 @@ SWIMMER_ITERS = 1
 PLAIN_REPS = 1
 # phases 21-24: the other planners
 PLANNER_SAMPLES = 8192     # Cartpole's flagship width
-PLANNER_ITERS = 2          # 5 before Cube Solving's phases joined
+PLANNER_ITERS = 1          # 5 before Cube Solving's phases joined, 2
+                           # before the estimators'
 FORCED_ITERS = 1           # iLQS with its iLQG branch forced
 GOLDEN_SAMPLES = 256
 ROBUST_SAMPLES = 4096      # Quadruped Flat (bench.py's quadruped_ps4096)
-ROBUST_ITERS = 2           # 5 before Cube Solving's phases joined
+ROBUST_ITERS = 1           # 5 before Cube Solving's phases joined, 2
+                           # before the estimators'
 ROBUST_REROLLOUTS = 60     # DEFAULT_NCANDIDATES x DEFAULT_NREPETITIONS
 TESTSPEED_TIME = 0.02      # simulated seconds a planner, one plan (0.2
                            # asked; cut to 0.1, then 0.02, to keep the run
@@ -1217,7 +1246,11 @@ class plain_versions:
 
 class record_batches:
   """Records the batch of every call of the kernels' dispatch (`calls`:
-  [('chol_solve' or 'newton', B), ...]); the calls go on to the kernels."""
+  [('chol_solve' or 'newton', B), ...], as `_record` makes them); the
+  calls go on to the kernels."""
+
+  def _record(self, kind, args, kw):
+    return kind, args[1].shape[0]
 
   def __enter__(self):
     from mujoco_mpc_tpu_torch.ops import newton, spd_solve
@@ -1226,11 +1259,11 @@ class record_batches:
     solve, newt = self.saved
 
     def rec_solve(a, b):
-      self.calls.append(('chol_solve', b.shape[0]))
+      self.calls.append(self._record('chol_solve', (a, b), {}))
       return solve(a, b)
 
     def rec_newton(*args, **kw):
-      self.calls.append(('newton', args[1].shape[0]))
+      self.calls.append(self._record('newton', args, kw))
       return newt(*args, **kw)
     spd_solve._solve, newton._newton = rec_solve, rec_newton
     return self
@@ -1460,12 +1493,13 @@ class split_timer:
      ilqg._backward_with_escalation) = self.saved
 
 
-def ilqg_main_path(spec, iters, candidates):
+def ilqg_main_path(spec, iters, candidates, profile=True):
   """make_planner(spec, ILQG, candidates, T, 10) from the task's start
   (bench.py's particle_ilqg / swimmer_ilqg): one warm-up iteration, then
   `iters` timed ones with the kernels' counts set to 0 just before and
   read just after, their wall split (each stage synchronized) and the
-  kernels' batches recorded, then one profiled iteration."""
+  kernels' batches recorded, then, with `profile`, one profiled
+  iteration (without it, dev_us, ops and top are None)."""
   import torch
   from mujoco_mpc_tpu_torch import agent
   from mujoco_mpc_tpu_torch.ops import newton, spd_solve
@@ -1519,8 +1553,10 @@ def ilqg_main_path(spec, iters, candidates):
         and ('newton', candidates) in rec.calls,
         'B1 and B2 not launched at the line search\'s batch')
   t0 = time.perf_counter()
-  dev_us, ops, top = device_us(lambda: plan.optimize(state, d0, params),
-                               reps=1, top=8, warm=False, host=False)
+  dev_us = ops = top = None
+  if profile:
+    dev_us, ops, top = device_us(lambda: plan.optimize(state, d0, params),
+                                 reps=1, top=8, warm=False, host=False)
   profile_s = time.perf_counter() - t0
   return dict(t_steps=t_steps, p50=statistics.median(lat), lat=lat,
               launches=launches, per_iter=(want_b1, want_b2), reads=reads,
@@ -1546,6 +1582,9 @@ def print_ilqg_path(phase, name, candidates, iters, r):
         f'{r["nominal"]:.5g}')
   print(f'phase {phase} kernel batches (kernel, B): {r["batches"]}; '
         f'derivative directions D = {r["dirs"]}')
+  if r['dev_us'] is None:
+    print(f'phase {phase} profiled iteration: none (measurement depth cut)')
+    return
   print(f'phase {phase} profiled iteration (device trace only, '
         f'{r["profile_s"]:.1f} s): {r["ops"]} device ops, device busy '
         f'{r["dev_us"] / 1e3:.2f} ms = '
@@ -2303,6 +2342,474 @@ def cube_phases(spec, cpu_spec, gen, elapsed):
   return r, rel
 
 
+# ---------------------------------------------------------------------------
+# Phases 27-30: the estimators on Quadruped Flat from `home`.
+# ---------------------------------------------------------------------------
+
+EST_UPDATES = 20           # filter updates timed and tracked (27-29)
+EST_NOISE = 0.01           # sensor noise std (the filter's variance 1e-4)
+EST_START_OFFSET = 0.03    # the filter's first trunk position error (m)
+# B1 and B2 launches a filter update, predicted from the code: the EKF's
+# measurement update runs forward once, inside jacfwd, whose value is the
+# prediction (B1 and B2 at B 1), its tangent B1 twice at B ndx (qM, and
+# the Newton tangent's H solve; the Newton tangent launches no B2); the
+# prediction runs step once, inside jacfwd (B1 twice, B2 once) and its
+# tangent B1 three times at B ndx (qM, H, the Euler system). The UKF runs
+# forward and step once each over its 2 ndx + 1 sigma points.
+EKF_LAUNCHES = {'chol_solve': 8, 'newton': 2}
+UKF_LAUNCHES = {'chol_solve': 3, 'newton': 2}
+SENSOR_ATOL = 1e-4         # phase 27: card vs CPU sensordata
+SENSOR_MODEL_TOL = 1e-3    # 27, the sensor models: |card - CPU| / max(1,
+                           # |CPU|), float32 both
+STATE_TOL = 1e-3           # 28-29: |qpos, qvel card - CPU| / max(1, |CPU|)
+COV_TOL = 1e-2             # 28-29: |P card - P CPU| / max |P CPU|
+TRACK_TOL = 0.02           # 28-29: trunk position error after the updates
+BATCH_WINDOW = 32          # phase 30's window (configurations)
+BATCH_ITERS = 3            # its Gauss-Newton iterations an update
+BATCH_UPDATES = 3          # updates timed
+BATCH_COST_TOL = 1e-3      # 30: final cost, relative, card vs CPU
+BATCH_Z_TOL = 1e-2         # 30: |z card - z CPU| / max |z CPU|
+
+
+def estimator_truth(spec, steps, seed):
+  """The truth on the card: `steps` + 1 states of Quadruped Flat from
+  `home` at rest under the home controls plus 0.1 sin(2 pi t / 0.4) on
+  every actuator, with each state's sensordata (all 45 columns), applied
+  forces (actuator plus constraint: what inverse dynamics gives back) and
+  time; measurements with numpy noise (seed) of std EST_NOISE."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics import sensors
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+  home = m.key_ctrl[m.keyframe_names.index('home')]
+  d = make_data(m).replace(qpos=m.keyframe_qpos('home')[None].clone())
+  out = {k: [] for k in ('qpos', 'qvel', 'ctrl', 'sensor', 'force', 'time')}
+  for t in range(steps + 1):
+    u = home + 0.1 * np.sin(2 * np.pi * t * float(m.opt.timestep) / 0.4)
+    d = d.replace(ctrl=u[None])
+    df = fwd.forward(m, d)
+    for k, v in (('qpos', d.qpos), ('qvel', d.qvel), ('ctrl', d.ctrl),
+                 ('sensor', sensors.sensordata(m, df)),
+                 ('force', df.qfrc_actuator + df.qfrc_constraint),
+                 ('time', d.time)):
+      out[k].append(v[0])
+    d = fwd.integrate(m, df)
+  out = {k: torch.stack(v) for k, v in out.items()}
+  rng = np.random.default_rng(seed)
+  out['meas'] = out['sensor'] + torch.tensor(
+      EST_NOISE * rng.normal(size=tuple(out['sensor'].shape)),
+      dtype=out['sensor'].dtype, device=DEV)
+  return out
+
+
+def filter_start(spec, truth, seed):
+  """The filters' first state: the truth's first, 1e-2 off in every
+  tangent direction and EST_START_OFFSET off in the trunk's position
+  (numpy noise, seed); init_state's covariance and noise."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch.estimators import base
+  m = spec.model
+  dx = 1e-2 * np.random.default_rng(seed).normal(size=(1, base.ndx(m)))
+  dx[0, :3] = EST_START_OFFSET
+  s = base.init_state(m)
+  qp, qv, a = base.perturb(m, truth['qpos'][:1], truth['qvel'][:1],
+                           s.act, torch.tensor(dx, dtype=m.dtype, device=DEV))
+  return s.replace(qpos=qp, qvel=qv, act=a, time=truth['time'][:1])
+
+
+class capture_operands(record_batches):
+  """record_batches with each call's operands (`calls`: [('chol_solve' or
+  'newton', args cloned, kwargs), ...])."""
+
+  def _record(self, kind, args, kw):
+    return kind, tuple(x.clone() for x in args), kw
+
+
+def estimator_kernel_inputs(spec, truth, start):
+  """The kernels' operands in one EKF and one UKF update from `start`:
+  {(kind, filter, B): (args, kwargs)}, the first call of each kind and
+  batch."""
+  from mujoco_mpc_tpu_torch.estimators import kalman, unscented
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  tmpl = make_data(spec.model)
+  out = {}
+  for name, update in (('ekf', kalman.update), ('ukf', unscented.update)):
+    with capture_operands() as cap:
+      update(spec.model, tmpl, start, truth['ctrl'][:1], truth['meas'][:1])
+    for kind, args, kw in cap.calls:
+      out.setdefault((kind, name, args[1].shape[0]), (args, kw))
+  return out
+
+
+def check_estimator_kernels(inputs):
+  """Both kernels against their plain versions on the estimators'
+  operands: B1 within 1e-4 relative, B2 by phase 3d's rule for dense
+  problems (a sample outside rtol 2e-3/atol 1e-3 must be an f32 near tie,
+  relative cost gap <= 1e-5). Returns {(kind, filter, B): max abs error}."""
+  errs = {}
+  for key, (args, kw) in sorted(inputs.items()):
+    kind, name, bsz = key
+    if kind == 'chol_solve':
+      errs[key], rel = check_spd_inputs(args, 1e-4, f'{name} B {bsz}')
+      line = f'chol_solve n {args[0].shape[-1]} rel err {rel:.3g} (tol 1e-4)'
+    else:
+      nbad, gap, errs[key], bad_gap = compare_newton(
+          args[:10], args[10:], **kw)
+      newton_ok(f'{name} inputs', bsz, nbad, gap, bad_gap, share=False)
+      line = (f'newton nv {args[1].shape[1]} {args[2].shape[1]} dense '
+              f'{args[6].shape[1]} one-hot condims {kw["condims"]}: '
+              + newton_line(nbad, bsz, gap, bad_gap, share=False))
+    print(f'phase 3m Quadruped {name.upper()} update\'s {kind} inputs at B '
+          f'{bsz}: {line}')
+  return errs
+
+
+def time_estimator_kernels(inputs, kern):
+  """Phase 4's estimator rows: B1 at the EKF's B 1 and B ndx (its
+  tangents) and the UKF's B 2 ndx + 1, B2 at the EKF's B 1 and the UKF's
+  B 2 ndx + 1, each with its plain version and bound (B1 with the library
+  call). Fills kern['quadruped_ekf'] (B 1; B1's tangent under 'tangent')
+  and kern['quadruped_ukf']."""
+  for name in ('ekf', 'ukf'):
+    keys = sorted(k for k in inputs if k[1] == name)
+    for kind, _, bsz in keys:
+      args, kw = inputs[(kind, name, bsz)]
+      if kind == 'chol_solve':
+        wall, dev, bound_, plain_reps = time_spd(args, PLAIN_REPS)
+        rec = dict(wall=wall, dev=dev, spd_bound=bound_, newton_bound=None)
+        line = spd_timing_line(wall, dev, bound_, plain_reps, args[0])
+      else:
+        wall, dev, bound_, iters = time_newton(args[:10], args[10:], kw,
+                                               PLAIN_REPS)
+        rec = dict(wall=wall, dev=dev, newton_bound=bound_)
+        line = newton_timing_line(
+            f'B {bsz} nv {args[1].shape[1]} ns {args[6].shape[1]} condims '
+            f'{kw["condims"]} cap {kw["cap"]}', wall, dev, bound_, iters,
+            PLAIN_REPS)
+      print(f'phase 4 timing quadruped_{name} per call, wall / device only: '
+            + line)
+      path = kern.setdefault(f'quadruped_{name}', dict(wall={}, dev={}))
+      if name == 'ekf' and bsz > 1:
+        path['tangent'] = dict(rec, newton_bound=None)
+      else:
+        path['wall'].update(rec['wall'])
+        path['dev'].update(rec['dev'])
+        for b in ('spd_bound', 'newton_bound'):
+          if rec.get(b):
+            path[b] = rec[b]
+
+
+def check_sensors(spec, cpu_spec, gen):
+  """Phase 27: sensordata of phase 3e's task-shaped states (B 4096) after
+  forward on the card, against the CPU plain path's: max abs error."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics import sensors
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  d = quadruped_states(spec, gen)
+  got = sensors.sensordata(spec.model, fwd.forward(spec.model, d))
+  m = cpu_spec.model
+  dc = make_data(m, d.batch).replace(qpos=d.qpos.cpu(), qvel=d.qvel.cpu(),
+                                     ctrl=d.ctrl.cpu())
+  want = sensors.sensordata(m, fwd.forward(m, dc))
+  err = float(torch.max(torch.abs(got.cpu() - want)))
+  check(bool(torch.isfinite(got).all()), 'sensordata not finite')
+  check(err <= SENSOR_ATOL, f'sensordata card vs CPU {err:.3g} > '
+        f'{SENSOR_ATOL:g}')
+  print(f'phase 27 sensors: Quadruped Flat sensordata ({m.nsensordata} '
+        f'columns, {len(m.sensor_type)} sensors, the USER ones zero) of '
+        f'B {d.batch} task-shaped states after forward, card vs CPU plain '
+        f'path: max abs err {err:.3g} (tol {SENSOR_ATOL:g})')
+  return err
+
+
+def load_sensor_models(device):
+  """{name: (Model, Data of its states)} from assets/sensor_models.npz
+  (tools/export_torch_snapshot.py --sensor-models), float32."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch.physics import model as model_lib
+  from mujoco_mpc_tpu_torch.tasks import registry
+  out = {}
+  with np.load(os.path.join(registry.ASSETS, 'sensor_models.npz'),
+               allow_pickle=False) as z:
+    for name in sorted({k.split('/')[0] for k in z.files}):
+      pre = f'{name}/model/'
+      m = model_lib.from_arrays(
+          {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)},
+          json.loads(str(z[f'{name}/static'])), device=device,
+          dtype=torch.float32)
+      st = {k: torch.tensor(z[f'{name}/{k}'], dtype=torch.float32,
+                            device=device)
+            for k in ('qpos', 'qvel', 'ctrl', 'time')}
+      out[name] = m, model_lib.make_data(m, st['qpos'].shape[0]).replace(**st)
+  return out
+
+
+def check_sensor_models():
+  """Phase 27's other half: every sensor type the port evaluates beside
+  Quadruped Flat's (joint, frame, gyro, velocimeter, accelerometer,
+  magnetometer, subtree, actuator, clock, force, torque, touch through
+  contact_forces, rangefinder through raycast) on the models of
+  tests/test_torch_sensors.py, each with its 64 MuJoCo-made states as one
+  batch: forward and sensordata on the card against the CPU plain path,
+  |card - CPU| <= SENSOR_MODEL_TOL max(1, |CPU|). Returns the largest
+  such error."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics import sensors
+  card, cpu = load_sensor_models(DEV), load_sensor_models('cpu')
+  worst = 0.0
+  for name in card:
+    got = sensors.sensordata(card[name][0], fwd.forward(*card[name])).cpu()
+    want = sensors.sensordata(cpu[name][0], fwd.forward(*cpu[name]))
+    check(bool(torch.isfinite(got).all()), f'{name} sensordata not finite')
+    err = float(torch.max(torch.abs(got - want)
+                          / torch.clamp(torch.abs(want), min=1.0)))
+    check(err <= SENSOR_MODEL_TOL, f'{name} sensordata card vs CPU {err:.3g}'
+          f' > {SENSOR_MODEL_TOL:g}')
+    types = sorted(set(int(t) for t in card[name][0].sensor_type))
+    print(f'phase 27 sensors: model {name!r} (sensor types {types}, '
+          f'{want.shape[1]} columns), B {want.shape[0]}, card vs CPU plain '
+          f'path: max err / max(1, |CPU|) {err:.3g} (tol '
+          f'{SENSOR_MODEL_TOL:g})')
+    worst = max(worst, err)
+  return worst
+
+
+def _launch_counts():
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  return {'chol_solve': spd_solve.solve_spd.launches,
+          'newton': newton.newton.launches}
+
+
+def _reset_counts():
+  from mujoco_mpc_tpu_torch.ops import newton, spd_solve
+  spd_solve.solve_spd.launches = newton.newton.launches = 0
+
+
+def _to_cpu(state):
+  return state.replace(**{f: getattr(state, f).cpu() for f in (
+      'qpos', 'qvel', 'act', 'time', 'covariance', 'noise_process',
+      'noise_sensor')})
+
+
+def filter_phase(phase, name, update, spec, cpu_spec, truth, start,
+                 predicted):
+  """Phases 28-29: one update on the card against the CPU plain path from
+  the same state and inputs (qpos and qvel within STATE_TOL of max(1,
+  |x|), the covariance within COV_TOL of its largest entry); then
+  EST_UPDATES updates along the truth, each timed (p50), the kernels'
+  launches counted over them (reset just before, read just after) against
+  the prediction, two more updates profiled (the device's trace only) for
+  the busy share, and the
+  trunk position within TRACK_TOL of the truth at the end. Returns the
+  record."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+  tmpl, tmpl_cpu = make_data(m), make_data(cpu_spec.model)
+  u0, y0 = truth['ctrl'][:1], truth['meas'][:1]
+  got = update(m, tmpl, start, u0, y0)
+  want = update(cpu_spec.model, tmpl_cpu, _to_cpu(start), u0.cpu(),
+                y0.cpu())
+  state_err = max(float(torch.max(torch.abs(getattr(got, f).cpu()
+                                            - getattr(want, f))
+                                  / torch.clamp(torch.abs(getattr(want, f)),
+                                                min=1.0)))
+                  for f in ('qpos', 'qvel'))
+  cov_err = float(torch.max(torch.abs(got.covariance.cpu()
+                                      - want.covariance))
+                  / torch.max(torch.abs(want.covariance)))
+  check(state_err <= STATE_TOL, f'{name} card vs CPU state {state_err:.3g}')
+  check(cov_err <= COV_TOL, f'{name} card vs CPU covariance {cov_err:.3g}')
+
+  state, times = start, []
+  err0 = float(torch.max(torch.abs(start.qpos[0, :3] - truth['qpos'][0, :3])))
+  _reset_counts()
+  with record_batches() as rec:
+    for t in range(EST_UPDATES):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      state = update(m, tmpl, state, truth['ctrl'][t:t + 1],
+                     truth['meas'][t:t + 1])
+      torch.cuda.synchronize()
+      times.append(time.perf_counter() - t0)
+  launches = _launch_counts()
+  batches = {}
+  for key in rec.calls:
+    batches[key] = batches.get(key, 0) + 1
+  per = {k: v / EST_UPDATES for k, v in launches.items()}
+  check(per == {k: float(v) for k, v in predicted.items()},
+        f'{name} launches an update {per} != predicted {predicted}')
+  check(bool(torch.isfinite(state.covariance).all()
+             and torch.isfinite(state.qpos).all()), f'{name} not finite')
+  # the state after t updates estimates the truth's state t (each update
+  # corrects at state t, then steps to t + 1)
+  err = float(torch.max(torch.abs(state.qpos[0, :3]
+                                  - truth['qpos'][EST_UPDATES, :3])))
+  check(err <= TRACK_TOL and err < err0, f'{name} trunk position error '
+        f'{err:.3g} after {EST_UPDATES} updates (tol {TRACK_TOL:g}, start '
+        f'{err0:.3g})')
+  p50 = statistics.median(times) * 1e3
+  dev_us = device_us(lambda: update(m, tmpl, state, truth['ctrl'][:1],
+                                    truth['meas'][:1]), reps=2, host=False)
+  busy = dev_us / (p50 * 1e3)
+  print(f'phase {phase} {name.upper()}: Quadruped Flat, all '
+        f'{m.nsensordata} sensordata columns, ndx {2 * m.nv + m.na}: one '
+        f'update card vs CPU plain path: qpos/qvel rel err {state_err:.3g} '
+        f'(tol {STATE_TOL:g}), covariance rel err {cov_err:.3g} (tol '
+        f'{COV_TOL:g}); {EST_UPDATES} updates along the truth: p50 '
+        f'{p50:.2f} ms (min {min(times) * 1e3:.2f}, max '
+        f'{max(times) * 1e3:.2f}), launches an update chol_solve '
+        f'{per["chol_solve"]:g}, newton {per["newton"]:g} (predicted '
+        f'{predicted["chol_solve"]}, {predicted["newton"]}; by kernel and '
+        f'B: {sorted(batches.items())}); device busy '
+        f'{busy:.3f} of the p50 ({dev_us / 1e3:.2f} ms device time an '
+        f'update, profiled); trunk position error {err0:.3g} m at the start,'
+        f' {err:.3g} m after {EST_UPDATES} updates (tol {TRACK_TOL:g})')
+  return dict(launches=launches, per_update=per, p50_ms=p50, busy=busy,
+              state_err=state_err, cov_err=cov_err, track_err=err,
+              updates=EST_UPDATES, batches=batches)
+
+
+def batch_inputs(spec, truth, seed):
+  """Phase 30's window, in the dtype of `spec`: BATCH_WINDOW
+  configurations of the truth 1e-3 off in every tangent direction (numpy,
+  seed), its measurements, applied forces and times, and the next
+  measurement."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  m, t = spec.model, BATCH_WINDOW
+  tr = {k: v.to(m.dtype) for k, v in truth.items()}
+  dz = torch.tensor(1e-3 * np.random.default_rng(seed).normal(
+      size=(t, m.nv)), dtype=m.dtype, device=DEV)
+  return dict(qpos=fwd.integrate_pos(m, tr['qpos'][:t], dz, 1.0),
+              sensor=tr['meas'][:t], force=tr['force'][:t],
+              times=tr['time'][:t], next=(tr['meas'][t], tr['force'][t],
+                                          tr['time'][t]))
+
+
+def batch_update(spec, win, device):
+  """One batch-estimator update (BATCH_WINDOW, BATCH_ITERS Gauss-Newton
+  iterations, sensor weight 1 / EST_NOISE^2) on `device`: (state, info,
+  z the window's displacement from its shifted reference, the cost at
+  that reference)."""
+  import torch
+  from mujoco_mpc_tpu_torch.estimators import batch, direct
+  from mujoco_mpc_tpu_torch.physics import support
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+  p = direct.make_problem(m, make_data(m), BATCH_WINDOW)
+  s = direct.default_settings(p).replace(
+      sensor_weight=torch.full((p.sensor_dim,), EST_NOISE ** -2,
+                               dtype=m.dtype, device=m.device),
+      max_iterations=BATCH_ITERS)
+  st = batch.init_state(p).replace(
+      qpos_window=win['qpos'].to(device),
+      sensor_window=win['sensor'].to(device),
+      force_window=win['force'].to(device), times=win['times'].to(device))
+  new, info = batch.update(p, st, s, *(x.to(device) for x in win['next']),
+                           torch.tensor(float(m.opt.timestep),
+                                        device=device))
+  ref = torch.cat([st.qpos_window[1:], st.qpos_window[-1:]])
+  shifted = direct.DirectData(
+      qpos_ref=ref, sensor_meas=new.sensor_window,
+      force_meas=new.force_window, times=new.times)
+  c0 = direct.cost(p, shifted, torch.zeros_like(ref[:, :m.nv]).reshape(-1),
+                   s, torch.zeros_like(ref[:, :m.nv]).reshape(-1),
+                   st.prior_diag, st.prior_off1)
+  return new, info, support.state_diff(m, ref, new.qpos_window), c0
+
+
+def batch_phase(truth, seed):
+  """Phase 30: the batch estimator's update on the card against the CPU
+  plain path (final cost within BATCH_COST_TOL relative, z within
+  BATCH_Z_TOL of its largest entry; the cost must fall), then
+  BATCH_UPDATES timed (p50) with the kernels' launches counted (none:
+  inverse dynamics solves nothing). In float64 on both: the window's
+  Gauss-Newton system (force rows ~M / h^2 beside a unit prior) does not
+  factor in float32, and no iteration improves, in the port and in the
+  JAX package's float32 default alike
+  (tests/test_torch_batch_float32.py). The float32 update runs too, card
+  against CPU (cost trace within BATCH_COST_TOL relative), so that the
+  card's float32 path is exercised; no kernel is on this path."""
+  import torch
+  from mujoco_mpc_tpu_torch.tasks import registry
+  f32 = {dev: registry.get_task('Quadruped Flat', device=dev)
+         for dev in (DEV, 'cpu')}
+  win32 = batch_inputs(f32[DEV], truth, seed)
+  tr32 = {dev: batch_update(f32[dev], win32, dev)[1]['cost_trace'].cpu()
+          for dev in (DEV, 'cpu')}
+  err32 = float(torch.max(torch.abs(tr32[DEV] - tr32['cpu'])
+                          / torch.abs(tr32['cpu'])))
+  check(bool(torch.isfinite(tr32[DEV]).all()), 'float32 batch cost not finite')
+  check(err32 <= BATCH_COST_TOL, f'float32 batch cost trace card vs CPU '
+        f'{err32:.3g}')
+  spec = registry.get_task('Quadruped Flat', device=DEV, dtype=torch.float64)
+  cpu_spec = registry.get_task('Quadruped Flat', device='cpu',
+                               dtype=torch.float64)
+  win = batch_inputs(spec, truth, seed)
+  _, info, z, cost0 = batch_update(spec, win, DEV)
+  _, info_c, z_c, _ = batch_update(cpu_spec, win, 'cpu')
+  c, c_c = float(info['final_cost']), float(info_c['final_cost'])
+  cost_err = abs(c - c_c) / max(abs(c_c), 1e-30)
+  z_err = float(torch.max(torch.abs(z.cpu() - z_c))
+                / torch.max(torch.abs(z_c)))
+  check(cost_err <= BATCH_COST_TOL, f'batch cost card vs CPU {cost_err:.3g}')
+  check(z_err <= BATCH_Z_TOL, f'batch z card vs CPU {z_err:.3g}')
+  cost0 = float(cost0)
+  check(float(info['final_cost']) < cost0, 'batch cost did not fall')
+  times = []
+  _reset_counts()
+  for _ in range(BATCH_UPDATES):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_update(spec, win, DEV)
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+  launches = _launch_counts()
+  p50 = statistics.median(times) * 1e3
+  print(f'phase 30 batch estimator: Quadruped Flat, a window of '
+        f'{BATCH_WINDOW} configurations, {BATCH_ITERS} Gauss-Newton '
+        f'iterations, all {spec.model.nsensordata} sensordata columns, '
+        f'float64: '
+        f'card vs CPU plain path final cost {c:.6g} vs {c_c:.6g}: rel err '
+        f'{cost_err:.3g} (tol {BATCH_COST_TOL:g}), z rel err {z_err:.3g} '
+        f'(tol {BATCH_Z_TOL:g}); cost {cost0:.6g} at the reference, then '
+        f'{[float(x) for x in info["cost_trace"]]}; update p50 '
+        f'{p50:.1f} ms over {BATCH_UPDATES} (min {min(times) * 1e3:.1f}, '
+        f'max {max(times) * 1e3:.1f}); kernel launches {launches} (inverse '
+        f'dynamics launches none)')
+  print(f'phase 30 batch estimator in float32 (the same window): cost '
+        f'trace card {tr32[DEV].tolist()}, CPU {tr32["cpu"].tolist()}: rel '
+        f'err {err32:.3g} (tol {BATCH_COST_TOL:g})')
+  return dict(p50_ms=p50, cost_err=cost_err, z_err=z_err,
+              launches=launches, cost_err32=err32)
+
+
+def estimator_phases(spec, cpu_spec, gen, elapsed, truth, start):
+  """Phases 27-30 on Quadruped Flat (and 27 on the sensor models).
+  Returns {'sensor_err', 'sensor_model_err', 'ekf', 'ukf', 'batch'}."""
+  from mujoco_mpc_tpu_torch.estimators import kalman, unscented
+  out = {'sensor_err': check_sensors(spec, cpu_spec, gen),
+         'sensor_model_err': check_sensor_models()}
+  elapsed('27')
+  for phase, name, update, predicted in (
+      (28, 'ekf', kalman.update, EKF_LAUNCHES),
+      (29, 'ukf', unscented.update, UKF_LAUNCHES)):
+    out[name] = filter_phase(phase, name, update, spec, cpu_spec, truth,
+                             start, predicted)
+    elapsed(str(phase))
+  out['batch'] = batch_phase(truth, 21)
+  elapsed('30')
+  return out
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2437,6 +2944,12 @@ def main():
   cube = registry.get_task('Cube Solving')
   c_spd_in, c_n_in, (c_spd_abs, c_newton_abs) = check_cube_kernels(cube,
                                                                    gen)
+  # the estimators' truth (phases 28-30) and the kernels' operands in one
+  # EKF and one UKF update (3m, phase 4)
+  est_truth = estimator_truth(quad, max(EST_UPDATES, BATCH_WINDOW), 17)
+  est_start = filter_start(quad, est_truth, 19)
+  est_in = estimator_kernel_inputs(quad, est_truth, est_start)
+  est_errs = check_estimator_kernels(est_in)
 
   elapsed('1-3')
 
@@ -2474,6 +2987,7 @@ def main():
           + spd_timing_line(*time_spd(spd_args, SPD_EXTRA_PLAIN_REPS),
                             spd_args[0]))
   time_cube_kernels(cube, c_spd_in, c_n_in, gen, kern)
+  time_estimator_kernels(est_in, kern)
 
   elapsed('4')
 
@@ -2582,9 +3096,10 @@ def main():
   # 17-20. iLQG with exact derivatives: Particle and Swimmer at bench.py's
   # make_planner(spec, ILQG, 8, T, 10)
   ilqg_main = {}
-  for phase, name, spec_, iters in ((17, 'Particle', part, PARTICLE_ITERS),
-                                    (19, 'Swimmer', swim, SWIMMER_ITERS)):
-    r = ilqg_main_path(spec_, iters, ILQG_CANDIDATES)
+  for phase, name, spec_, iters, prof in (
+      (17, 'Particle', part, PARTICLE_ITERS, True),
+      (19, 'Swimmer', swim, SWIMMER_ITERS, SWIMMER_PROFILE)):
+    r = ilqg_main_path(spec_, iters, ILQG_CANDIDATES, profile=prof)
     print_ilqg_path(phase, name, ILQG_CANDIDATES, iters, r)
     print_ilqg_golden(phase + 1, name, ilqg_golden(
         spec_, registry.get_task(name, device='cpu'), r['first'],
@@ -2602,6 +3117,9 @@ def main():
   # 25-26. Cube Solving (bench.py's rubik_ps512)
   cube_main, cube_rel = cube_phases(
       cube, registry.get_task('Cube Solving', device='cpu'), gen, elapsed)
+
+  # 27-30. the estimators on Quadruped Flat
+  est = estimator_phases(quad, quad_cpu, gen, elapsed, est_truth, est_start)
 
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
@@ -2654,6 +3172,24 @@ def main():
           / forced['iters']}
     return e
 
+  def est_entry(name, path):
+    """A filter's entry at its kernels' B 1 (EKF) or B 2 ndx + 1 (UKF)
+    shapes, with launches, p50 and busy share an update; the EKF's B1
+    carries its tangents' shape (B ndx) under 'tangent'."""
+    filt = path[len('quadruped_'):]
+    r = est[filt]
+    key = min(k for k in est_errs if k[:2] == (name, filt))
+    e = entry(name, path, r['launches'], est_errs[key])
+    e.update(launches_per_update=r['per_update'][name],
+             update_p50_ms=r['p50_ms'], device_busy=r['busy'])
+    tkey = max(k for k in est_errs if k[:2] == (name, filt))
+    if tkey != key:
+      n_t = r['batches'].get((name, tkey[2]), 0)
+      e['tangent'] = entry(name, path, {name: n_t}, est_errs[tkey],
+                           dict(kern[path]['tangent'], newton_bound=None))
+      e['tangent']['launches_per_update'] = n_t / r['updates']
+    return e
+
   out = []
   for name, source, replaces, errs in (
       ('chol_solve', 'mujoco_mpc_tpu_torch/csrc/chol_solve.cu',
@@ -2674,6 +3210,8 @@ def main():
         name, 'cube_solving', cube_main['launches'],
         c_spd_abs if name == 'chol_solve' else c_newton_abs)
     paths['cube_solving']['golden_rel_err'] = cube_rel
+    for p in ('quadruped_ekf', 'quadruped_ukf'):
+      paths[p] = est_entry(name, p)
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

@@ -21,7 +21,10 @@ residual_param_names, residual_param_ranges}}.
 both packages can start an iteration from the same policy;
 `cem_state_from_arrays`, `sg_state_from_arrays` and
 `ilqs_state_from_arrays` do the same for Cross Entropy's, Sample
-Gradient's and iLQS's states.
+Gradient's and iLQS's states, and `estimator_state_from_arrays` and
+`batch_state_from_arrays` for the estimators' (estimators/base.py
+EstimatorState, estimators/batch.py BatchState), so that both packages
+start an update from the same filter state.
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import json
 import numpy as np
 import torch
 
+from mujoco_mpc_tpu_torch.estimators import base as est_base
+from mujoco_mpc_tpu_torch.estimators import batch as est_batch
 from mujoco_mpc_tpu_torch.physics import model as model_lib
 from mujoco_mpc_tpu_torch.planners import (cross_entropy, ilqg, ilqs,
                                            sample_gradient, sampling)
@@ -157,3 +162,26 @@ def ilqs_state_from_arrays(sampling_policy: dict, ilqg_policy: dict,
       ilqg_state=ilqg_state_from_arrays(ilqg_policy, ilqg_state, device,
                                         dtype),
       active=_tensor(active, device, torch.int32))
+
+
+def estimator_state_from_arrays(state: dict, device='cuda',
+                                dtype=torch.float32) -> est_base.EstimatorState:
+  """EstimatorState from a JAX EstimatorState's leaves (numpy, keyed by
+  its fields). JAX's state is one filter: its arrays gain the port's
+  leading batch dimension (B = 1); arrays that already have it (qpos of
+  rank 2) are taken as they are."""
+  one = np.ndim(state['qpos']) == 1
+  return est_base.EstimatorState(**{
+      f.name: _tensor(np.asarray(state[f.name])[None] if one
+                      else state[f.name], device, dtype)
+      for f in dataclasses.fields(est_base.EstimatorState)})
+
+
+def batch_state_from_arrays(state: dict, device='cuda',
+                            dtype=torch.float32) -> est_batch.BatchState:
+  """BatchState from a JAX BatchState's leaves (numpy, keyed by its
+  fields); both hold one window."""
+  return est_batch.BatchState(**{
+      f.name: _tensor(state[f.name], device,
+                      torch.int32 if f.name == 'filled' else dtype)
+      for f in dataclasses.fields(est_batch.BatchState)})

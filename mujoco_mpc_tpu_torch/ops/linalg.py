@@ -13,10 +13,14 @@ and not on B1.
 JAX switches to a blocked factorization above n = 24 (linalg.py:59) and to
 XLA's own above n = 128; both compute the same factorization in another
 order. The port unrolls up to n = UNROLL_N and above it runs the same
-Cholesky-Crout column by column on (B, n)-wide slices (`solve_spd_wide`),
-which keeps a plain solve at Cube Solving's nv 87 to a few hundred ops
-where the unrolled form takes ~n^3 / 6. On the card the CUDA kernel takes
-every batched solve up to n = 96 (ops/spd_solve.py).
+Cholesky-Crout column by column on (B, n)-wide slices (`cholesky`,
+`cholesky_solve`, `solve_spd_wide`), which keeps a plain solve at Cube
+Solving's nv 87 to a few hundred ops where the unrolled form takes
+~n^3 / 6. On the card the CUDA kernel takes every batched solve up to
+n = 96 (ops/spd_solve.py). The estimators' factors (the UKF's sigma
+points and both filters' gain solves, n 36 and 45 on Quadruped Flat)
+take `cholesky` at every n: JAX's chol_factor and chol_solve there are
+plain XLA, not the Pallas kernel.
 """
 
 from __future__ import annotations
@@ -65,10 +69,9 @@ def chol_solve(col, b: torch.Tensor) -> torch.Tensor:
 UNROLL_N = 32
 
 
-def solve_spd_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """Solve SPD a x = b, a (..., n, n), b (..., n), by the same
-  Cholesky-Crout (diagonal floored at 1e-30) and substitutions, each
-  column and row a slice op."""
+def cholesky(a: torch.Tensor) -> torch.Tensor:
+  """Lower Cholesky factor (..., n, n) of SPD a, by the same Cholesky-Crout
+  as chol_factor (diagonal floored at 1e-30), each column a slice op."""
   n = a.shape[-1]
   lo = torch.zeros_like(a)
   for j in range(n):
@@ -76,6 +79,13 @@ def solve_spd_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ljj = torch.sqrt(torch.clamp(s[..., 0], min=1e-30))
     lo[..., j, j] = ljj
     lo[..., j + 1:, j] = s[..., 1:] / ljj[..., None]
+  return lo
+
+
+def cholesky_solve(lo: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solve (L L^T) x = b for b (..., n) given cholesky's L (..., n, n),
+  by forward and back substitution, each row a slice op."""
+  n = b.shape[-1]
   y = torch.zeros_like(b)
   for i in range(n):
     y[..., i] = (b[..., i] - torch.sum(lo[..., i, :i] * y[..., :i], -1)
@@ -85,6 +95,12 @@ def solve_spd_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x[..., i] = (y[..., i] - torch.sum(lo[..., i + 1:, i] * x[..., i + 1:],
                                        -1)) / lo[..., i, i]
   return x
+
+
+def solve_spd_wide(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solve SPD a x = b, a (..., n, n), b (..., n), by cholesky and
+  cholesky_solve."""
+  return cholesky_solve(cholesky(a), b)
 
 
 def solve_spd(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -113,9 +113,12 @@ def _solve(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fold_batch(x: torch.Tensor, dim, size: int) -> torch.Tensor:
   """x with its mapped dimension `dim` moved to the front (or, unmapped,
-  broadcast to `size`) and folded into the batch dimension after it."""
+  broadcast to `size`) and folded into the batch dimension after it, in
+  contiguous memory: an unmapped operand of batch 1 (an EKF's single
+  filter under its ndx tangent directions) would otherwise fold to a
+  stride-0 view, which the kernels do not take."""
   x = x.movedim(dim, 0) if dim is not None else x.expand(size, *x.shape)
-  return x.reshape(-1, *x.shape[2:])
+  return x.reshape(-1, *x.shape[2:]).contiguous()
 
 
 class SpdSolve(torch.autograd.Function):

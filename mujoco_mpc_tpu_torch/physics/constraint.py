@@ -8,7 +8,8 @@ _friction_rows :143, the pyramidal contacts (ContactBlock :452, PointRows
 selection :575-594, _Stacked :631, contact_blocks :648, _dyn_contact_rows
 :750, dof_anchored_axes :793, _capped_point_rows :808,
 contact_point_groups :890, point_rows_jd :970, expand_point_rows :977),
-_concat_rows :1205, make_rows_split :1213 and solve :1240. The solve
+ContactForces :1104 and contact_forces :1117 (pyramidal), _concat_rows
+:1205, make_rows_split :1213 and solve :1240. The solve
 itself is ops/newton.py (the fused Newton kernel B2 on CUDA, its plain
 PyTorch version on the CPU); uncapped contacts reach it in the factored
 point form, so the facet rows are built inside the kernel, and the
@@ -522,6 +523,62 @@ def contact_blocks(m: Model, d: Data, condims=(1, 3, 4, 6)):
         frame=torch.stack([s.normal, t1, t2], 2), mu=s.mu, b1=s.b1,
         b2=s.b2))
   return blocks
+
+
+class ContactForces(NamedTuple):
+  """Decoded contact wrenches a point (mj_contactForce). force6 columns:
+  (normal, t1, t2) forces, then (normal, t1, t2) torques, in the contact
+  frame, acting on body b2 (the reaction on b1); the normal points from
+  geom1 to geom2."""
+  pos: torch.Tensor      # (B, P, 3)
+  frame: torch.Tensor    # (B, P, 3, 3) rows (normal, t1, t2)
+  force6: torch.Tensor   # (B, P, 6)
+  b1: np.ndarray         # (P,) body ids
+  b2: np.ndarray
+
+
+def contact_forces(m: Model, d: Data) -> Optional[ContactForces]:
+  """Contact wrenches from the converged qacc, over contact_blocks' dense
+  facet rows in their stacking order: an active row's force is
+  f = -D jar (jar = J qacc - aref < 0), and a pyramid's facet forces fold
+  back to fn = sum of facets, f_i = mu_i (f_i+ - f_i-) (the inverse of
+  the facet expansion). For the force, torque and touch sensors; None
+  without contacts."""
+  if m.collision_pairs and m.opt.cone == 1:
+    raise NotImplementedError(
+        'contact forces over elliptic friction cones are not ported yet '
+        '(ROADMAP A8)')
+  blocks = contact_blocks(m, d)
+  if not blocks:
+    return None
+  pos_l, frame_l, f6_l, b1_l, b2_l = [], [], [], [], []
+  for blk in blocks:
+    rows = blk.rows
+    p = blk.pos.shape[1]
+    jar = torch.einsum('brn,bn->br', rows.j, d.qacc) - rows.aref
+    dvec = torch.where(rows.active, rows.d, torch.zeros_like(rows.d))
+    f = torch.where(jar < 0, -dvec * jar, torch.zeros_like(jar))
+    f = f.reshape(f.shape[0], blk.nrep, p)
+    zero = torch.zeros_like(f[:, 0])
+    mu = blk.mu
+    if blk.condim == 1:
+      parts = [f[:, 0], zero, zero, zero, zero, zero]
+    else:
+      parts = [torch.sum(f, 1), mu[:, 0] * (f[:, 0] - f[:, 1]),
+               mu[:, 0] * (f[:, 2] - f[:, 3]),
+               mu[:, 1] * (f[:, 4] - f[:, 5]) if blk.condim >= 4 else zero]
+      parts += ([mu[:, 2] * (f[:, 6] - f[:, 7]),
+                 mu[:, 2] * (f[:, 8] - f[:, 9])] if blk.condim == 6
+                else [zero, zero])
+    pos_l.append(blk.pos)
+    frame_l.append(blk.frame)
+    f6_l.append(torch.stack(parts, -1))
+    b1_l.append(blk.b1)
+    b2_l.append(blk.b2)
+  return ContactForces(
+      pos=torch.cat(pos_l, 1), frame=torch.cat(frame_l, 1),
+      force6=torch.cat(f6_l, 1), b1=np.concatenate(b1_l),
+      b2=np.concatenate(b2_l))
 
 
 def dof_anchored_axes(m: Model, d: Data) -> torch.Tensor:

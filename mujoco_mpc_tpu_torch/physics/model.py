@@ -17,7 +17,10 @@ Differences from the JAX pytrees:
 The geom contact fields (geom_type, geom_contype/conaffinity/condim/
 priority/group, geom_size, geom_friction, geom_solref/solimp/solmix/
 margin/gap, body_invweight0, geom_names, contact_point_cap, contact_cap)
-are carried for the colliders (physics/collision.py), and so are the
+are carried for the colliders (physics/collision.py); the sensor fields
+(nsensordata, sensor_type/objtype/objid/adr/dim/names, :182-189), the
+touch zones' site_type and site_size (:163, :240) and the magnetic field
+(Option.magnetic) for physics/sensors.py, and so are the
 convex hulls of the mesh, cylinder and ellipsoid geoms (geom_mesh, :255,
 built by put_model at :569-620 and kept as JAX keeps them, float32
 values, promoted to the model's dtype), and so are the frictionloss
@@ -25,10 +28,13 @@ rows' constants (dof_frictionloss, dof_friction_solref/solimp, :225-228,
 one entry per dof of friction_dof). Model fields not carried yet (their
 consumers are still to be ported; ROADMAP A7-A8): the height fields
 (geom_hfield: a model with an hfield geom is refused where contacts or
-ground_height reach it), equality data (eq_*), tendons (ten_*,
-tendon_*), sensors (sensor_*, nsensordata), site_size, site_type,
-magnetic-field consumers.
-Data fields not carried yet: sensordata and the tendon quantities. A model
+ground_height reach it), equality data (eq_*) and tendons (ten_*,
+tendon_*). As JAX's put_model does (:397-421), from_arrays refuses a
+sensor type outside sensors.SUPPORTED_SENSORS; a supported sensor whose
+physics the port lacks (tendon sensors, force sensors over elliptic
+cones) raises where it is evaluated.
+Data fields not carried yet: sensordata (physics/sensors.py sensordata
+returns it) and the tendon quantities. A model
 that needs any of them is refused where it would be used
 (NotImplementedError), never silently computed without them.
 
@@ -135,7 +141,9 @@ STATIC_FIELDS = (
     'actuator_trntype', 'actuator_dyntype', 'actuator_gaintype',
     'actuator_biastype', 'actuator_trnid', 'actuator_actadr',
     'actuator_actnum', 'actuator_ctrllimited', 'actuator_forcelimited',
-    'has_fluid', 'any_gravcomp',
+    'has_fluid', 'any_gravcomp', 'site_type',
+    'nsensordata', 'sensor_type', 'sensor_objtype', 'sensor_objid',
+    'sensor_adr', 'sensor_dim', 'sensor_names',
     'body_names', 'joint_names', 'geom_names', 'site_names',
     'actuator_names', 'keyframe_names',
 )
@@ -159,7 +167,7 @@ ARRAY_FIELDS = (
     'jnt_margin', 'dof_damping', 'dof_armature', 'dof_invweight0',
     'geom_pos', 'geom_quat', 'geom_size', 'geom_friction', 'geom_solref',
     'geom_solimp', 'geom_solmix', 'geom_margin', 'geom_gap',
-    'body_invweight0', 'site_pos', 'site_quat', 'actuator_gear',
+    'body_invweight0', 'site_pos', 'site_quat', 'site_size', 'actuator_gear',
     'actuator_dynprm', 'actuator_gainprm', 'actuator_biasprm',
     'actuator_ctrlrange', 'actuator_forcerange', 'act_range',
     'dof_ancestor_mask', 'key_qpos', 'key_qvel', 'key_act', 'key_ctrl',
@@ -221,6 +229,15 @@ class Model(_Replace):
   actuator_forcelimited: Tuple[int, ...]
   has_fluid: bool
   any_gravcomp: bool
+  site_type: Tuple[int, ...]           # mjtGeom: the touch sensors' zones
+  # sensors (static; their values come from physics/sensors.py)
+  nsensordata: int
+  sensor_type: Tuple[int, ...]
+  sensor_objtype: Tuple[int, ...]
+  sensor_objid: Tuple[int, ...]
+  sensor_adr: Tuple[int, ...]
+  sensor_dim: Tuple[int, ...]
+  sensor_names: Tuple[str, ...]
   body_names: Tuple[str, ...]
   joint_names: Tuple[str, ...]
   geom_names: Tuple[str, ...]
@@ -259,6 +276,7 @@ class Model(_Replace):
   body_invweight0: torch.Tensor
   site_pos: torch.Tensor
   site_quat: torch.Tensor
+  site_size: torch.Tensor
   actuator_gear: torch.Tensor
   actuator_dynprm: torch.Tensor
   actuator_gainprm: torch.Tensor
@@ -339,6 +357,14 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
     return v
 
   s = {k: tup(static[k]) for k in STATIC_FIELDS}
+  from mujoco_mpc_tpu_torch.physics import sensors
+  bad = [f'{name!r} (mjtSensor {t})'
+         for name, t in zip(s['sensor_names'], s['sensor_type'])
+         if t not in sensors.SUPPORTED_SENSORS]
+  if bad:
+    raise NotImplementedError(
+        'unsupported sensor types (silent zeros would corrupt residuals '
+        'and estimators): ' + ', '.join(bad))
   t = {}
   for k in ARRAY_FIELDS:
     a = np.array(arrays[k])   # a copy: the source may be read-only

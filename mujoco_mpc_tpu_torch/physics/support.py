@@ -1,15 +1,17 @@
 """Support queries over Data: point and subtree velocities, ground height.
 
 Port of mujoco_mpc_tpu/physics/support.py: point_velocity :18,
-site_linvel :26, subtree_linvel :35, _descendants :53, subtree_angmom :72,
-get_state :96, set_state :101, state_diff :108, integrate_state :132,
-_static_geoms :138 and ground_height :273, batch-first. The subtree sums
+site_linvel :26, body_angvel :31, subtree_linvel :35, _descendants :53,
+subtree_mass :65, subtree_angmom :72, get_state :96, set_state :101,
+state_diff :108, integrate_state :132, _static_geoms :138, _ray_geom
+:158, raycast :252 and ground_height :273, batch-first. The subtree sums
 run over all bodies at once, weighted by the subtree's 0/1 body mask,
 where JAX loops over the static body list; state_diff works on the joint
-coordinate maps of Model.idx where JAX loops over the joints.
+coordinate maps of Model.idx where JAX loops over the joints; a ray is
+(B, 3) rays, one a sample.
 
-Not ported yet: body_angvel, raycast and mesh rays (ROADMAP A8), and
-ground_height over height fields (A7), which raises.
+Not ported yet: ground_height over height fields (ROADMAP A7), which
+raises; a ray misses a height field, as in JAX's raycast.
 """
 
 from __future__ import annotations
@@ -38,6 +40,11 @@ def site_linvel(m: Model, d: Data, siteid: int) -> torch.Tensor:
   return point_velocity(m, d, m.site_bodyid[siteid], d.site_xpos[:, siteid])
 
 
+def body_angvel(m: Model, d: Data, bodyid) -> torch.Tensor:
+  """Angular velocity (B, 3) of a body (B, k, 3 for k body ids)."""
+  return d.cvel[:, bodyid, :3]
+
+
 def _body_com_velocities(m: Model, d: Data) -> torch.Tensor:
   """Linear velocity (B, nbody, 3) of every body's center of mass."""
   origin = d.subtree_com[:, m.idx.body_rootid]
@@ -56,6 +63,11 @@ def subtree_linvel(m: Model, d: Data, bodyid: int) -> torch.Tensor:
   w = _descendants(m, bodyid) * m.body_mass
   momentum = torch.einsum('n,bnk->bk', w, _body_com_velocities(m, d))
   return momentum / torch.clamp(torch.sum(w), min=1e-12)
+
+
+def subtree_mass(m: Model, bodyid: int) -> torch.Tensor:
+  """Total mass (0-d) of the subtree rooted at bodyid."""
+  return torch.sum(_descendants(m, bodyid) * m.body_mass)
 
 
 def subtree_angmom(m: Model, d: Data, bodyid: int) -> torch.Tensor:
@@ -126,6 +138,126 @@ def _static_geoms(m: Model, group: int = 0) -> Tuple[int, ...]:
     if static:
       out.append(g)
   return tuple(out)
+
+
+def _quadratic(b: torch.Tensor, c: torch.Tensor, big: float) -> torch.Tensor:
+  """Smallest positive root of t^2 + 2 b t + c = 0, `big` if none."""
+  disc = b * b - c
+  sq = torch.sqrt(torch.clamp(disc, min=0.0))
+  t0, t1 = -b - sq, -b + sq
+  t = torch.where(t0 > 0, t0, torch.where(t1 > 0, t1, torch.full_like(t0,
+                                                                       big)))
+  return torch.where(disc >= 0, t, torch.full_like(t, big))
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return torch.sum(a * b, -1)
+
+
+def _ray_geom(m: Model, d: Data, g: int, origin: torch.Tensor,
+              dirn: torch.Tensor) -> torch.Tensor:
+  """Distance (B,) along unit rays (B, 3) to geom g (mj_rayGeom), `big`
+  (1e9) on a miss: plane (one-sided, +z normal; a ray within 64 eps of
+  the dtype of parallel misses), sphere, ellipsoid, capsule, cylinder,
+  box and convex hull; a height field is never hit."""
+  big = 1e9
+  gtype = m.geom_type[g]
+  gpos, gmat, size = d.geom_xpos[:, g], d.geom_xmat[:, g], m.geom_size[g]
+  local = lambda v: torch.einsum('bji,bj->bi', gmat, v)  # noqa: E731  R^T v
+  bigs = torch.full_like(origin[:, 0], big)
+
+  if gtype == GeomType.PLANE:
+    n = gmat[..., 2]
+    denom = _dot(n, dirn)
+    # a ray parallel to the plane misses (JAX's guard, 1e-12). In float32
+    # a level ray's n.dir is rounding noise of ~1e-7, whose sign would put
+    # a hit millions of metres away on one device and a miss on another:
+    # below 64 eps of the dtype the ray counts as parallel
+    tol = max(1e-12, 64 * torch.finfo(denom.dtype).eps)
+    parallel = torch.abs(denom) < tol
+    t = _dot(n, gpos - origin) / torch.where(
+        parallel, torch.full_like(denom, tol), denom)
+    return torch.where((t > 0) & ~parallel, t, bigs)
+  if gtype == GeomType.SPHERE:
+    oc = origin - gpos
+    return _quadratic(_dot(oc, dirn), _dot(oc, oc) - size[0] ** 2, big)
+  if gtype == GeomType.ELLIPSOID:      # scaled to the unit sphere
+    o = local(origin - gpos) / size
+    v = local(dirn) / size
+    vv = _dot(v, v)
+    return _quadratic(_dot(o, v) / vv, (_dot(o, o) - 1.0) / vv, big)
+  if gtype in (GeomType.CAPSULE, GeomType.CYLINDER):
+    o = local(origin - gpos)
+    v = local(dirn)
+    r, h = size[0], size[1]
+    # the side surface: the axis (z) projected out
+    vv = v[:, 0] ** 2 + v[:, 1] ** 2
+    vv_safe = torch.clamp(vv, min=1e-12)
+    t_side = _quadratic((o[:, 0] * v[:, 0] + o[:, 1] * v[:, 1]) / vv_safe,
+                        (o[:, 0] ** 2 + o[:, 1] ** 2 - r * r) / vv_safe, big)
+    z_at = o[:, 2] + t_side * v[:, 2]
+    ts = [torch.where((vv > 1e-12) & (torch.abs(z_at) <= h), t_side, bigs)]
+    if gtype == GeomType.CAPSULE:      # spherical end caps
+      for zc in (-1.0, 1.0):
+        oc = o - torch.stack([torch.zeros_like(h), torch.zeros_like(h),
+                              zc * h])
+        t_cap = _quadratic(_dot(oc, v), _dot(oc, oc) - r * r, big)
+        zrel = o[:, 2] + t_cap * v[:, 2] - zc * h
+        ts.append(torch.where(zc * zrel >= 0, t_cap, bigs))
+    else:                              # flat end discs
+      vz = torch.where(torch.abs(v[:, 2]) < 1e-12,
+                       torch.full_like(v[:, 2], 1e-12), v[:, 2])
+      for zc in (-1.0, 1.0):
+        t_disc = (zc * h - o[:, 2]) / vz
+        x = o[:, 0] + t_disc * v[:, 0]
+        y = o[:, 1] + t_disc * v[:, 1]
+        ts.append(torch.where((t_disc > 0) & (x * x + y * y <= r * r),
+                              t_disc, bigs))
+    return torch.amin(torch.stack(ts), 0)
+  if gtype == GeomType.BOX:            # slab test
+    o = local(origin - gpos)
+    v = local(dirn)
+    v = torch.where(torch.abs(v) < 1e-12, torch.full_like(v, 1e-12), v)
+    t1 = (-size - o) / v
+    t2 = (size - o) / v
+    tmin = torch.amax(torch.minimum(t1, t2), -1)
+    tmax = torch.amin(torch.maximum(t1, t2), -1)
+    hit = (tmax >= torch.clamp(tmin, min=0.0)) & (tmax > 0)
+    return torch.where(hit, torch.where(tmin > 0, tmin, tmax), bigs)
+  if gtype == GeomType.MESH and g in m.geom_mesh:   # hull: halfspace slabs
+    from mujoco_mpc_tpu_torch.physics import collision
+    _, n_w, b_w = collision._hull_world(m, d, g)
+    num = -(torch.einsum('bfd,bd->bf', n_w, origin) + b_w)
+    den = torch.einsum('bfd,bd->bf', n_w, dirn)
+    den = torch.where(torch.abs(den) < 1e-12, torch.full_like(den, 1e-12),
+                      den)
+    t = num / den
+    tmin = torch.amax(torch.where(den < 0, t, torch.full_like(t, -big)), -1)
+    tmax = torch.amin(torch.where(den > 0, t, torch.full_like(t, big)), -1)
+    hit = (tmax >= torch.clamp(tmin, min=0.0)) & (tmax > 0)
+    return torch.where(hit, torch.where(tmin > 0, tmin, tmax), bigs)
+  return bigs
+
+
+def raycast(m: Model, d: Data, origin: torch.Tensor, dirn: torch.Tensor,
+            exclude_body: int = -1) -> torch.Tensor:
+  """Distance (B,) from origins (B, 3) along directions (B, 3) to the
+  nearest geom (mj_ray; the rangefinder sensor), -1 where nothing is hit.
+  Geoms on `exclude_body` and visual-only geoms (contype and conaffinity
+  0, planes excepted) are skipped."""
+  big = 1e9
+  dirn = dirn / torch.clamp(torch.linalg.vector_norm(dirn, dim=-1,
+                                                     keepdim=True), min=1e-12)
+  dists = [torch.full_like(origin[:, 0], big)]
+  for g in range(m.ngeom):
+    if exclude_body >= 0 and m.geom_bodyid[g] == exclude_body:
+      continue
+    if m.geom_contype[g] == 0 and m.geom_conaffinity[g] == 0 and \
+       m.geom_type[g] != GeomType.PLANE:
+      continue
+    dists.append(_ray_geom(m, d, g, origin, dirn))
+  t = torch.amin(torch.stack(dists), 0)
+  return torch.where(t < big, t, torch.full_like(t, -1.0))
 
 
 def ground_height(m: Model, d: Data, pos: torch.Tensor) -> torch.Tensor:

@@ -171,14 +171,23 @@ def inert_from_body_quat(mass: torch.Tensor, diag_inertia: torch.Tensor,
                     mass_b[..., None]], dim=-1)
 
 
-def jacfwd_batched(f, x: torch.Tensor) -> torch.Tensor:
+def jacfwd_batched(f, x: torch.Tensor, has_aux: bool = False):
   """Per-sample Jacobian (B, m, n) of a batch-first f: (B, n) -> (B, m)
   whose samples are independent, by forward-mode AD: `torch.func.jacfwd`
   restricted to the batch diagonal. One tangent direction e_k, applied to
   every sample at once, gives column k of every sample's Jacobian, so the
-  n directions are one torch.func.vmap of torch.func.jvp (not B * n)."""
+  n directions are one torch.func.vmap of torch.func.jvp (not B * n).
+  With has_aux, f returns (output, aux) and the result is (Jacobian, aux):
+  aux is computed once, in the same pass, with no tangent (as
+  torch.func.jacfwd's has_aux)."""
   n = x.shape[-1]
   basis = torch.eye(n, dtype=x.dtype, device=x.device)[:, None, :]
-  cols = torch.func.vmap(lambda v: torch.func.jvp(f, (x,), (v,))[1])(
-      basis.expand(n, x.shape[0], n))                     # (n, B, m)
-  return cols.permute(1, 2, 0)
+  basis = basis.expand(n, x.shape[0], n)
+  if not has_aux:
+    cols = torch.func.vmap(lambda v: torch.func.jvp(f, (x,), (v,))[1])(
+        basis)                                            # (n, B, m)
+    return cols.permute(1, 2, 0)
+  cols, aux = torch.func.vmap(
+      lambda v: torch.func.jvp(f, (x,), (v,), has_aux=True)[1:],
+      out_dims=(0, None))(basis)
+  return cols.permute(1, 2, 0), aux

@@ -18,6 +18,28 @@ two states and a 4-candidate x 3-step plan, computed by the JAX package
 in float64 (~7 minutes on a CPU, most of it compiling the JAX step once),
 which tests/test_torch_cube.py holds the port to; the file records its
 inputs, the JAX version and this command.
+
+    python tools/export_torch_snapshot.py --estimator-golden
+
+writes assets/quadruped_flat_estimators_golden.npz: one EKF and one UKF
+update on Quadruped Flat from a perturbed filter state near `home`,
+computed by the JAX package in float64 (a few minutes on a CPU, most of
+it compiling the two updates), which tests/test_torch_estimators.py
+holds the port to. The update measures sensors 6-9 (Posture,
+Orientation, Angmom, trunk_position: 20 columns, the USER ones zero), not
+all 45 columns: JAX's ops/linalg.chol_solve fails above n 24 with a
+matrix right-hand side (its blocked path broadcasts (36, 21) against
+(24, 21)), which both of its filters' gain solves are.
+
+    python tools/export_torch_snapshot.py --sensor-models
+
+writes assets/sensor_models.npz: the models of tests/test_torch_sensors.py
+(every sensor type the port evaluates beside Quadruped Flat's USER and
+FRAMEPOS ones: joint, frame, gyro, accelerometer, magnetometer, subtree,
+actuator, clock, force, torque, touch, rangefinder) with 64 states each
+made by MuJoCo, so that chip_smoke.py can run those sensors on the card
+where `mujoco` is not installed (seconds; tests/test_torch_sensors.py
+re-exports in memory and fails when the file is stale).
 """
 
 from __future__ import annotations
@@ -295,15 +317,180 @@ def write_cube_golden(path):
                          'cube_contact_state: default_rng(7)'})))
 
 
+# ---------------------------------------------------------------------------
+# Quadruped Flat's estimator golden: one EKF and one UKF update, held by
+# tests/test_torch_estimators.py.
+# ---------------------------------------------------------------------------
+
+ESTIMATOR_GOLDEN = 'quadruped_flat_estimators_golden.npz'
+ESTIMATOR_COMMAND = 'python tools/export_torch_snapshot.py --estimator-golden'
+ESTIMATOR_FIELDS = ('qpos', 'qvel', 'act', 'time', 'covariance',
+                    'noise_process', 'noise_sensor')
+# (first sensor, count): the widest run of sensors up to trunk_position
+# whose columns (20) JAX's gain solve takes (see the module docstring)
+ESTIMATOR_SLICE = (6, 4)
+
+
+def estimator_golden_inputs(jm):
+  """The golden's inputs (numpy, seeded): the truth (`home`, small random
+  velocities and controls), its ESTIMATOR_SLICE sensordata columns with
+  noise of the filter's sensor variance, and a filter state 1e-2 off the
+  truth in every tangent direction, JAX's init_state noise and
+  covariance."""
+  import jax
+  import jax.numpy as jnp
+  from mujoco_mpc_tpu.estimators import base
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics import sensors as jsensors
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  rng = np.random.default_rng(13)
+  home = jnp.asarray(jm.keyframe_qpos('home'))
+  qvel = rng.normal(scale=0.05, size=jm.nv)
+  lo, hi = np.asarray(jm.actuator_ctrlrange).T
+  ctrl = 0.5 * (lo + hi) + 0.1 * (hi - lo) * rng.uniform(-1, 1, jm.nu)
+  d = jfwd.forward(jm, jmake_data(jm, dtype=jnp.float64).replace(
+      qpos=home, qvel=jnp.asarray(qvel), ctrl=jnp.asarray(ctrl)))
+  adr0, dim = base._sensor_range(jm, ESTIMATOR_SLICE)
+  sensor = np.asarray(jax.jit(lambda d: jsensors.sensordata(jm, d))(d))
+  sensor = sensor[adr0:adr0 + dim] + 1e-2 * rng.normal(size=dim)
+  dx = 1e-2 * rng.normal(size=base.ndx(jm))
+  qp, qv, act = base.perturb(jm, home, jnp.asarray(qvel),
+                             jnp.zeros(jm.na), jnp.asarray(dx))
+  state = base.init_state(jm, dtype=jnp.float64,
+                          sensor_slice=ESTIMATOR_SLICE).replace(
+                              qpos=qp, qvel=qv, act=act)
+  out = {'state/' + k: np.asarray(getattr(state, k))
+         for k in ESTIMATOR_FIELDS}
+  out.update({'truth/qpos': np.asarray(home), 'truth/qvel': qvel,
+              'ctrl': ctrl, 'sensor': sensor})
+  return out
+
+
+def jax_estimator_golden(jm, inputs):
+  """JAX's EKF and UKF updates (float64, XLA's quick compile options)
+  from the golden's state, controls and measurements."""
+  import jax
+  import jax.numpy as jnp
+  from mujoco_mpc_tpu.estimators import base, kalman, unscented
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  template = jmake_data(jm, dtype=jnp.float64)
+  state = base.EstimatorState(**{k: jnp.asarray(inputs['state/' + k])
+                                 for k in ESTIMATOR_FIELDS})
+  ctrl, sensor = jnp.asarray(inputs['ctrl']), jnp.asarray(inputs['sensor'])
+  out = {}
+  for name, update in (('ekf', kalman.update), ('ukf', unscented.update)):
+    fn = jax.jit(lambda s, u, y, update=update: update(
+        jm, template, s, u, y, ESTIMATOR_SLICE))
+    new = fn.lower(state, ctrl, sensor).compile(compiler_options={
+        'xla_backend_optimization_level': 0,
+        'xla_llvm_disable_expensive_passes': True})(state, ctrl, sensor)
+    out.update({f'{name}/{k}': np.asarray(getattr(new, k))
+                for k in ('qpos', 'qvel', 'time', 'covariance')})
+  return out
+
+
+def jax_quadruped_f64():
+  """JAX's Quadruped Flat model in float64."""
+  import jax
+  import jax.numpy as jnp
+  from mujoco_mpc_tpu.tasks import registry
+  jax.config.update('jax_enable_x64', True)
+  return jax.tree.map(
+      lambda x: x.astype(jnp.float64)
+      if jnp.issubdtype(getattr(x, 'dtype', np.int32), jnp.floating) else x,
+      registry.get_task('Quadruped Flat').model)
+
+
+def write_estimator_golden(path):
+  """Write Quadruped Flat's estimator golden (inputs, JAX outputs,
+  provenance)."""
+  import jax
+  jm = jax_quadruped_f64()
+  inputs = estimator_golden_inputs(jm)
+  out = jax_estimator_golden(jm, inputs)
+  np.savez(path, **inputs, **out, provenance=np.asarray(json.dumps({
+      'jax': jax.__version__, 'dtype': 'float64',
+      'command': ESTIMATOR_COMMAND,
+      'sensor_slice': list(ESTIMATOR_SLICE),
+      'inputs': 'estimator_golden_inputs: numpy default_rng(13)'})))
+
+
+SENSOR_MODELS = 'sensor_models.npz'
+SENSOR_MODEL_STATES = 64
+
+
+def sensor_model_xmls():
+  """{name: MJCF} of the sensor models, from the sensor tests."""
+  from tests.test_sensors import XML
+  from tests.test_torch_sensors import (FORCE_PLANE_XML, MORE_XML,
+                                       RANGE_PORT_XML)
+  return {'sensors': XML, 'more': MORE_XML, 'force': FORCE_PLANE_XML,
+          'range': RANGE_PORT_XML}
+
+
+def sensor_model_states(name, mjm, rng):
+  """SENSOR_MODEL_STATES states (qpos, qvel, ctrl, time) of a sensor
+  model: random as the sensor tests draw them, the box of 'force' every
+  8th step of its fall onto the plate and rest there (MuJoCo's steps)."""
+  import mujoco
+  n = SENSOR_MODEL_STATES
+  mjd = mujoco.MjData(mjm)
+  out = []
+  for t in range(8 * n if name == 'force' else n):
+    if name == 'force':
+      mujoco.mj_step(mjm, mjd)
+      if t % 8:
+        continue
+    elif name == 'range':
+      mjd.qpos[0] = rng.uniform(-np.pi, np.pi)
+    else:
+      q = rng.standard_normal(mjm.nq) * 0.4
+      if name == 'more':           # the ball joint's unit quaternion
+        q[:4] /= np.linalg.norm(q[:4])
+      mjd.qpos[:] = q
+      mjd.qvel[:] = rng.standard_normal(mjm.nv) * 0.5
+      mjd.ctrl[:] = rng.standard_normal(mjm.nu) * 0.3
+      mjd.time = rng.uniform(0, 2)
+    out.append((mjd.qpos.copy(), mjd.qvel.copy(), mjd.ctrl.copy(),
+                mjd.time))
+  return {k: np.stack([s[i] for s in out])
+          for i, k in enumerate(('qpos', 'qvel', 'ctrl', 'time'))}
+
+
+def sensor_model_arrays():
+  """The arrays of assets/sensor_models.npz: per model `<name>/static`
+  (JSON), `<name>/model/<field>` (its put_model snapshot) and
+  `<name>/<qpos, qvel, ctrl, time>` (its states)."""
+  import mujoco
+  from mujoco_mpc_tpu.physics.model import put_model
+  rng = np.random.default_rng(23)
+  out = {}
+  for name, xml in sensor_model_xmls().items():
+    mjm = mujoco.MjModel.from_xml_string(xml)
+    arrays, static = model_snapshot(put_model(mjm))
+    out[f'{name}/static'] = np.asarray(json.dumps(static, sort_keys=True))
+    out.update({f'{name}/model/{k}': v for k, v in arrays.items()})
+    out.update({f'{name}/{k}': v
+                for k, v in sensor_model_states(name, mjm, rng).items()})
+  return out
+
+
 def write(path: str, arrays: dict, static: dict) -> None:
   np.savez(path, static=np.asarray(json.dumps(static, sort_keys=True)),
            **arrays)
 
 
 def main():
-  if '--cube-golden' in sys.argv[1:]:
-    path = os.path.join(port_registry.ASSETS, CUBE_GOLDEN)
-    write_cube_golden(path)
+  goldens = {'--cube-golden': (CUBE_GOLDEN, write_cube_golden),
+             '--estimator-golden': (ESTIMATOR_GOLDEN,
+                                    write_estimator_golden),
+             '--sensor-models': (SENSOR_MODELS, lambda path: np.savez(
+                 path, **sensor_model_arrays()))}
+  flag = next((a for a in sys.argv[1:] if a in goldens), None)
+  if flag:
+    fname, writer = goldens[flag]
+    path = os.path.join(port_registry.ASSETS, fname)
+    writer(path)
     print(f'wrote {os.path.relpath(path, ROOT)} '
           f'({os.path.getsize(path)} bytes)')
     return

@@ -7,13 +7,16 @@ profiler's device times are 0. It checks the script's paths, shapes and
 control flow before a run on the card; none of its numbers is a device
 measurement. Run from the repository root (a few minutes):
 
-    python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube]
+    python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube |
+                                                      estimators]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
 at `candidates`, goldens at 32 candidates, 2 timed iterations, testspeed
 over 0.05 s at 8 samples), with `cube` tools/cube_check.py (Cube
-Solving's phases at `candidates`, its golden at 8).
+Solving's phases at `candidates`, its golden at 8), with `estimators`
+tools/estimator_check.py (the estimator phases, 3m, phase 4's rows and
+27-30, at the card's sizes: the filters run one state).
 """
 
 import os
@@ -75,7 +78,7 @@ def _fake_build(name):
 
 
 def main():
-  modes = ('ilqg', 'planners', 'cube')
+  modes = ('ilqg', 'planners', 'cube', 'estimators')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -127,6 +130,9 @@ def main():
     from tools import cube_check
     sys.argv = sys.argv[:1]
     cube_check.main()
+  elif mode == 'estimators':
+    from tools import estimator_check
+    estimator_check.main()
   else:
     chip_smoke.main()
 
