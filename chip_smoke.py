@@ -130,7 +130,16 @@ Phases, one line each (any failure exits non-zero):
   30. batch estimator: a window of 32 configurations off a card-simulated
      trajectory, 3 Gauss-Newton iterations, in float64: final cost and z
      card vs the CPU plain path, the update's p50 (no kernel: inverse
-     dynamics); in float32 its cost trace card vs CPU.
+     dynamics); in float32 its cost trace card vs CPU;
+  31-35. the manipulation tasks on the sphere-box pair, FreeFingers,
+     Panda, Panda Bring, Bimanual Handover and Bimanual Reorient, from
+     qpos0 at each one's own planner settings (64 x 51 with 5 knots, 96 x
+     36 with 5, 96 x 51 with 4): 2 timed plans each, checked and profiled
+     as in phase 5, launches a plan 2 T and T; its card-vs-CPU golden at
+     its own candidates with the bounds of phase 9;
+  36. Bimanual Handover plan-act: as phase 10, at its 96 candidates;
+  37. Bimanual Handover at 4096 candidates x 51 (quadruped_ps4096's batch):
+     one timed plan, checked and profiled as in phase 5, no golden.
 Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
 B2's block instance on random dense, one-hot and frictionloss rows at nv
 33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
@@ -139,16 +148,23 @@ steps of rollouts: B1 on qM and the Euler system within n eps32 cond(a),
 B2 with 384 dense rows, 30 one-hot and 66 frictionloss rows by 3e's rule,
 its near ties counted); 3m both on the operands of one EKF and one UKF
 update on Quadruped Flat (B1 at B 1, 36 and 73; B2 at B 1 and 73, by
-3d's rule for dense problems). Beside phase 4: both at Cube Solving's
-shapes, B1 at n 48 and 96 (random systems, B 512), and both at the
-estimators' shapes (3m's operands).
+3d's rule for dense problems); 3n both on the inputs the five
+manipulation tasks' steps give them (B 4096 each: 64 at qpos0 with the box
+on the floor, the rest with a fingertip sphere against the box, a quarter
+of them with its centre inside it; B1 on qM and the Euler system, B2 by
+3e's rule) and their contact points on the card against the CPU's.
+Beside phase 4: both at Cube Solving's shapes, B1 at n 48 and 96 (random
+systems, B 512), both at the estimators' shapes (3m's operands), and both
+at the manipulation paths' (B 65 and 97 at nv 12, 15 and 18, and B 4097 at
+nv 18).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all fourteen, the iLQG ones
+(top-level keys: the Quadruped path; "paths": all twenty, the iLQG ones
 at the line search's shapes with B1's derivative tangent under "tangent",
 the planner paths of phases 21-23 with their launches per iteration and
 their golden's best_return relative error, Cube Solving's with its
 golden's, and the EKF's and UKF's with their launches, p50 and busy
-share an update), and as the last line {"ok": true, "device": {...}}.
+share an update, the manipulation tasks' with their golden's), and as
+the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -239,6 +255,16 @@ CUBE_HOME = 64
 # B1 beside Cube Solving's n 87: random systems at the block instance's
 # other buckets and at 96, its largest
 SPD_WIDE_N = (33, 48, 64, 87, 96)
+# phases 3n, 31-37: the manipulation tasks on the sphere-box pair, each at
+# its own planner settings (samples, horizon and knots from its MJCF)
+MANIP_TASKS = ('FreeFingers', 'Panda', 'Panda Bring', 'Bimanual Handover',
+               'Bimanual Reorient')
+MANIP_STATES = 4096        # phase 3n's states a task
+MANIP_FLOOR = 64           # of them at qpos0, the box on the floor
+MANIP_PLANS = 2
+MANIP_WIDE = 4096          # Bimanual Handover at quadruped_ps4096's batch
+MANIP_WIDE_PLANS = 1
+MANIP_WIDE_PATH = 'bimanual_handover_4096'
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
@@ -292,7 +318,8 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None, warm=True,
   device time (with `kernel`, that kernel) has too few records to count
   (fewer than half the calls; with `kernel`, none) is taken again, up to
   five passes, and then fails; a line says how many records of `kernel`
-  the profiler kept when it kept fewer than the calls. `warm=False` skips
+  the profiler kept when it kept fewer than the calls; a retaken pass of
+  `kernel` makes four times the calls of the last. `warm=False` skips
   the unprofiled warm-up call (for an fn that has run already);
   `host=False` traces the device's activity only (an iLQG iteration is
   ~600,000 launches, and tracing the host's side of each as well took
@@ -300,36 +327,39 @@ def device_us(fn, reps=TIME_REPS, top=0, kernel=None, warm=True,
   import torch
   from torch.profiler import ProfilerActivity, profile
 
-  def launches(e):
-    return 1 if kernel and kernel in e.key else round(e.count / reps)
+  def launches(e, calls):
+    return 1 if kernel and kernel in e.key else round(e.count / calls)
 
-  def counted(dev):
+  def counted(dev, calls):
     if kernel:
       return [e for e in dev if kernel in e.key]
-    return dev[:1] if dev and 2 * dev[0].count >= reps else []
+    return dev[:1] if dev and 2 * dev[0].count >= calls else []
 
   if warm:
     fn()
   torch.cuda.synchronize()
+  calls = reps
   for _ in range(5):
     with profile(activities=[ProfilerActivity.CPU] * host
                  + [ProfilerActivity.CUDA]) as prof:
-      for _ in range(reps):
+      for _ in range(calls):
         fn()
       torch.cuda.synchronize()
     dev = device_ops(prof)
-    if counted(dev):
+    if counted(dev, calls):
       break
-  check(counted(dev), 'the profiler saw '
+    if kernel:
+      calls *= 4      # late in a process it keeps ~1 record in 5, or none
+  check(counted(dev, calls), 'the profiler saw '
         + (f'no {kernel}' if kernel else
            f'{dev[0].key[:60]} {dev[0].count} times' if dev else 'no kernel')
-        + f' over {reps} calls, in five passes')
-  if kernel and counted(dev)[0].count < reps:
-    print(f'device_us: the profiler kept {counted(dev)[0].count} of {reps} '
-          f'records of {kernel}')
-  ops = [(e.key, launches(e),
-          e.self_device_time_total / e.count * launches(e)
-          if launches(e) else e.self_device_time_total / reps)
+        + f' over {calls} calls, in five passes')
+  if kernel and counted(dev, calls)[0].count < calls:
+    print(f'device_us: the profiler kept {counted(dev, calls)[0].count} of '
+          f'{calls} records of {kernel}')
+  ops = [(e.key, launches(e, calls),
+          e.self_device_time_total / e.count * launches(e, calls)
+          if launches(e, calls) else e.self_device_time_total / calls)
          for e in dev]
   total = sum(us for _, _, us in ops)
   if not top:
@@ -348,18 +378,22 @@ class DeviceOp:
 
 def device_ops(prof):
   """The CUDA ops of a finished trace, by name, most device time first:
-  the sums key_averages() computes over prof.events(), grouped in one
-  pass (key_averages() took seconds per 100,000 records)."""
+  the sums key_averages() computes, grouped in one pass over the trace's
+  raw records (prof.events() first builds an event tree: ~7 s per 100,000
+  records on a CPU against ~0.4 s for the raw ones, and a plan is
+  ~50,000-190,000 device records; a kernel's self time is its
+  duration)."""
   import torch
   ops = {}
   cuda = torch.autograd.DeviceType.CUDA
-  for e in prof.events():
-    if e.device_type == cuda:
-      op = ops.get(e.key)
+  for e in prof.profiler.kineto_results.events():
+    if e.device_type() == cuda:
+      name = e.name()
+      op = ops.get(name)
       if op is None:
-        op = ops[e.key] = DeviceOp(e.key)
+        op = ops[name] = DeviceOp(name)
       op.count += 1
-      op.self_device_time_total += e.self_device_time_total
+      op.self_device_time_total += e.duration_ns() / 1e3
   return sorted(ops.values(), key=lambda op: -op.self_device_time_total)
 
 
@@ -981,21 +1015,36 @@ def shadow_states(spec, gen, rollout=True):
   return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
 
 
-def contact_points(spec, d):
-  """(dist (B, P), pos (B, P, 3), normal (B, P, 3), the hull's world
-  vertices (B, V, 3)) of the step from states d: every condim group's
-  stacked candidate points in JAX's order."""
+def stacked_points(spec, d):
+  """(dist (B, P), pos (B, P, 3), normal (B, P, 3)) of the step from
+  states d after its kinematics: every condim group's stacked candidate
+  points in JAX's order."""
   import torch
-  from mujoco_mpc_tpu_torch.physics import collision, constraint
+  from mujoco_mpc_tpu_torch.physics import constraint
+  groups = constraint._contact_groups(spec.model, d).values()
+  return (torch.cat([s.dist for s in groups], 1),
+          torch.cat([s.pos3 for s in groups], 1),
+          torch.cat([s.normal for s in groups], 1))
+
+
+def to_cpu(d):
+  """Data d with every field on the CPU."""
+  import dataclasses
+  from mujoco_mpc_tpu_torch.physics.model import Data
+  return Data(**{f.name: getattr(d, f.name).cpu()
+                 for f in dataclasses.fields(d)
+                 if getattr(d, f.name) is not None})
+
+
+def contact_points(spec, d):
+  """stacked_points of the step from states d and the hull's world
+  vertices (B, V, 3)."""
+  from mujoco_mpc_tpu_torch.physics import collision
   from mujoco_mpc_tpu_torch.physics import forward as fwd
   m = spec.model
   d = fwd.fwd_position(m, d)
-  groups = constraint._contact_groups(m, d).values()
   hull = next(iter(m.geom_mesh))
-  return (torch.cat([s.dist for s in groups], 1),
-          torch.cat([s.pos3 for s in groups], 1),
-          torch.cat([s.normal for s in groups], 1),
-          collision._hull_world(m, d, hull)[0])
+  return stacked_points(spec, d) + (collision._hull_world(m, d, hull)[0],)
 
 
 def vertex_ids(pts, sl):
@@ -1044,14 +1093,9 @@ def check_contact_points(spec, cpu_spec, d):
   differ in position or normal only at an f32 near tie (two vertices or
   two faces within rounding), at most 0.1% of the points. Returns the
   line's text."""
-  import dataclasses
   import torch
-  from mujoco_mpc_tpu_torch.physics.model import Data
-  cpu_d = Data(**{f.name: getattr(d, f.name).cpu()
-                  for f in dataclasses.fields(d)
-                  if getattr(d, f.name) is not None})
   card = [x.cpu() for x in contact_points(spec, d)]
-  cpu = contact_points(cpu_spec, cpu_d)
+  cpu = contact_points(cpu_spec, to_cpu(d))
   dist_err = float(torch.max(torch.abs(card[0] - cpu[0])))
   check(dist_err <= POINT_ATOL, f'contact depths, card vs CPU: '
         f'{dist_err:.3g} > {POINT_ATOL:g}')
@@ -1098,18 +1142,19 @@ def euler_inputs(spec, d):
           (d.qfrc_smooth + d.qfrc_constraint).contiguous())
 
 
-def main_path(spec, d0, samples, reps, gen):
+def main_path(spec, d0, samples, reps, gen, points=SPLINE_POINTS):
   """Predictive Sampling plans of `spec` from d0 through the planner
-  registry's entry point (make_planner(spec, 0, samples, T, 10)): a
+  registry's entry point (make_planner(spec, 0, samples, T, points)): a
   warm-up, then `reps` timed plans with the kernels' counts set to 0 just
-  before and read just after, then one profiled plan."""
+  before and read just after, then one profiled plan (its device
+  activity)."""
   import torch
   from mujoco_mpc_tpu_torch import agent
   from mujoco_mpc_tpu_torch.ops import newton, spd_solve
   from mujoco_mpc_tpu_torch.planners import registry as planners
   t_steps = agent.horizon_steps(spec)
   planner = planners.make_planner(spec, planners.SAMPLING, samples, t_steps,
-                                  SPLINE_POINTS)
+                                  points)
 
   def plan(pol):
     return planner.optimize(pol, d0, spec.default_params, gen)
@@ -1138,7 +1183,11 @@ def main_path(spec, d0, samples, reps, gen):
   check(bool(torch.isfinite(best).all()), f'best_return not finite: {best}')
   check(bool((best <= nominal).all()), 'best_return > nominal_return')
   p50 = statistics.median(lat)
-  dev_us, ops, top = device_us(lambda: plan(pol), reps=1, top=8)
+  # the plans above warmed it up; the busy share needs the device's
+  # activity alone (as in the iLQG phases), not the host side of each of
+  # the plan's ~50,000-95,000 launches
+  dev_us, ops, top = device_us(lambda: plan(pol), reps=1, top=8, warm=False,
+                               host=False)
   return dict(t_steps=t_steps, p50=p50, launches=launches,
               best=float(best[-1]), nominal=float(nominal[-1]),
               dev_us=dev_us, ops=ops, top=top)
@@ -1158,11 +1207,12 @@ def print_main_path(phase, name, samples, reps, r):
                     for n, c, us in r['top']))
 
 
-def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale, samples=256):
+def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale, samples=256,
+           points=SPLINE_POINTS):
   """A `samples`-candidate plan on the card against the plain path on the
-  CPU with the same noise, from the default plan, and a 5-step batched
-  rollout's qpos drift: (best_return card, CPU, rel err, winner card,
-  CPU, winner within 2 % of the CPU best, drift)."""
+  CPU with the same noise, from the default plan of `points` knots, and a
+  5-step batched rollout's qpos drift: (best_return card, CPU, rel err,
+  winner card, CPU, winner within 2 % of the CPU best, drift)."""
   import torch
   from mujoco_mpc_tpu_torch import agent
   from mujoco_mpc_tpu_torch.ops import spline
@@ -1171,9 +1221,8 @@ def golden(spec, cpu_spec, d0, d0_cpu, gen, ctrl_scale, samples=256):
   t_steps, interp = agent.horizon_steps(spec), int(spline.Interp.ZERO)
   cfg, cpu_cfg = (sampling.default_config(spec),
                   sampling.default_config(cpu_spec))
-  eps, use2 = sampling.sample_noise(spec, SPLINE_POINTS, samples - 1, cfg,
-                                    gen)
-  pol = sampling.default_policy(spec, SPLINE_POINTS)
+  eps, use2 = sampling.sample_noise(spec, points, samples - 1, cfg, gen)
+  pol = sampling.default_policy(spec, points)
   _, info_gpu = sampling.optimize(spec, pol, d0, spec.default_params, cfg,
                                   (eps, use2), t_steps, interp)
   pol_cpu = sampling.SamplingPolicy(pol.times.cpu(), pol.values.cpu())
@@ -2810,6 +2859,221 @@ def estimator_phases(spec, cpu_spec, gen, elapsed, truth, start):
   return out
 
 
+# ---------------------------------------------------------------------------
+# The manipulation tasks on the sphere-box pair (phases 3n, their rows in
+# phase 4, 31-37): FreeFingers, Panda, Panda Bring, Bimanual Handover and
+# Bimanual Reorient, each at its own planner settings
+# ---------------------------------------------------------------------------
+
+
+def own_settings(spec):
+  """A task's own planner settings from its MJCF numerics: (candidates,
+  horizon steps, spline points)."""
+  from mujoco_mpc_tpu_torch import agent
+  cfg = spec.config
+  return (int(cfg['sampling_trajectories']), agent.horizon_steps(spec),
+          int(cfg['sampling_spline_points']))
+
+
+def manipulation_states(spec, gen, bsz):
+  """bsz states of a manipulation task: the first MANIP_FLOOR at qpos0
+  with the object's box 1 mm into the floor, at rest; the others with the
+  arm joints uniform in their ranges, velocities normal (scale 0.1),
+  controls uniform in their ranges, and the object (the free joint, the
+  first) against a fingertip sphere of a sphere-box pair drawn per sample:
+  the sphere 0-3 mm into a side or the top face of the box near its
+  middle, or (a quarter of them) its centre 1-4 mm inside the box (the
+  collider's deep branch), the box turned about z at random. Where that
+  puts the box into the floor, its corners come in too."""
+  import math
+  import torch
+  from mujoco_mpc_tpu_torch.physics import kinematics as kin
+  from mujoco_mpc_tpu_torch.physics.model import GeomType, make_data
+  m, b = spec.model, bsz
+  u = lambda *s: torch.rand(s, generator=gen, device=DEV)  # noqa: E731
+  pairs = [p for p in m.collision_pairs
+           if (m.geom_type[p[0]], m.geom_type[p[1]]) == (GeomType.SPHERE,
+                                                         GeomType.BOX)]
+  tips = torch.tensor([p[0] for p in pairs], device=DEV)
+  h = m.geom_size[pairs[0][1]]
+  qpos = m.qpos0.expand(b, -1).clone()
+  lo, hi = m.jnt_range[1:, 0], m.jnt_range[1:, 1]
+  qpos[:, 7:] = lo + (hi - lo) * u(b, m.nq - 7)
+  tip = tips[torch.randint(len(pairs), (b,), generator=gen, device=DEV)]
+  rows = torch.arange(b, device=DEV)
+  p = kin.kinematics(m, make_data(m, b).replace(qpos=qpos)).geom_xpos[rows,
+                                                                      tip]
+  r = m.geom_size[tip, 0]
+  yaw = (2 * u(b) - 1) * math.pi
+  c, s = torch.cos(yaw), torch.sin(yaw)
+  z, o = torch.zeros_like(yaw), torch.ones_like(yaw)
+  rot = torch.stack([c, -s, z, s, c, z, z, z, o], -1).reshape(b, 3, 3)
+  k = torch.randint(3, (b,), generator=gen, device=DEV)
+  sign = torch.where((k == 2) | (u(b) < 0.5), 1.0, -1.0)
+  local = (u(b, 3) - 0.5) * h
+  deep = u(b) < 0.25
+  depth_k = torch.where(deep, h[k] - 0.001 - 0.003 * u(b),
+                        h[k] + r - 0.003 * u(b))
+  local[rows, k] = sign * depth_k
+  qpos[:, :3] = p - torch.einsum('bij,bj->bi', rot, local)
+  qpos[:, 3:7] = torch.stack([torch.cos(yaw / 2), z, z, torch.sin(yaw / 2)],
+                             -1)
+  clo, chi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  qvel = 0.1 * torch.randn((b, m.nv), generator=gen, device=DEV)
+  ctrl = clo + (chi - clo) * u(b, m.nu)
+  rest = slice(0, MANIP_FLOOR)
+  qpos[rest] = m.qpos0
+  qpos[rest, 2] = h[2] - 0.001
+  qvel[rest], ctrl[rest] = 0.0, 0.0
+  return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def check_primitive_points(spec, cpu_spec, d):
+  """Phase 3n's contact points: those the card's step stacks from states
+  d (plane-box corners, then each sphere-box point) against the same step
+  on the CPU through the plain path, float32 both. Every depth agrees
+  within POINT_ATOL (continuous through the deep branch's ties); a
+  position or normal may differ only where the sphere's centre sits within
+  rounding of a tie between two axes of least depth or of the box's
+  surface, at most 0.1% of the points. Returns the line's text."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics.model import GeomType
+  card = [x.cpu() for x in stacked_points(spec, fwd.fwd_position(spec.model,
+                                                                 d))]
+  cpu_d = to_cpu(d)
+  cpu = stacked_points(cpu_spec, fwd.fwd_position(cpu_spec.model, cpu_d))
+  dist_err = float(torch.max(torch.abs(card[0] - cpu[0])))
+  check(dist_err <= POINT_ATOL, f'contact depths, card vs CPU: '
+        f'{dist_err:.3g} > {POINT_ATOL:g}')
+  pos_err = torch.amax(torch.abs(card[1] - cpu[1]), -1)
+  normal_err = torch.amax(torch.abs(card[2] - cpu[2]), -1)
+  off = (pos_err > POINT_ATOL) | (normal_err > NORMAL_ATOL)
+  n_off = int(off.sum())
+  check(n_off <= off.numel() // 1000, f'contact points, card vs CPU: '
+        f'{n_off} of {off.numel()} differ, more than 0.1%')
+  m = cpu_spec.model
+  radii = torch.stack([m.geom_size[g1, 0] for g1, _ in m.collision_pairs
+                       if m.geom_type[g1] == GeomType.SPHERE])
+  sphere = cpu[0][:, -len(radii):]       # the sphere-box pairs' points
+  contact, deep = sphere < 0, sphere < -radii
+  return (f'{off.shape[1]} points a sample ({int(contact.sum())} sphere-box '
+          f'points in contact, {int(deep.sum())} of them with the centre '
+          f'inside the box), depths max abs err {dist_err:.3g} (tol '
+          f'{POINT_ATOL:g}); positions {float(pos_err.max()):.3g} and '
+          f'normals {float(normal_err.max()):.3g} max abs err (tol '
+          f'{POINT_ATOL:g}, {NORMAL_ATOL:g}) at all but {n_off} of '
+          f'{off.numel()} points (near ties, bound 0.1%)')
+
+
+def check_manipulation_kernels(spec, cpu_spec, gen):
+  """Phase 3n for one task: both kernels on the inputs its step gives them
+  at MANIP_STATES manipulation_states (B1 on qM and the Euler system
+  within 1e-4 relative, B2 by phase 3e's rule), and its contact points
+  card vs CPU. Returns the states."""
+  m = spec.model
+  states = manipulation_states(spec, gen, MANIP_STATES)
+  spd_in, (args, gargs, condims, dmasks) = solver_inputs(spec, states)
+  _, spd_err = check_spd_inputs(spd_in, 1e-4, spec.name)
+  _, euler_err = check_spd_inputs(euler_inputs(spec, states), 1e-4,
+                                  spec.name + ' Euler')
+  kw = dict(cap=m.opt.iterations, tol=1e-5, condims=condims, dmasks=dmasks)
+  _, line = check_newton_task(spec.name, args, gargs, kw)
+  print(f'phase 3n {spec.name} step inputs (B {MANIP_STATES}, the first '
+        f'{MANIP_FLOOR} at qpos0 on the floor, the rest a fingertip against '
+        f'the object; condims {condims}, P {gargs[1].shape[1]}, ns '
+        f'{args[6].shape[1]}): chol_solve n {m.nv} rel err qM '
+        f'{spd_err:.3g}, Euler system {euler_err:.3g} (tol 1e-4); {line}')
+  print(f'phase 3n {spec.name} contact points, card vs the CPU plain path: '
+        + check_primitive_points(spec, cpu_spec, states))
+  return states
+
+
+def manipulation_kernels(spec, states, bsz, kern, path):
+  """Phase 4's rows of a manipulation path: both kernels on the step
+  inputs of bsz of phase 3n's states (its rollouts' batch), checked
+  against their plain versions and timed with their bounds (path_kernels);
+  fills kern[path] and returns the (B1, B2) max abs errors."""
+  m = spec.model
+  spd_in, (args, gargs, condims, dmasks) = solver_inputs(
+      spec, batch_of(states, bsz))
+  kern[path], errs = path_kernels(
+      f'4 {path} (B {bsz}, one condim-3 group P {gargs[1].shape[1]})',
+      spd_in, args, gargs, dict(cap=m.opt.iterations, tol=1e-5,
+                                condims=condims, dmasks=dmasks), 1e-4)
+  return errs[:2]
+
+
+def manipulation_timing(specs, states, kern):
+  """Phase 4's rows of the manipulation paths (manipulation_kernels) at
+  their three shapes, each task's rollout batch: FreeFingers (B 65, nv
+  12, P 10), Panda (B 97, nv 15, P 10; Panda Bring's model is Panda's,
+  and its row Panda's) and Bimanual Handover (B 97, nv 18, P 12;
+  Reorient's row Handover's: the same arms and object), and Handover at
+  MANIP_WIDE + 1. Fills `kern` for every path; returns their (B1, B2) max
+  abs errors."""
+  errs = {}
+  for n in ('FreeFingers', 'Panda', 'Bimanual Handover'):
+    errs[manip_path(n)] = manipulation_kernels(
+        specs[n], states[n], own_settings(specs[n])[0] + 1, kern,
+        manip_path(n))
+  for n, same in (('Panda Bring', 'Panda'),
+                  ('Bimanual Reorient', 'Bimanual Handover')):
+    kern[manip_path(n)] = kern[manip_path(same)]
+    errs[manip_path(n)] = errs[manip_path(same)]
+  errs[MANIP_WIDE_PATH] = manipulation_kernels(
+      specs['Bimanual Handover'], states['Bimanual Handover'],
+      MANIP_WIDE + 1, kern, MANIP_WIDE_PATH)
+  return errs
+
+
+def manipulation_phases(specs, cpu_specs, gen, elapsed):
+  """Phases 31-37 from the five tasks' specs (card and CPU): each task's
+  main path at its own candidates x horizon and knots from qpos0 with its
+  launches as predicted (2 T B1, T B2 a plan), and its card-vs-CPU golden
+  at its own candidates with phase 9's bounds (31-35); Bimanual
+  Handover's plan-act loop (36) and its plan at 4096 candidates (37,
+  timed, no golden). Returns
+  ({path: main path record}, {path: golden best_return rel err})."""
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  main, rel_err = {}, {}
+  for phase, name in enumerate(MANIP_TASKS, 31):
+    spec, cpu_spec = specs[name], cpu_specs[name]
+    samples, _, points = own_settings(spec)
+    d0 = make_data(spec.model)
+    r = main_path(spec, d0, samples, MANIP_PLANS, gen, points)
+    print_main_path(phase, name, samples, MANIP_PLANS, r)
+    br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+        spec, cpu_spec, d0, make_data(cpu_spec.model), gen, 0.2, samples,
+        points)
+    print(f'phase {phase} golden: {name} {samples}-candidate plan '
+          f'({points} knots) best_return card {br_gpu:.6g} vs CPU plain '
+          f'{br_cpu:.6g}: rel err {rel:.3g} (tol 0.02); winner card '
+          f'{win_gpu} vs CPU {win_cpu} (match {win_gpu == win_cpu}); 5-step '
+          f'rollout qpos drift {drift:.3g} (tol 0.05)')
+    main[manip_path(name)], rel_err[manip_path(name)] = r, rel
+    elapsed(str(phase))
+  hand = specs['Bimanual Handover']
+  samples, _, points = own_settings(hand)
+  d0 = make_data(hand.model)
+  steps, sim_t, wall, rtf, mean, last = plan_act(hand, d0, samples,
+                                                 PLAN_ACT_STEPS, 5)
+  print(f'phase 36 plan-act: Bimanual Handover {steps} steps ({sim_t:.2f} s '
+        f'simulated, {steps // 4} plans of 4 steps, {samples} candidates, '
+        f'transition on) in {wall:.2f} s wall: real-time factor {rtf:.3f}; '
+        f'mean cost {mean:.4g}, last {last:.4g}')
+  elapsed('36')
+  r = main_path(hand, d0, MANIP_WIDE, MANIP_WIDE_PLANS, gen, points)
+  print_main_path(37, 'Bimanual Handover', MANIP_WIDE, MANIP_WIDE_PLANS, r)
+  main[MANIP_WIDE_PATH] = r
+  elapsed('37')
+  return main, rel_err
+
+
+def manip_path(name):
+  return name.lower().replace(' ', '_')
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -2950,6 +3214,11 @@ def main():
   est_start = filter_start(quad, est_truth, 19)
   est_in = estimator_kernel_inputs(quad, est_truth, est_start)
   est_errs = check_estimator_kernels(est_in)
+  # the manipulation tasks' step inputs and contact points (3n)
+  manip = {n: registry.get_task(n) for n in MANIP_TASKS}
+  manip_cpu = {n: registry.get_task(n, device='cpu') for n in MANIP_TASKS}
+  manip_in = {n: check_manipulation_kernels(manip[n], manip_cpu[n], gen)
+              for n in MANIP_TASKS}
 
   elapsed('1-3')
 
@@ -2988,6 +3257,7 @@ def main():
                             spd_args[0]))
   time_cube_kernels(cube, c_spd_in, c_n_in, gen, kern)
   time_estimator_kernels(est_in, kern)
+  manip_errs = manipulation_timing(manip, manip_in, kern)
 
   elapsed('4')
 
@@ -3121,6 +3391,9 @@ def main():
   # 27-30. the estimators on Quadruped Flat
   est = estimator_phases(quad, quad_cpu, gen, elapsed, est_truth, est_start)
 
+  # 31-37. the manipulation tasks on the sphere-box pair
+  manip_main, manip_rel = manipulation_phases(manip, manip_cpu, gen, elapsed)
+
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -3212,6 +3485,11 @@ def main():
     paths['cube_solving']['golden_rel_err'] = cube_rel
     for p in ('quadruped_ekf', 'quadruped_ukf'):
       paths[p] = est_entry(name, p)
+    for p, r in manip_main.items():
+      paths[p] = entry(name, p, r['launches'],
+                       manip_errs[p][0 if name == 'chol_solve' else 1])
+      if p in manip_rel:
+        paths[p]['golden_rel_err'] = manip_rel[p]
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

@@ -2,11 +2,12 @@
 
 Port of mujoco_mpc_tpu/physics/collision.py: ContactPoint :32,
 _make_frame :44, _make_frames :59, _plane_sphere :81, _plane_capsule :87,
-_plane_box :103, _sphere_sphere :116, the convex-hull colliders
+_plane_box :103, _sphere_sphere :116, _sphere_box :145, the convex-hull
+colliders
 (_points_vs_halfspaces :395, _hull_world :416, _plane_mesh :426,
 _sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), narrowphase :604
-(plane against sphere, capsule, box and mesh; sphere against sphere and
-mesh; box, capsule and mesh against mesh), the batched hull clusters
+(plane against sphere, capsule, box and mesh; sphere against sphere, box
+and mesh; box, capsule and mesh against mesh), the batched hull clusters
 (_hull_sig :712, contact_clusters :717, _hulls_local :762,
 plane_mesh_batched :783, box_mesh_batched :809, mesh_mesh_batched :874
 with its broadphase, capsule_mesh_batched :949, sphere_mesh_batched
@@ -25,8 +26,8 @@ contractions over them go through matmul, which runs in full float32
 unless the caller enables TF32.
 
 Not ported yet, and refused where reached: the other primitive pairs
-(sphere, capsule and box pairs, box-box, cylinder and ellipsoid: ROADMAP
-A6) and height fields (A7).
+(sphere-capsule, capsule-capsule, capsule-box, box-box, cylinder and
+ellipsoid: ROADMAP A6) and height fields (A7).
 """
 
 from __future__ import annotations
@@ -112,6 +113,37 @@ def _sphere_sphere(c1, r1, c2, r2):
   dist = ln - r1 - r2
   pos = c1 + n * (r1 + 0.5 * dist)[..., None]
   return [ContactPoint(dist, pos, n)]
+
+
+def _sphere_box(c, r, bc, bmat, bsize):
+  """Sphere (centre c (B, 3), radius r) vs box (centre bc (B, 3), frame
+  bmat (B, 3, 3), half sizes bsize (3,)), in the box's frame. Shallow,
+  the centre outside or on the surface: the closest box point, the normal
+  towards the centre (guarded at 1e-12: zero on the surface). Deep, the
+  centre strictly inside on every axis: pushed out along the axis of least
+  depth, the first such axis at a tie (jnp.argmin's), the normal's sign
+  that of the centre's coordinate there (0 at the exact centre, as
+  jnp.sign gives it). The normal points from the box to the sphere; the
+  caller flips it."""
+  local = torch.einsum('bji,bj->bi', bmat, c - bc)
+  clamped = torch.clamp(local, -bsize, bsize)
+  inside = torch.all(torch.abs(local) < bsize, -1)
+  delta = local - clamped
+  ln = torch.linalg.vector_norm(delta, dim=-1)
+  n_shallow = delta / torch.clamp(ln, min=1e-12)[:, None]
+  depth = bsize - torch.abs(local)
+  d0, d1, d2 = depth.unbind(-1)
+  k = torch.where((d0 <= d1) & (d0 <= d2), 0, torch.where(d1 <= d2, 1, 2))
+  dk = torch.gather(depth, 1, k[:, None])[:, 0]
+  sign = torch.sign(torch.gather(local, 1, k[:, None]))
+  n_deep = torch.nn.functional.one_hot(k, 3).to(c.dtype) * sign
+  n_local = torch.where(inside[:, None], n_deep, n_shallow)
+  dist = torch.where(inside, -(dk + r), ln - r)
+  surface_local = torch.where(inside[:, None], local + n_local * dk[:, None],
+                              clamped)
+  n = torch.einsum('bij,bj->bi', bmat, n_local)
+  surface = bc + torch.einsum('bij,bj->bi', bmat, surface_local)
+  return [ContactPoint(dist, surface + 0.5 * dist[:, None] * n, n)]
 
 
 def _deepest(depth: torch.Tensor, k: int) -> torch.Tensor:
@@ -229,6 +261,10 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
   elif t1 == GeomType.SPHERE:
     if t2 == GeomType.SPHERE:
       return _sphere_sphere(p1, s1[0], p2, s2[0])
+    if t2 == GeomType.BOX:
+      # _sphere_box's normal points box -> sphere, g2 -> g1: flipped
+      return [cp._replace(normal=-cp.normal)
+              for cp in _sphere_box(p1, s1[0], p2, m2, s2)]
     if t2 == GeomType.MESH:
       return _sphere_mesh(m, d, p1, s1[0], g2)
   elif t1 == GeomType.BOX and t2 == GeomType.MESH:
@@ -570,6 +606,7 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
             (GeomType.PLANE, GeomType.CAPSULE): 2,
             (GeomType.PLANE, GeomType.BOX): 8,
             (GeomType.SPHERE, GeomType.SPHERE): 1,
+            (GeomType.SPHERE, GeomType.BOX): 1,
             (GeomType.SPHERE, GeomType.MESH): 1,
             (GeomType.CAPSULE, GeomType.MESH): 2,
             (GeomType.BOX, GeomType.MESH): 8}

@@ -5,10 +5,12 @@ Particle and ParticleFixed (:133-171), Swimmer (:254-280),
 Quadruped Flat (_make_quadruped :354-699, registered at :702), Humanoid
 Stand and Walk (_make_humanoid :722-765, registered at :767-782),
 Shadow Reorient (_hand_task :925-988 without a goal schedule, registered
-at :991-995), Cube Solving (:1003-1116) and Humanoid Track (:1381-1508,
-its procedural clip). The JAX registry compiles models/*.xml with
-`mujoco`; the port loads the compiled model, the task parameters and the
-task's own arrays (Track's clip, Cube Solving's scramble tables) from
+at :991-995), Cube Solving (:1003-1116), Humanoid Track (:1381-1508,
+its procedural clip), FreeFingers (:790-814), Panda and Panda Bring
+(:833-911), and Bimanual Handover and Reorient (:1131-1261). The JAX
+registry compiles models/*.xml with `mujoco`; the port loads the
+compiled model, the task parameters and the task's own arrays (Track's
+clip, Cube Solving's scramble tables, the manipulation tasks' ids) from
 mujoco_mpc_tpu_torch/assets/ (written by tools/export_torch_snapshot.py),
 so it runs where neither `mujoco` nor JAX is installed. Residuals are
 batch-first; a transition takes the B = 1 simulation state.
@@ -689,6 +691,171 @@ def _cube_solving(spec: base.TaskSpec, task: dict):
   return residual, transition
 
 
+# ---------------------------------------------------------------------------
+# The manipulation tasks on primitive geoms: fingertip spheres against a
+# free box (sphere-box) resting on a floor plane (plane-box). FreeFingers
+# (reference: mjpc/tasks/fingers/fingers.cc), registry.py :790-814; Panda
+# (mjpc/tasks/panda/panda.cc), :833-860; Panda Bring
+# (mjpc/tasks/manipulation/manipulation.cc), :863-911; Bimanual Handover
+# and Reorient (mjpc/tasks/bimanual/), :1131-1261. The site, body and
+# mocap ids travel in the snapshot's task/ group under the names the JAX
+# closures give them. Every draw comes from the transition's `generator`.
+# ---------------------------------------------------------------------------
+
+
+def _ids(task: dict, *names):
+  return tuple(int(task[n]) for n in names)
+
+
+def _uniform(generator, m, lo, hi):
+  """A draw uniform in [lo, hi) per entry of lo, from `generator` (JAX
+  draws it with jax.random.uniform)."""
+  lo, hi = (torch.tensor(x, dtype=m.dtype, device=m.device) for x in (lo, hi))
+  u = torch.rand(lo.shape, generator=generator, dtype=m.dtype,
+                 device=generator.device).to(m.device)
+  return lo + (hi - lo) * u
+
+
+def _with_row(x: torch.Tensor, i: int, row: torch.Tensor) -> torch.Tensor:
+  """x (B, n, k) with x[:, i] = row (B, k)."""
+  x = x.clone()
+  x[:, i] = row
+  return x
+
+
+def _new_goal_xy(d, site, mocap, tol, xy):
+  """The bring transitions (FreeFingers, Panda, Panda Bring) on the B = 1
+  state: once the site is within `tol` of the mocap body, the mocap's x
+  and y become the draw `xy` (2,)."""
+  o, g = d.site_xpos[:, site], d.mocap_pos[:, mocap]
+  reached = torch.linalg.vector_norm(o - g, dim=-1) < tol
+  row = torch.cat([torch.where(reached[:, None], xy, g[:, :2]), g[:, 2:]], -1)
+  return d.replace(mocap_pos=_with_row(d.mocap_pos, mocap, row))
+
+
+def _fingers(spec: base.TaskSpec, task: dict):
+  """Two fingers reach a free cube and bring it to a target mocap; a new
+  target once the cube is within 0.02 of it."""
+  obj, target, tip_a, tip_b = _ids(task, 'obj', 'target_mocap', 'tip_a',
+                                   'tip_b')
+
+  def residual(m, d, rp):
+    o = d.site_xpos[:, obj]
+    return torch.cat([d.site_xpos[:, tip_a] - o, d.site_xpos[:, tip_b] - o,
+                      o - d.mocap_pos[:, target], d.ctrl], -1)
+
+  def transition(m, d, params, generator):
+    xy = _uniform(generator, m, [-0.15, -0.15], [0.15, 0.15])
+    return _new_goal_xy(d, obj, target, 0.02, xy), params
+
+  return residual, transition
+
+
+def _panda(spec: base.TaskSpec, task: dict, bring: bool):
+  """Panda: reach the cube with the pinch site and bring it upright to
+  the goal mocap; a new goal once within 0.03. Panda Bring adds the
+  object's planar velocity to Bring, Careful (its speed damped near the
+  goal) and Away (the hand retracts once at the goal); a new goal once
+  within 0.02."""
+  goal, obj_body, obj_site, pinch = _ids(task, 'goal_mocap', 'obj_body',
+                                         'obj_site', 'pinch')
+
+  def residual(m, d, rp):
+    o = d.site_xpos[:, obj_site]
+    g = d.mocap_pos[:, goal]
+    hand = d.site_xpos[:, pinch]
+    rot = tm.quat_sub(d.xquat[:, obj_body], d.mocap_quat[:, goal])
+    if not bring:
+      return torch.cat([hand - o, o - g, rot], -1)
+    dist_to_goal = torch.linalg.vector_norm(o - g, dim=-1)
+    obj_vel = support.point_velocity(m, d, obj_body, o)
+    careful = (torch.sum(obj_vel * obj_vel, -1)
+               * torch.exp(-10.0 * dist_to_goal))
+    away = torch.where(
+        dist_to_goal < 0.03,
+        torch.clamp(0.1 - torch.linalg.vector_norm(hand - o, dim=-1),
+                    min=0.0), torch.zeros_like(dist_to_goal))
+    return torch.cat([hand - o, o - g, rot, obj_vel[:, :2], careful[:, None],
+                      away[:, None]], -1)
+
+  def transition(m, d, params, generator):
+    xy = _uniform(generator, m, [-0.45, -0.45], [0.45, 0.45])
+    return _new_goal_xy(d, obj_site, goal, 0.02 if bring else 0.03,
+                        xy), params
+
+  return residual, transition
+
+
+def _grasp_quality(d, tips, o):
+  """0 when the fingertips oppose each other around the point o (B, 3):
+  the norm of the mean of their unit directions to it."""
+  dirs = [o - d.site_xpos[:, s] for s in tips]
+  dirs = [v / torch.clamp(torch.linalg.vector_norm(v, dim=-1, keepdim=True),
+                          min=1e-6) for v in dirs]
+  return torch.linalg.vector_norm(sum(dirs) / len(dirs), dim=-1)
+
+
+def _bimanual(spec: base.TaskSpec, task: dict, reorient: bool):
+  """Two arms with pinch grippers. Handover: both grippers reach the
+  object (lateral alignment weighted doubly), the nearer one grasps it,
+  and it is brought to the target mocap, which moves to a new point drawn
+  in x and y once reached (within 0.03). Reorient: both grippers reach and
+  grasp the object, brought to the goal's x and y on the table in the
+  goal's orientation; once within 0.2 rad, a new goal orientation about z
+  from a normal draw."""
+  gl, gr, obj = _ids(task, 'gl', 'gr', 'obj')
+  tips_l = [int(s) for s in task['tips_l']]
+  tips_r = [int(s) for s in task['tips_r']]
+  m = spec.model
+  kw = dict(device=m.device, dtype=m.dtype)
+  if reorient:
+    goal, obj_site = _ids(task, 'goal_mocap', 'obj_site')
+    planar = torch.tensor([1.0, 1.0, 0.0], **kw)
+    lift = torch.tensor([0.0, 0.0, 0.025], **kw)
+    about_z = torch.tensor([1.0, 0.0, 0.0, 1.0], **kw)
+  else:
+    (target,) = _ids(task, 'target_mocap')
+    scale = torch.tensor([1.0, 2.0, 2.0], **kw)
+
+  def residual(m, d, rp):
+    if reorient:
+      o = d.site_xpos[:, obj_site]
+      bring = torch.cat([o - d.mocap_pos[:, goal] * planar - lift,
+                         tm.quat_sub(d.xquat[:, obj], d.mocap_quat[:, goal])],
+                        -1)
+      return torch.cat([d.site_xpos[:, gl] - o, d.site_xpos[:, gr] - o,
+                        _grasp_quality(d, tips_l, o)[:, None],
+                        _grasp_quality(d, tips_r, o)[:, None], bring], -1)
+    o = d.site_xpos[:, obj]
+    dl = torch.linalg.vector_norm(d.site_xpos[:, gl] - o, dim=-1)
+    dr = torch.linalg.vector_norm(d.site_xpos[:, gr] - o, dim=-1)
+    grasp = torch.where(dl < dr, _grasp_quality(d, tips_l, o),
+                        _grasp_quality(d, tips_r, o))
+    return torch.cat([(d.site_xpos[:, gl] - o) * scale,
+                      (d.site_xpos[:, gr] - o) * scale, grasp[:, None],
+                      o - d.mocap_pos[:, target]], -1)
+
+  def transition(m, d, params, generator):
+    if reorient:
+      q = torch.randn((4,), generator=generator, dtype=m.dtype,
+                      device=generator.device).to(m.device)
+      q = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-9)
+      q = q * about_z
+      q = q / torch.clamp(torch.linalg.vector_norm(q), min=1e-9)
+      g = d.mocap_quat[:, goal]
+      err = torch.linalg.vector_norm(tm.quat_sub(d.xquat[:, obj], g), dim=-1)
+      row = torch.where((err < 0.2)[:, None], q, g)
+      return d.replace(mocap_quat=_with_row(d.mocap_quat, goal, row)), params
+    xy = _uniform(generator, m, [-0.25, -0.3], [0.25, 0.3])
+    new = torch.cat([xy, torch.full((1,), 0.25, **kw)])
+    t = d.mocap_pos[:, target]
+    reached = torch.linalg.vector_norm(d.site_xpos[:, obj] - t, dim=-1) < 0.03
+    row = torch.where(reached[:, None], new, t)
+    return d.replace(mocap_pos=_with_row(d.mocap_pos, target, row)), params
+
+  return residual, transition
+
+
 # task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
 # transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
@@ -704,7 +871,15 @@ TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
          'Humanoid Walk': ('humanoid_walk.npz',
                            functools.partial(_humanoid, walk=True)),
          'Shadow Reorient': ('shadow_reorient.npz', _hand_task),
-         'Cube Solving': ('cube_solving.npz', _cube_solving)}
+         'Cube Solving': ('cube_solving.npz', _cube_solving),
+         'FreeFingers': ('free_fingers.npz', _fingers),
+         'Panda': ('panda.npz', functools.partial(_panda, bring=False)),
+         'Panda Bring': ('panda_bring.npz',
+                         functools.partial(_panda, bring=True)),
+         'Bimanual Handover': ('bimanual_handover.npz',
+                               functools.partial(_bimanual, reorient=False)),
+         'Bimanual Reorient': ('bimanual_reorient.npz',
+                               functools.partial(_bimanual, reorient=True))}
 
 
 def task_names():

@@ -14,11 +14,13 @@
   JAX's, eagerly vmapped, on Shadow Reorient's chamfered-cube hull and its
   own pairs, in float64: random poses and the resting pose at qpos0, where
   8 hull vertices tie for the lowest; the tied choice takes the same
-  vertex indices as lax.top_k. Mesh-mesh, height-field and the other
-  primitive pairs still raise, naming their ROADMAP item.
+  vertex indices as lax.top_k. Sphere-box builds; height fields and the
+  other primitive pairs still raise, naming their ROADMAP item.
 """
 
 import os
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +41,7 @@ from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics import kinematics as kin
 from mujoco_mpc_tpu_torch.physics import model as model_lib
 from tools import export_torch_snapshot as export
+from tests.test_torch_cube import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -165,7 +168,7 @@ def rows(quadruped):
   jm, _, m, (qpos, qvel, ctrl) = quadruped
   jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  @jax.jit
+  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
   @jax.vmap
   def jax_rows(q, v):
     d = jkin.com_pos(jm, jkin.kinematics(jm, jd0.replace(qpos=q, qvel=v)))
@@ -405,6 +408,21 @@ def test_unported_pairs_raise(shadow, pair, item):
                    m.replace(collision_pairs=(pair,)))):
     with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
       call()
+
+
+def test_sphere_box_pairs_are_ported(shadow):
+  """A fingertip sphere against the palm box (geoms 7 and 1), refused
+  before the manipulation slice: narrowphase emits its one point (the
+  normal from the sphere to the box), points_per_pair counts it and a
+  model with the pair builds its contact table."""
+  _, m, d, _, _ = shadow
+  assert (m.geom_type[7], m.geom_type[1]) == (model_lib.GeomType.SPHERE,
+                                              model_lib.GeomType.BOX)
+  (cp,) = collision.narrowphase(m, d, 7, 1)
+  assert cp.dist.shape == (d.batch,)
+  assert collision.points_per_pair(m, 7, 1) == 1
+  (group,) = constraint.contact_table(m.replace(collision_pairs=((7, 1),)))
+  assert group.margin.shape == (1,)
 
 
 def test_mesh_mesh_cluster_raises(shadow):

@@ -44,6 +44,7 @@ from mujoco_mpc_tpu_torch.planners import ilqg
 from mujoco_mpc_tpu_torch.planners import ilqs
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -166,8 +167,9 @@ def test_gradient_optimize_matches_jax(cart):
   k = 6
   jnew, jinfo = jax.jit(functools.partial(
       jgrad.optimize, jspec, cfg=jgrad.default_config(jspec, jnp.float64),
-      num_candidates=k, horizon_steps=HORIZON, interp=INTERP))(
-          jpol, d0=jd0, params=jspec.default_params)
+      num_candidates=k, horizon_steps=HORIZON, interp=INTERP),
+                         compiler_options=QUICK_COMPILE)(
+                             jpol, d0=jd0, params=jspec.default_params)
   new, info = gradient_planner.optimize(
       spec, pol, d0, spec.default_params,
       gradient_planner.default_config(spec), k, HORIZON, INTERP)
@@ -247,7 +249,7 @@ def jilqs_opt(cart):
       jilqs.optimize, jspec, d0=jd0, params=jspec.default_params,
       icfg=jilqg.default_config(jspec, dtype=jnp.float64),
       num_samples=SAMPLES, num_ilqg_candidates=ILQG_CANDIDATES,
-      horizon_steps=HORIZON, interp=INTERP))
+      horizon_steps=HORIZON, interp=INTERP), compiler_options=QUICK_COMPILE)
 
 
 def _ilqs_start(jspec, spec):

@@ -7,11 +7,14 @@ and parameters cast to float64; the port loads its snapshot in float64)
 and the same states, made with numpy.
 
 One jitted JAX step of Humanoid Track (forward, residual, cost, Euler)
-is the reference for everything Track does here, so the JAX side
-compiles once. It is jitted per sample and called once a sample: under
-vmap JAX traces the Newton solve and every unrolled SPD solve a second
-time (custom_vmap's rule beside the plain body), which took ~45 s more
-to trace and compile on a CPU than the ~65 s of the unbatched step.
+is the reference for everything Track does here. It is jitted per sample
+and called once a sample: under vmap JAX traces the Newton solve and
+every unrolled SPD solve a second time (custom_vmap's rule beside the
+plain body), which took ~45 s more to trace and compile on a CPU than
+the ~95 s of the unbatched step. Its calls here are replayed from
+assets/humanoid_track_step_golden.npz (tests/torch_recorded.py: inputs
+matched to the recorded ones, outputs as JAX computed them);
+test_step_golden_is_jaxs (slow) makes each call live.
 * forward and step from states around `home` (the clip's first pose)
   with contacts and joint limits active: kinematics of the free-joint
   tree, qacc, qfrc_constraint, then qpos and qvel after the step;
@@ -27,6 +30,8 @@ to trace and compile on a CPU than the ~65 s of the unbatched step.
 """
 
 import dataclasses
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +52,8 @@ from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import Recorded
 
 torch.set_num_threads(1)
 
@@ -54,6 +61,8 @@ NSAMPLE = 9               # 8 candidates + the nominal
 HORIZON = 3
 KINEMATICS = ('xpos', 'xquat', 'geom_xpos', 'geom_xmat', 'site_xpos',
               'subtree_com', 'cdof', 'cvel')
+# the JAX step's recorded calls (tests/torch_recorded.py)
+STEP_GOLDEN = 'humanoid_track_step_golden.npz'
 
 
 def _f64(tree):
@@ -66,32 +75,45 @@ def _f64(tree):
 @pytest.fixture(scope='module')
 def tasks():
   """(JAX spec, its model and params in f64, the JAX step over a batch of
-  numpy states, the port's spec in f64)."""
+  numpy states, replayed from its recorded calls, the port's spec in
+  f64)."""
   jspec = jregistry.get_task('Humanoid Track')
   jm, jparams = _f64(jspec.model), _f64(jspec.default_params)
-  jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  @jax.jit
-  def one(t, q, v, u, rp):
-    d = jfwd.forward(jm, jd0.replace(time=t, qpos=q, qvel=v, ctrl=u))
-    res = jspec.residual_fn(jm, d, rp)
-    d2 = jfwd.integrate(jm, d)
-    out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
-                                                   'qfrc_constraint')}
-    out.update(residual=res,
-               cost=jspec.cost(res, jparams.replace(residual_params=rp)),
-               time=d2.time, qpos=d2.qpos, qvel=d2.qvel)
-    return out
+  def live():
+    jd0 = jmake_data(jm, dtype=jnp.float64)
+
+    @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
+    def one(t, q, v, u, rp):
+      d = jfwd.forward(jm, jd0.replace(time=t, qpos=q, qvel=v, ctrl=u))
+      res = jspec.residual_fn(jm, d, rp)
+      d2 = jfwd.integrate(jm, d)
+      out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
+                                                     'qfrc_constraint')}
+      out.update(residual=res,
+                 cost=jspec.cost(res, jparams.replace(residual_params=rp)),
+                 time=d2.time, qpos=d2.qpos, qvel=d2.qvel)
+      return out
+
+    def step(t, q, v, u, rp):
+      outs = [one(*(jnp.asarray(x[i]) for x in (t, q, v, u)),
+                  jnp.asarray(rp)) for i in range(len(t))]
+      return {k: np.stack([np.asarray(o[k]) for o in outs])
+              for k in outs[0]}
+    return step
+
+  recorded = Recorded(os.path.join(registry.ASSETS, STEP_GOLDEN), live)
 
   def step(t, q, v, u, rp=None):
-    rp = jparams.residual_params if rp is None else jnp.asarray(rp)
-    outs = [one(*(jnp.asarray(x[i]) for x in (t, q, v, u)), rp)
-            for i in range(len(t))]
-    return {k: np.stack([np.asarray(o[k]) for o in outs]) for k in outs[0]}
+    return recorded(t, q, v, u, np.asarray(
+        jparams.residual_params if rp is None else rp))
 
+  step.recorded = recorded
   spec = registry.get_task('Humanoid Track', device='cpu',
                            dtype=torch.float64)
-  return jspec, jm, jparams, step, spec
+  yield jspec, jm, jparams, step, spec
+  if recorded.recording:
+    recorded.save()
 
 
 def _states(spec, seed):
@@ -300,7 +322,8 @@ def stand_walk():
     d = jfwd.fwd_velocity(jm, jfwd.fwd_position(jm, d))
     return [s.residual_fn(jm, d, rp) for s, rp in zip(specs, rps)]
 
-  return specs, jax.jit(jax.vmap(one, in_axes=(0, 0, 0, None)))
+  return specs, jax.jit(jax.vmap(one, in_axes=(0, 0, 0, None)),
+                        compiler_options=QUICK_COMPILE)
 
 
 @pytest.mark.parametrize('name', ['Humanoid Stand', 'Humanoid Walk'])
@@ -331,3 +354,10 @@ def test_stand_and_walk_residuals(tasks, stand_walk, name):
   _close(spec.cost(res, spec.default_params.replace(residual_params=rp)),
          jax.vmap(lambda r: jspecs[k].cost(r, jp))(jnp.asarray(want)),
          'cost', rtol=1e-9, atol=1e-10)
+
+
+@pytest.mark.slow
+def test_step_golden_is_jaxs(tasks):
+  """The recorded calls of the JAX step are what the JAX package computes
+  now (its compile: ~95 s on a CPU)."""
+  tasks[3].recorded.check_live()

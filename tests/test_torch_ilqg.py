@@ -47,6 +47,7 @@ from mujoco_mpc_tpu_torch.planners import derivatives
 from mujoco_mpc_tpu_torch.planners import ilqg
 from mujoco_mpc_tpu_torch.planners import registry as planners
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -181,7 +182,7 @@ def test_particle_step_matches_jax():
   res = spec.residual_fn(m, d, spec.default_params.residual_params)
   d2 = fwd.integrate(m, d)
 
-  @jax.jit
+  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
   def one(q, v, u, t):
     jm, jp = jspec.model, jspec.default_params
     dj = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u, time=t))
@@ -214,7 +215,8 @@ def check_derivatives(name):
   jspec, jd0, spec, d0, acts = _trajectories(name, 4)
   jp = jspec.default_params
   jtraj = jder.nominal_trajectory(jspec, jd0, jnp.asarray(acts), jp)
-  want = jax.jit(lambda tr: jder.compute(jspec, jd0, tr, jp))(jtraj)
+  want = jax.jit(lambda tr: jder.compute(jspec, jd0, tr, jp),
+                 compiler_options=QUICK_COMPILE)(jtraj)
   traj = derivatives.nominal_trajectory(spec, d0, torch.from_numpy(acts),
                                         spec.default_params)
   got = derivatives.compute(spec, d0, traj, spec.default_params)
@@ -301,7 +303,8 @@ def check_optimize(name):
   jstate = jilqg.default_state(jspec, T_STEPS, dtype=jnp.float64)
   jopt = {p: jax.jit(functools.partial(
       jilqg.optimize, jspec, cfg=jcfg, num_candidates=CANDIDATES,
-      horizon_steps=T_STEPS, pipelined=p)) for p in (True, False)}
+      horizon_steps=T_STEPS, pipelined=p), compiler_options=QUICK_COMPILE)
+          for p in (True, False)}
   cfg = ilqg.default_config(spec)
   state = ilqg.default_state(spec, T_STEPS)
   for it, pipelined in enumerate((True, True, False)):

@@ -7,6 +7,8 @@ same returns, the same winner and the same new policy. Small sizes: 16
 candidates, a 10-step horizon.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,7 @@ from mujoco_mpc_tpu_torch.ops import spline
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -147,7 +150,7 @@ def test_optimize_step_matches_jax(tasks):
       np.random.default_rng(7).uniform(-1, 1, (10, 1)), jnp.float32))
   jcfg = jsampling.default_config(jspec)
 
-  @jax.jit
+  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
   def jplan(pol, k):
     return jsampling.optimize(jspec, pol, jd0, jspec.default_params, jcfg,
                               k, NUM_SAMPLES, HORIZON, interp)

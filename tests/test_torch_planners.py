@@ -51,6 +51,7 @@ from mujoco_mpc_tpu_torch.planners import rollout
 from mujoco_mpc_tpu_torch.planners import sample_gradient
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
 
 torch.set_num_threads(1)
 
@@ -164,7 +165,8 @@ def test_noisy_rollout_return_matches_jax(cart):
   std, rate = 0.7, 0.2
   want = jax.jit(jax.vmap(lambda a, k: jrollout.noisy_rollout_return(
       jspec, jd0, a, jspec.default_params, k, jnp.asarray(std),
-      jnp.asarray(rate))))(jnp.asarray(acts), keys)
+      jnp.asarray(rate))), compiler_options=QUICK_COMPILE)(
+          jnp.asarray(acts), keys)
   eps = xfrc_noise(keys, spec.model.nbody)
   got = rollout.noisy_rollout_return(
       spec, d0, torch.from_numpy(acts), spec.default_params, eps,
@@ -192,12 +194,12 @@ def jax_opt(cart):
       jcem.optimize, jspec, d0=jd0, params=jspec.default_params,
       cfg=jcem.default_config(jspec, dtype=jnp.float64),
       num_samples=SAMPLES, n_elite=N_ELITE, horizon_steps=HORIZON,
-      interp=INTERP))}
+      interp=INTERP), compiler_options=QUICK_COMPILE)}
   for ng in (1, 4):
     opts[ng] = jax.jit(functools.partial(
         jsg.optimize, jspec, d0=jd0, params=jspec.default_params,
         cfg=jsg_cfg, num_samples=SAMPLES, num_gradient=ng,
-        horizon_steps=HORIZON, interp=INTERP))
+        horizon_steps=HORIZON, interp=INTERP), compiler_options=QUICK_COMPILE)
   return opts
 
 
@@ -393,8 +395,8 @@ def jax_ranked(cart):
         return (rc, jd.select(rc, 2)) + jrobust.optimize_ranked(
             jspec, jd, s, jd0, jspec.default_params, jrcfg, k_robust, NCAND,
             NREP, HORIZON, INTERP)
-      out[delegate_id] = jax.jit(run)(jstate, jax.random.key(13),
-                                      jax.random.key(17))
+      out[delegate_id] = jax.jit(run, compiler_options=QUICK_COMPILE)(
+          jstate, jax.random.key(13), jax.random.key(17))
     return out[delegate_id]
   return get
 

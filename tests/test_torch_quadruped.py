@@ -4,7 +4,10 @@ Both packages get the same compiled task (the JAX task's model and
 parameters cast to float64; the port loads its snapshot in float64) and
 the same states, made with numpy. One jitted JAX step (forward, residual,
 cost, Euler), vmapped over 9 samples, is the reference for everything
-here, so the JAX side compiles once:
+here; its calls are replayed from assets/quadruped_flat_step_golden.npz
+(tests/torch_recorded.py: inputs matched to the recorded ones, outputs as
+JAX computed them), and test_step_golden_is_jaxs (slow) makes each call
+live:
 * forward and step from 9 states around `home` with contacts and joint
   limits active: kinematics of the free-joint tree, qacc,
   qfrc_constraint, then qpos and qvel after the step;
@@ -17,6 +20,7 @@ here, so the JAX side compiles once:
 """
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -37,6 +41,8 @@ from mujoco_mpc_tpu_torch.physics import kinematics as kin
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import Recorded
 
 torch.set_num_threads(1)
 
@@ -44,6 +50,8 @@ NSAMPLE = 9               # 8 candidates + the nominal
 HORIZON = 3
 KINEMATICS = ('xpos', 'xquat', 'geom_xpos', 'geom_xmat', 'site_xpos',
               'subtree_com', 'cdof', 'cvel')
+# the JAX step's recorded calls (tests/torch_recorded.py)
+STEP_GOLDEN = 'quadruped_flat_step_golden.npz'
 
 
 def _f64(tree):
@@ -55,25 +63,32 @@ def _f64(tree):
 
 @pytest.fixture(scope='module')
 def tasks():
-  """(JAX spec, its model and params in f64, a jitted vmapped JAX step,
-  the port's spec in f64)."""
+  """(JAX spec, its model and params in f64, a jitted vmapped JAX step of
+  numpy states, replayed from its recorded calls, the port's spec in
+  f64)."""
   jspec = jregistry.get_task('Quadruped Flat')
   jm, jparams = _f64(jspec.model), _f64(jspec.default_params)
-  jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  def one(t, q, v, u):
-    d = jfwd.forward(jm, jd0.replace(time=t, qpos=q, qvel=v, ctrl=u))
-    res = jspec.residual_fn(jm, d, jparams.residual_params)
-    d2 = jfwd.integrate(jm, d)
-    out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
-                                                   'qfrc_constraint')}
-    out.update(residual=res, cost=jspec.cost(res, jparams), time=d2.time,
-               qpos=d2.qpos, qvel=d2.qvel)
-    return out
+  def live():
+    jd0 = jmake_data(jm, dtype=jnp.float64)
 
+    def one(t, q, v, u):
+      d = jfwd.forward(jm, jd0.replace(time=t, qpos=q, qvel=v, ctrl=u))
+      res = jspec.residual_fn(jm, d, jparams.residual_params)
+      d2 = jfwd.integrate(jm, d)
+      out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
+                                                     'qfrc_constraint')}
+      out.update(residual=res, cost=jspec.cost(res, jparams), time=d2.time,
+                 qpos=d2.qpos, qvel=d2.qvel)
+      return out
+    return jax.jit(jax.vmap(one), compiler_options=QUICK_COMPILE)
+
+  step = Recorded(os.path.join(registry.ASSETS, STEP_GOLDEN), live)
   spec = registry.get_task('Quadruped Flat', device='cpu',
                            dtype=torch.float64)
-  return jspec, jm, jparams, jax.jit(jax.vmap(one)), spec
+  yield jspec, jm, jparams, step, spec
+  if step.recording:
+    step.save()
 
 
 @pytest.fixture(scope='module')
@@ -81,7 +96,7 @@ def jax_kinematics(tasks):
   """Jitted JAX kinematics, com and com velocities of one state."""
   jm = tasks[1]
   return jax.jit(lambda d: jkin.com_vel(jm, jkin.com_pos(
-      jm, jkin.kinematics(jm, d))))
+      jm, jkin.kinematics(jm, d))), compiler_options=QUICK_COMPILE)
 
 
 def _states(spec, seed):
@@ -105,7 +120,7 @@ def stepped(tasks):
   stepped Data) at _states."""
   _, _, _, jstep, spec = tasks
   state = _states(spec, 0)
-  want = jstep(*(jnp.asarray(x) for x in state))
+  want = jstep(*state)
   m, p = spec.model, spec.default_params
   t, q, v, u = (torch.from_numpy(x) for x in state)
   d = fwd.forward(m, make_data(m, NSAMPLE).replace(time=t, qpos=q, qvel=v,
@@ -305,3 +320,10 @@ def test_synchronous_mpc_applies_the_transition(tasks):
       spec.residual_param_names.index('_last_t')]
   # the second plan's transition stamps the time of its state: 1 step
   assert float(last_t) == pytest.approx(float(m.opt.timestep))
+
+
+@pytest.mark.slow
+def test_step_golden_is_jaxs(tasks):
+  """The recorded calls of the JAX step are what the JAX package computes
+  now (its trace and compile: ~70 s on a CPU)."""
+  tasks[3].check_live()

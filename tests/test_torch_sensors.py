@@ -15,9 +15,10 @@ carries a task's model.
   FORCE_XML (atol 0.02 against MuJoCo, as JAX's test; 1e-9 against
   JAX's);
 * the rangefinder (support.raycast) against box, sphere, capsule,
-  cylinder and plane, and a miss, at four yaws as one batch (atol 1e-9;
-  the head's own sphere, which every ray excludes, does not collide
-  here: its pair with the box is not ported yet);
+  cylinder and plane, and a miss, at four yaws as one batch (atol 1e-9),
+  with the head's own sphere, which every ray excludes, visual-only and
+  colliding with the floor, the wall (sphere-box) and the ball (its pairs
+  with the capsule and the cylinder are not ported yet);
 * inverse dynamics against mj_inverse (atol 1e-9) and JAX's;
 * the refusals: an unsupported sensor type at load, tendon sensors and
   elliptic cones where they are evaluated;
@@ -81,12 +82,23 @@ FORCE_PLANE_XML = """
 """
 
 # RANGE_XML with the head's sphere visual-only: the rays exclude it, and
-# its sphere-box pair with the wall is not ported yet
+# its pairs with the post (sphere-capsule) and the drum (sphere-cylinder)
+# are not ported yet
 RANGE_PORT_XML = RANGE_XML.replace(
     '<geom type="sphere" size="0.05" mass="0.2"/>',
     '<geom type="sphere" size="0.05" mass="0.2" contype="0" '
     'conaffinity="0"/>')
 assert RANGE_PORT_XML != RANGE_XML
+# RANGE_XML with the head's sphere colliding with the floor, the wall
+# (sphere-box) and the ball: the post and the drum take another collision
+# bit, so that they pair with nothing (the rays still hit them: visual-only
+# geoms, contype and conaffinity 0, are what rays skip)
+RANGE_COLLIDING_XML = RANGE_XML
+for _geom in ('name="post" type="capsule" size="0.08 0.5"',
+              'name="drum" type="cylinder" size="0.25 0.4"'):
+  RANGE_COLLIDING_XML = RANGE_COLLIDING_XML.replace(
+      _geom, _geom + ' contype="2" conaffinity="2"')
+assert RANGE_COLLIDING_XML.count('contype="2"') == 2
 
 # the sensor types the XMLs above leave out: a ball joint, frame axes of
 # a site, a body and a geom, subtree velocities, actuator sensors, clock
@@ -257,10 +269,22 @@ def test_contact_forces_match_jax_and_balance_the_weight(resting_box):
   assert abs(up - 9.81 * 0.2) < 0.02, up
 
 
-def test_rangefinder_matches_jax_and_mujoco():
+@pytest.mark.parametrize('xml', ['sphere visual-only', 'sphere colliding'])
+def test_rangefinder_matches_jax_and_mujoco(xml):
   """Rays against box, sphere, capsule, cylinder and plane, and a miss
-  (-1), at four yaws as one batch of four."""
-  mjm, jm, m = _models(RANGE_PORT_XML)
+  (-1), at four yaws as one batch of four: on RANGE_PORT_XML, and on
+  RANGE_XML with the head's sphere colliding with the floor, the wall
+  (sphere-box) and the ball. RANGE_XML itself still pairs the sphere with
+  the capsule and the cylinder, which the port refuses at load, naming
+  ROADMAP A6."""
+  if xml == 'sphere colliding':
+    with pytest.raises(NotImplementedError, match='sphere-capsule.*A6'):
+      _models(RANGE_XML)
+  mjm, jm, m = _models(RANGE_PORT_XML if xml == 'sphere visual-only'
+                       else RANGE_COLLIDING_XML)
+  types = {tuple(int(m.geom_type[g]) for g in p) for p in m.collision_pairs}
+  assert ((int(model_lib.GeomType.SPHERE), int(model_lib.GeomType.BOX))
+          in types) == (xml == 'sphere colliding')
   yaws = (0.0, 0.4, -1.1, 2.5)
   want, jax_sd = [], []
   for yaw in yaws:

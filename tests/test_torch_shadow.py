@@ -12,7 +12,9 @@ float64) and the same states, made with numpy.
 One JAX step (forward, the stacked contact points, residual, cost, Euler)
 is the reference, jitted per sample and called once a sample, as
 tests/test_torch_humanoid.py does (under vmap JAX would trace the Newton
-and SPD solves twice).
+and SPD solves twice); as there, its calls are replayed from
+assets/shadow_reorient_step_golden.npz (tests/torch_recorded.py) and
+test_step_golden_is_jaxs (slow) makes each call live.
 * forward and step from states around qpos0, the cube lowered into the
   palm and tilted, the fingers spread across and past their ranges:
   kinematics, the stacked contact points in JAX's order (sm, cm, then the
@@ -26,6 +28,9 @@ and SPD solves twice).
 * the transition's solved, dropped and neither branches against JAX's
   (the goal JAX draws with its key is handed to the port's generator).
 """
+
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +52,8 @@ from mujoco_mpc_tpu_torch.physics import kinematics as kin
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import Recorded
 
 torch.set_num_threads(1)
 
@@ -55,6 +62,8 @@ HORIZON = 3
 KINEMATICS = ('xpos', 'xquat', 'geom_xpos', 'geom_xmat', 'site_xpos',
               'subtree_com', 'cdof', 'cvel')
 POINTS = ('pos3', 'dist', 'normal')
+# the JAX step's recorded calls (tests/torch_recorded.py)
+STEP_GOLDEN = 'shadow_reorient_step_golden.npz'
 
 
 def _f64(tree):
@@ -67,33 +76,41 @@ def _f64(tree):
 @pytest.fixture(scope='module')
 def tasks():
   """(JAX spec, its model and params in f64, the JAX step over a batch of
-  numpy states, the port's spec in f64)."""
+  numpy states, replayed from its recorded calls, the port's spec in
+  f64)."""
   jspec = jregistry.get_task('Shadow Reorient')
   jm, jparams = _f64(jspec.model), _f64(jspec.default_params)
-  jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  @jax.jit
-  def one(q, v, u):
-    d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
-    groups, _ = jconstraint._contact_groups(jm, d)
-    pts = jconstraint._Stacked(groups[3])
-    res = jspec.residual_fn(jm, d, jparams.residual_params)
-    d2 = jfwd.integrate(jm, d)
-    out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
-                                                   'qfrc_constraint')}
-    out.update({k: getattr(pts, k) for k in POINTS})
-    out.update(residual=res, cost=jspec.cost(res, jparams),
-               time=d2.time, qpos=d2.qpos, qvel=d2.qvel)
-    return out
+  def live():
+    jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  def step(q, v, u):
-    outs = [one(*(jnp.asarray(x[i]) for x in (q, v, u)))
-            for i in range(len(q))]
-    return {k: np.stack([np.asarray(o[k]) for o in outs]) for k in outs[0]}
+    @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
+    def one(q, v, u):
+      d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
+      groups, _ = jconstraint._contact_groups(jm, d)
+      pts = jconstraint._Stacked(groups[3])
+      res = jspec.residual_fn(jm, d, jparams.residual_params)
+      d2 = jfwd.integrate(jm, d)
+      out = {k: getattr(d, k) for k in KINEMATICS + ('qacc',
+                                                     'qfrc_constraint')}
+      out.update({k: getattr(pts, k) for k in POINTS})
+      out.update(residual=res, cost=jspec.cost(res, jparams),
+                 time=d2.time, qpos=d2.qpos, qvel=d2.qvel)
+      return out
 
+    def step(q, v, u):
+      outs = [one(*(jnp.asarray(x[i]) for x in (q, v, u)))
+              for i in range(len(q))]
+      return {k: np.stack([np.asarray(o[k]) for o in outs])
+              for k in outs[0]}
+    return step
+
+  step = Recorded(os.path.join(registry.ASSETS, STEP_GOLDEN), live)
   spec = registry.get_task('Shadow Reorient', device='cpu',
                            dtype=torch.float64)
-  return jspec, jm, jparams, step, spec
+  yield jspec, jm, jparams, step, spec
+  if step.recording:
+    step.save()
 
 
 def _states(spec, seed):
@@ -244,7 +261,7 @@ def jax_transition(tasks):
   jspec, jm, jparams, _, _ = tasks
   jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  @jax.jit
+  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
   def run(q, v, mq, key):
     d = jkin.kinematics(jm, jd0.replace(qpos=q, qvel=v, mocap_quat=mq))
     return jspec.transition_fn(jm, d, jparams, key)
@@ -291,3 +308,10 @@ def test_transition(tasks, jax_transition, branch, monkeypatch):
   assert bool((d2.qvel == 0).all()) == (branch == 'dropped')
   np.testing.assert_array_equal(jp2.residual_params,
                                 jparams.residual_params)
+
+
+@pytest.mark.slow
+def test_step_golden_is_jaxs(tasks):
+  """The recorded calls of the JAX step are what the JAX package computes
+  now (its compile: ~70 s on a CPU)."""
+  tasks[3].check_live()

@@ -6,8 +6,10 @@ Jacobian nested inside the derivative pass's own. Held here:
 
 * fluid (qfrc_passive with the drag), qacc and one implicit step, from a
   few states with every hinge bent and the body moving;
-* the exact derivatives (transition and cost) at T 4, JAX's
-  derivatives.compute compiled once for the file;
+* the exact derivatives (transition and cost) at T 4 against JAX's
+  derivatives.compute, its call replayed from
+  assets/swimmer_derivatives_golden.npz (tests/torch_recorded.py;
+  test_derivatives_golden_is_jaxs, slow, makes it live);
 * riccati fed JAX's derivatives, against JAX's riccati;
 * the transition's reached and not-reached branches (the target JAX draws
   with its key is handed to the port's generator).
@@ -18,6 +20,8 @@ CPU plain path.
 """
 
 import dataclasses
+import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -38,12 +42,18 @@ from mujoco_mpc_tpu_torch.physics import smooth
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.planners import derivatives
 from mujoco_mpc_tpu_torch.planners import ilqg
+from mujoco_mpc_tpu_torch.tasks import registry
+from tests.test_torch_cube import QUICK_COMPILE
 from tests.test_torch_ilqg import F64, _rel, _tasks
+from tests.torch_recorded import Recorded
 
 torch.set_num_threads(1)
 
 NSTATE = 4
 T_STEPS = 4
+# JAX's derivatives.compute, its recorded call (tests/torch_recorded.py)
+DERIVATIVES_GOLDEN = 'swimmer_derivatives_golden.npz'
+DERIVATIVES = ('a', 'b', 'cx', 'cu', 'cxx', 'cxu', 'cuu')
 
 
 def _states(spec, seed, n):
@@ -77,7 +87,7 @@ def test_swimmer_fluid_and_step_match_jax():
   df = fwd.forward(m, d)
   d2 = fwd.integrate(m, df)
 
-  @jax.jit
+  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
   def one(q, v, u):
     dj = jd0.replace(qpos=q, qvel=v, ctrl=u)
     dpj = jfwd.fwd_position(jm, dj)
@@ -98,16 +108,50 @@ def test_swimmer_fluid_and_step_match_jax():
 
 
 @pytest.fixture(scope='module')
-def derivs():
+def jax_derivatives():
+  """JAX's derivatives.compute of a nominal trajectory's leaves, jitted
+  once, replayed from its recorded call (its trace and compile took ~65
+  s on a CPU): the outputs, a dict of DERIVATIVES."""
+  jspec, jd0, _ = _tasks('Swimmer')
+  jp = jspec.default_params
+
+  def live():
+    tree = jax.tree.structure(_nominal(jspec, jd0))
+
+    @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
+    def call(qpos, qvel, *leaves):
+      out = jder.compute(jspec, jd0.replace(qpos=qpos, qvel=qvel),
+                         jax.tree.unflatten(tree, leaves), jp)
+      return {k: getattr(out, k) for k in DERIVATIVES}
+    return call
+
+  recorded = Recorded(os.path.join(registry.ASSETS, DERIVATIVES_GOLDEN),
+                      live)
+  yield recorded
+  if recorded.recording:
+    recorded.save()
+
+
+def _acts():
+  return np.random.default_rng(2).uniform(-1.0, 1.0, size=(T_STEPS, 5))
+
+
+def _nominal(jspec, jd0):
+  return jder.nominal_trajectory(jspec, jd0, jnp.asarray(_acts()),
+                                 jspec.default_params)
+
+
+@pytest.fixture(scope='module')
+def derivs(jax_derivatives):
   """Both packages' trajectories and derivatives at T 4 from one state
-  (JAX's derivatives.compute compiled once)."""
+  (JAX's derivatives.compute: its recorded call)."""
   jspec, jd0, spec = _tasks('Swimmer')
   q, v, _ = _states(spec, 1, 1)
-  acts = np.random.default_rng(2).uniform(-1.0, 1.0, size=(T_STEPS, 5))
+  acts = _acts()
   jd0 = jd0.replace(qpos=jnp.asarray(q[0]), qvel=jnp.asarray(v[0]))
-  jp = jspec.default_params
-  jtraj = jder.nominal_trajectory(jspec, jd0, jnp.asarray(acts), jp)
-  want = jax.jit(lambda tr: jder.compute(jspec, jd0, tr, jp))(jtraj)
+  jtraj = _nominal(jspec, jd0)
+  want = jder.Derivatives(**{k: jnp.asarray(x) for k, x in jax_derivatives(
+      q[0], v[0], *jax.tree.leaves(jtraj)).items()})
   d0 = make_data(spec.model).replace(qpos=torch.from_numpy(q),
                                      qvel=torch.from_numpy(v))
   traj = derivatives.nominal_trajectory(spec, d0, torch.from_numpy(acts),
@@ -120,7 +164,7 @@ def test_swimmer_derivatives_match_jax(derivs):
   jtraj, want, traj, got = derivs
   for k in ('qpos', 'qvel', 'residuals', 'costs'):
     _rel(getattr(traj, k), getattr(jtraj, k), 1e-10, k)
-  for k in ('a', 'b', 'cx', 'cu', 'cxx', 'cxu', 'cuu'):
+  for k in DERIVATIVES:
     _rel(getattr(got, k), getattr(want, k), 1e-8, k)
   # the fluid couples the joints: the velocity block is dense
   assert np.count_nonzero(np.abs(got.a[0, 8:, 8:].numpy()) > 1e-9) > 32
@@ -171,3 +215,10 @@ def test_swimmer_transition_matches_jax(monkeypatch, reached):
   assert p2 is spec.default_params
   _rel(d2.mocap_pos[0], jd2.mocap_pos, 1e-15, 'mocap_pos')
   assert np.allclose(d2.mocap_pos[0].numpy(), mocap) != reached
+
+
+@pytest.mark.slow
+def test_derivatives_golden_is_jaxs(jax_derivatives):
+  """The recorded call of JAX's derivatives.compute is what the JAX
+  package computes now (its trace and compile: ~65 s on a CPU)."""
+  jax_derivatives.check_live()

@@ -40,6 +40,21 @@ actuator, clock, force, torque, touch, rangefinder) with 64 states each
 made by MuJoCo, so that chip_smoke.py can run those sensors on the card
 where `mujoco` is not installed (seconds; tests/test_torch_sensors.py
 re-exports in memory and fails when the file is stale).
+
+    python tools/export_torch_snapshot.py --manipulation-golden
+
+writes assets/manipulation_golden.npz: for FreeFingers, Panda, Panda
+Bring, Bimanual Handover and Bimanual Reorient, four states made with
+MuJoCo's kinematics (the box on the floor, fingertips pressed on it, one
+sphere's centre inside it), and the JAX package's condim-3 contact points,
+qacc, qfrc_constraint, residual and next state there, its transition in
+both branches with what it drew, and a 16-candidate x 6-step plan's
+returns, float64 (~3.5 minutes on a CPU: five JAX step compiles), which
+tests/test_torch_manipulation.py holds the port to.
+
+The tests of the Humanoid Track, Quadruped Flat and Shadow Reorient
+slices replay their JAX step from assets/*_step_golden.npz instead
+(tests/torch_recorded.py says how those files are recorded).
 """
 
 from __future__ import annotations
@@ -116,8 +131,25 @@ def rubik_arrays(spec):
           'cache': np.asarray(env['cache'])}
 
 
+def manipulation_arrays(spec):
+  """The site, body and mocap ids a manipulation task's residual and
+  transition keep in their closures (registry.py :790-911, :1131-1261),
+  under the names they have there: each int, or list of ints, of them."""
+  out = {}
+  for fn in (spec.residual_fn, spec.transition_fn):
+    for k, v in inspect.getclosurevars(fn).nonlocals.items():
+      vals = v if isinstance(v, list) else [v]
+      if all(isinstance(x, (int, np.integer)) for x in vals):
+        out[k] = np.asarray(v, np.int64)
+  return out
+
+
+MANIPULATION = ('FreeFingers', 'Panda', 'Panda Bring', 'Bimanual Handover',
+                'Bimanual Reorient')
+
 # task name -> its arrays beside Model and TaskParams ('task/<name>')
-TASK_ARRAYS = {'Humanoid Track': track_arrays, 'Cube Solving': rubik_arrays}
+TASK_ARRAYS = {'Humanoid Track': track_arrays, 'Cube Solving': rubik_arrays,
+               **{name: manipulation_arrays for name in MANIPULATION}}
 
 
 def task_snapshot(spec):
@@ -184,17 +216,20 @@ def cube_golden_inputs(home, nv, nu):
   }
 
 
-def cube_step(spec, inputs):
-  """The port's Cube Solving step (a float64 CPU spec) at the golden's
-  states: qacc, qfrc_constraint, the residual and the next qpos, qvel."""
+def port_step(spec, qpos, qvel, ctrl, mocap_pos=None, mocap_quat=None):
+  """The port's step (a float64 CPU spec) from states (qpos, qvel, ctrl)
+  (B, ...): qacc, qfrc_constraint, the residual and the next qpos, qvel.
+  Mocap poses (B, nmocap, ...) default to the model's."""
   import torch
   from mujoco_mpc_tpu_torch.physics import forward as fwd
   from mujoco_mpc_tpu_torch.physics.model import make_data
   m = spec.model
-  q, v, u = (torch.from_numpy(np.asarray(inputs['step/' + k]))
-             for k in ('qpos', 'qvel', 'ctrl'))
-  d = fwd.forward(m, make_data(m, q.shape[0]).replace(qpos=q, qvel=v,
-                                                       ctrl=u))
+  t = lambda x: torch.from_numpy(np.asarray(x))  # noqa: E731
+  d = make_data(m, len(qpos)).replace(qpos=t(qpos), qvel=t(qvel),
+                                      ctrl=t(ctrl))
+  if mocap_pos is not None:
+    d = d.replace(mocap_pos=t(mocap_pos), mocap_quat=t(mocap_quat))
+  d = fwd.forward(m, d)
   d2 = fwd.integrate(m, d)
   return {'qacc': d.qacc.numpy(), 'qfrc_constraint':
           d.qfrc_constraint.numpy(), 'residual': spec.residual_fn(
@@ -202,31 +237,35 @@ def cube_step(spec, inputs):
           'next_qpos': d2.qpos.numpy(), 'next_qvel': d2.qvel.numpy()}
 
 
-def cube_plan(spec, inputs, candidates=False):
-  """The port's Predictive Sampling plan (a float64 CPU spec) from `home`
-  with the golden's knots and noise: its returns and winner; with
-  `candidates`, also each candidate's actions (K + 1, T, nu) and the
+def cube_step(spec, inputs):
+  """The port's Cube Solving step at the golden's states."""
+  return port_step(spec, *(inputs['step/' + k]
+                           for k in ('qpos', 'qvel', 'ctrl')))
+
+
+def port_plan(spec, d0, inputs, steps, candidates=False):
+  """The port's Predictive Sampling plan (a float64 CPU spec) from d0
+  with the knots inputs['plan/values'] (evenly spread over [0, 1]) and
+  the noise inputs['plan/eps'], ['plan/use2']: its returns and winner;
+  with `candidates`, also each candidate's actions (K + 1, T, nu) and the
   nominal's knot times, from the port's spline."""
   import torch
   from mujoco_mpc_tpu_torch.ops import spline
-  from mujoco_mpc_tpu_torch.physics.model import make_data
   from mujoco_mpc_tpu_torch.planners import sampling
-  m = spec.model
   interp = int(spline.Interp.ZERO)
-  d0 = make_data(m).replace(qpos=m.keyframe_qpos('home')[None])
+  values = torch.from_numpy(np.asarray(inputs['plan/values']))
   cfg = sampling.default_config(spec)
   pol = sampling.SamplingPolicy(
-      torch.linspace(0.0, 1.0, GOLDEN_KNOTS, dtype=torch.float64),
-      torch.from_numpy(np.asarray(inputs['plan/values'])))
+      torch.linspace(0.0, 1.0, values.shape[0], dtype=torch.float64), values)
   eps = torch.from_numpy(np.asarray(inputs['plan/eps']))
   use2 = torch.from_numpy(np.asarray(inputs['plan/use2']))
   _, info = sampling.optimize(spec, pol, d0, spec.default_params, cfg,
-                              (eps, use2), GOLDEN_STEPS, interp)
+                              (eps, use2), steps, interp)
   out = {'returns': info['returns'].numpy(),
          'winner': np.asarray(int(info['winner']))}
   if candidates:
-    nominal = sampling.resample_nominal(spec, pol, d0.time[0], GOLDEN_STEPS,
-                                        cfg, interp)
+    nominal = sampling.resample_nominal(spec, pol, d0.time[0], steps, cfg,
+                                        interp)
     out['cands'] = sampling.candidates_from_noise(spec, nominal, eps, use2,
                                                   cfg).numpy()
     out['times'] = nominal.times.numpy()
@@ -234,48 +273,104 @@ def cube_plan(spec, inputs, candidates=False):
   return out
 
 
-def jax_cube_golden(inputs):
-  """The golden's outputs from the JAX package in float64: its step
-  (forward, residual, Euler) jitted once with XLA's quick compile and
-  called a sample at a time, at the step's states, and over the plan's
-  candidates (the nominal first; knots -> actions by JAX's spline) for
-  GOLDEN_STEPS steps, summed to returns by JAX's rollout."""
+def cube_plan(spec, inputs, candidates=False):
+  """The port's Cube Solving plan from `home` with the golden's knots and
+  noise (port_plan, GOLDEN_STEPS steps)."""
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  m = spec.model
+  d0 = make_data(m).replace(qpos=m.keyframe_qpos('home')[None])
+  return port_plan(spec, d0, inputs, GOLDEN_STEPS, candidates)
+
+
+def _f64(tree):
   import jax
   import jax.numpy as jnp
-  import torch
-  from mujoco_mpc_tpu.physics import forward as jfwd
-  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
-  from mujoco_mpc_tpu.planners import rollout as jrollout
-  from mujoco_mpc_tpu.planners import sampling as jsampling
-  from mujoco_mpc_tpu.tasks import registry
-  from mujoco_mpc_tpu_torch.ops import spline
-  jax.config.update('jax_enable_x64', True)
-  jspec = registry.get_task('Cube Solving')
-  f64 = lambda t: jax.tree.map(  # noqa: E731
+  return jax.tree.map(
       lambda x: x.astype(jnp.float64)
       if jnp.issubdtype(getattr(x, 'dtype', np.int32), jnp.floating) else x,
-      t)
-  jm, jp = f64(jspec.model), f64(jspec.default_params)
+      tree)
+
+
+def jax_step(jspec, jm, jp, points=False):
+  """JAX's step of the task (forward, residual, cost, Euler), jitted once
+  with XLA's quick compile on the model jm and params jp (float64), as a
+  function of one state (qpos, qvel, ctrl, mocap_pos, mocap_quat) and
+  called a sample at a time over stacked states: (qacc, qfrc_constraint,
+  residual, cost, next qpos, next qvel) stacked, and with `points` the
+  condim-3 group's contact points (dist, pos, normal) after them."""
+  import jax
+  import jax.numpy as jnp
+  from mujoco_mpc_tpu.physics import constraint as jconstraint
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
   jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  def one(q, v, u):
-    d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
+  def one(q, v, u, mp, mq):
+    d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u, mocap_pos=mp,
+                                     mocap_quat=mq))
     res = jspec.residual_fn(jm, d, jp.residual_params)
     d2 = jfwd.integrate(jm, d)
-    return (d.qacc, d.qfrc_constraint, res, jspec.cost(res, jp), d2.qpos,
-            d2.qvel)
+    out = (d.qacc, d.qfrc_constraint, res, jspec.cost(res, jp), d2.qpos,
+           d2.qvel)
+    if points:
+      g = jconstraint._Stacked(jconstraint._contact_groups(jm, d)[0][3])
+      out += (g.dist, g.pos3, g.normal)
+    return out
 
-  q0, v0, u0 = (jnp.asarray(inputs['step/' + k][0])
-                for k in ('qpos', 'qvel', 'ctrl'))
-  step = jax.jit(one).lower(q0, v0, u0).compile(compiler_options={
-      'xla_backend_optimization_level': 0,
-      'xla_llvm_disable_expensive_passes': True})
+  compiled = []
 
-  def run(q, v, u):
-    outs = [step(*(jnp.asarray(x[i]) for x in (q, v, u)))
-            for i in range(len(q))]
-    return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(6)]
+  def run(q, v, u, mp=None, mq=None):
+    n = len(q)
+    mp = np.broadcast_to(np.asarray(jd0.mocap_pos), (n,) + jd0.mocap_pos.shape
+                         ) if mp is None else mp
+    mq = np.broadcast_to(np.asarray(jd0.mocap_quat),
+                         (n,) + jd0.mocap_quat.shape) if mq is None else mq
+    args = [[jnp.asarray(x[i]) for x in (q, v, u, mp, mq)] for i in range(n)]
+    if not compiled:
+      compiled.append(jax.jit(one).lower(*args[0]).compile(compiler_options={
+          'xla_backend_optimization_level': 0,
+          'xla_llvm_disable_expensive_passes': True}))
+    outs = [compiled[0](*a) for a in args]
+    return [np.stack([np.asarray(o[k]) for o in outs])
+            for k in range(len(outs[0]))]
 
+  return run
+
+
+def jax_plan(run, plan, q0, v0, steps):
+  """JAX's returns of a port plan's candidates (`plan` with candidates:
+  knots -> actions by JAX's spline, the nominal first) rolled out from
+  (q0, v0) for `steps` steps by the step `run` (jax_step), summed by
+  JAX's rollout: (returns, winner)."""
+  import jax
+  import jax.numpy as jnp
+  from mujoco_mpc_tpu.planners import rollout as jrollout
+  from mujoco_mpc_tpu.planners import sampling as jsampling
+  from mujoco_mpc_tpu_torch.ops import spline
+  acts = np.asarray(jax.vmap(lambda vals: jsampling.candidate_actions(
+      jnp.asarray(plan['times']), vals, steps, plan['timestep'],
+      int(spline.Interp.ZERO)))(jnp.asarray(plan['cands'])))
+  k = acts.shape[0]
+  q, v = np.tile(q0, (k, 1)), np.tile(v0, (k, 1))
+  costs = []
+  for t in range(steps):
+    *_, cost, q, v = run(q, v, acts[:, t])[:6]
+    costs.append(cost)
+  returns = np.asarray(jrollout.total_return(jnp.stack(costs, -1)))
+  return returns, np.asarray(int(np.argmin(returns)))
+
+
+def jax_cube_golden(inputs):
+  """The golden's outputs from the JAX package in float64: its step
+  (jax_step) at the step's states and over the plan's candidates for
+  GOLDEN_STEPS steps (jax_plan)."""
+  import jax
+  import torch
+  from mujoco_mpc_tpu.tasks import registry
+  jax.config.update('jax_enable_x64', True)
+  jspec = registry.get_task('Cube Solving')
+  jm, jp = _f64(jspec.model), _f64(jspec.default_params)
+  run = jax_step(jspec, jm, jp)
   out = {}
   qacc, qfrc, res, _, qpos, qvel = run(
       *(inputs['step/' + k] for k in ('qpos', 'qvel', 'ctrl')))
@@ -285,19 +380,9 @@ def jax_cube_golden(inputs):
   port = port_registry.get_task('Cube Solving', device='cpu',
                                 dtype=torch.float64)
   plan = cube_plan(port, inputs, candidates=True)
-  acts = np.asarray(jax.vmap(lambda vals: jsampling.candidate_actions(
-      jnp.asarray(plan['times']), vals, GOLDEN_STEPS, plan['timestep'],
-      int(spline.Interp.ZERO)))(jnp.asarray(plan['cands'])))
-  k = acts.shape[0]
-  q = np.tile(np.asarray(jm.keyframe_qpos('home')), (k, 1))
-  v = np.zeros((k, jm.nv))
-  costs = []
-  for t in range(GOLDEN_STEPS):
-    *_, cost, q, v = run(q, v, acts[:, t])
-    costs.append(cost)
-  returns = np.asarray(jrollout.total_return(jnp.stack(costs, -1)))
-  out.update({'plan/returns': returns,
-              'plan/winner': np.asarray(int(np.argmin(returns)))})
+  returns, winner = jax_plan(run, plan, np.asarray(jm.keyframe_qpos('home')),
+                             np.zeros(jm.nv), GOLDEN_STEPS)
+  out.update({'plan/returns': returns, 'plan/winner': winner})
   return out
 
 
@@ -395,10 +480,7 @@ def jax_quadruped_f64():
   import jax.numpy as jnp
   from mujoco_mpc_tpu.tasks import registry
   jax.config.update('jax_enable_x64', True)
-  return jax.tree.map(
-      lambda x: x.astype(jnp.float64)
-      if jnp.issubdtype(getattr(x, 'dtype', np.int32), jnp.floating) else x,
-      registry.get_task('Quadruped Flat').model)
+  return _f64(registry.get_task('Quadruped Flat').model)
 
 
 def write_estimator_golden(path):
@@ -413,6 +495,225 @@ def write_estimator_golden(path):
       'command': ESTIMATOR_COMMAND,
       'sensor_slice': list(ESTIMATOR_SLICE),
       'inputs': 'estimator_golden_inputs: numpy default_rng(13)'})))
+
+
+# ---------------------------------------------------------------------------
+# The manipulation tasks' golden, held by tests/test_torch_manipulation.py:
+# five JAX step compiles would not fit the CPU tests' time.
+# ---------------------------------------------------------------------------
+
+MANIPULATION_GOLDEN = 'manipulation_golden.npz'
+MANIPULATION_COMMAND = ('python tools/export_torch_snapshot.py '
+                        '--manipulation-golden')
+MANIPULATION_CANDIDATES, MANIPULATION_STEPS = 16, 6   # the plan, nominal in
+
+
+def manipulation_mjcf(name):
+  """The MJCF of a manipulation task as the JAX registry builds it
+  (registry.py :790-911, :1149-1261): fingers.xml, panda.xml, Panda
+  Bring's sensor swap, models/bimanual.bimanual_xml."""
+  from mujoco_mpc_tpu.models import bimanual
+  from mujoco_mpc_tpu.tasks import registry
+  if name.startswith('Bimanual '):
+    kind = name.split()[1].upper()
+    return bimanual.bimanual_xml(name, getattr(bimanual, kind + '_OBJECTS'),
+                                 getattr(bimanual, kind + '_SENSORS'))
+  fname = 'fingers.xml' if name == 'FreeFingers' else 'panda.xml'
+  with open(os.path.join(ROOT, 'mujoco_mpc_tpu', 'models', fname)) as f:
+    xml = f.read()
+  if name == 'Panda Bring':
+    start = xml.index('  <sensor>')
+    end = xml.index('</sensor>') + len('</sensor>')
+    xml = (xml[:start] + registry._PANDA_BRING_SENSORS + xml[end:]).replace(
+        '<mujoco model="Panda">', '<mujoco model="Panda Bring">')
+  return xml
+
+
+def manipulation_states(mjm, rng):
+  """The golden's four states (qpos, qvel, ctrl), numpy: 0, qpos0 with
+  the object's box resting 1 mm into the floor; 1 and 2, the arm joints
+  drawn in their ranges and the object (the free joint, the first) placed
+  against a fingertip sphere of a sphere-box pair, the sphere 0.5-3 mm
+  into a side or the top face of the box, near its middle, the box turned
+  about z only and held off the floor (at most 2 mm into it, at most 0.5
+  m up); 3, the same with the sphere's centre 1-4 mm inside the box (the
+  deep branch). Velocities normal with scale 0.1, controls uniform in
+  their ranges."""
+  import mujoco
+  mjd = mujoco.MjData(mjm)
+  obj = mjm.jnt_bodyid[0]
+  box = next(g for g in range(mjm.ngeom) if mjm.geom_bodyid[g] == obj
+             and mjm.geom_type[g] == mujoco.mjtGeom.mjGEOM_BOX)
+  tips = [g for g in range(mjm.ngeom)
+          if mjm.geom_type[g] == mujoco.mjtGeom.mjGEOM_SPHERE
+          and (mjm.geom_contype[g] & mjm.geom_conaffinity[box]
+               or mjm.geom_conaffinity[g] & mjm.geom_contype[box])]
+  h = mjm.geom_size[box]
+  lo, hi = mjm.jnt_range[1:, 0], mjm.jnt_range[1:, 1]
+  adr = mjm.jnt_qposadr[1:]
+  qpos = []
+  for i in range(4):
+    q = mjm.qpos0.copy()
+    if i == 0:
+      q[2] = h[2] - 0.001
+      qpos.append(q)
+      continue
+    while True:
+      q[adr] = lo + (hi - lo) * rng.uniform(size=len(adr))
+      mjd.qpos[:] = q
+      mujoco.mj_kinematics(mjm, mjd)
+      tip = tips[rng.integers(len(tips))]
+      r = mjm.geom_size[tip, 0]
+      yaw = rng.uniform(-np.pi, np.pi)
+      rot = np.array([[np.cos(yaw), -np.sin(yaw), 0.0],
+                      [np.sin(yaw), np.cos(yaw), 0.0], [0.0, 0.0, 1.0]])
+      k = rng.integers(3)
+      sign = 1.0 if k == 2 else rng.choice([-1.0, 1.0])
+      local = rng.uniform(-0.5, 0.5, 3) * h        # the sphere in the box
+      local[k] = sign * (h[k] - rng.uniform(0.001, 0.004) if i == 3
+                         else h[k] + r - rng.uniform(0.0005, 0.003))
+      centre = mjd.geom_xpos[tip] - rot @ local
+      if -0.002 <= centre[2] - h[2] <= 0.5:
+        break
+    q[:3] = centre
+    q[3:7] = [np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)]
+    qpos.append(q)
+  clo, chi = mjm.actuator_ctrlrange.T
+  return (np.stack(qpos), rng.normal(scale=0.1, size=(4, mjm.nv)),
+          clo + (chi - clo) * rng.uniform(size=(4, mjm.nu)))
+
+
+def manipulation_draw(name, key):
+  """What the task's transition draws from `key` (registry.py :808, :853,
+  :902, :1178-1183, :1249), float64."""
+  import jax
+  import jax.numpy as jnp
+  half = {'FreeFingers': 0.15, 'Panda': 0.45, 'Panda Bring': 0.45}
+  if name in half:
+    return np.asarray(jax.random.uniform(
+        key, (2,), minval=-half[name], maxval=half[name], dtype=jnp.float64))
+  if name == 'Bimanual Handover':
+    kx, ky = jax.random.split(key)
+    return np.asarray([jax.random.uniform(kx, (), minval=-0.25, maxval=0.25),
+                       jax.random.uniform(ky, (), minval=-0.3, maxval=0.3)],
+                      np.float64)
+  return np.asarray(jax.random.normal(key, (4,), dtype=jnp.float64))
+
+
+def manipulation_mocap(name, jm, site_pos, obj_quat, reached):
+  """Mocap poses (mocap_pos, mocap_quat) of the transition's branches:
+  `reached` puts the goal 5 mm from the object site (Reorient: its
+  orientation 0.1 rad about z from the object's); otherwise the model's
+  goal (Reorient: 1 rad about z from the object)."""
+  pos = np.array(jm.body_pos, np.float64)[
+      np.flatnonzero(np.asarray(jm.body_mocapid) >= 0)]
+  quat = np.tile([1.0, 0.0, 0.0, 0.0], (len(pos), 1))
+  if name == 'Bimanual Reorient':
+    half = 0.05 if reached else 0.5
+    quat[0] = [obj_quat[0] * np.cos(half) - obj_quat[3] * np.sin(half),
+               obj_quat[1] * np.cos(half) + obj_quat[2] * np.sin(half),
+               obj_quat[2] * np.cos(half) - obj_quat[1] * np.sin(half),
+               obj_quat[3] * np.cos(half) + obj_quat[0] * np.sin(half)]
+  elif reached:
+    pos[0] = site_pos + [0.003, 0.004, 0.0]
+  return pos, quat
+
+
+def jax_manipulation_golden(name, inputs):
+  """One task's golden outputs from the JAX package in float64, from its
+  inputs (the states, the plan's knots and noise, the transition's key
+  seed and both branches' mocap poses; other entries are ignored):
+  at each state the condim-3 contact points, qacc, qfrc_constraint, the
+  residual and the next qpos, qvel (jax_step); the transition's output in
+  both branches with what it drew; the plan's returns and winner from
+  state 1 (jax_plan over the port's candidates)."""
+  import jax
+  import jax.numpy as jnp
+  import torch
+  from mujoco_mpc_tpu.physics import kinematics as jkin
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  from mujoco_mpc_tpu.tasks import registry
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  jax.config.update('jax_enable_x64', True)
+  jspec = registry.get_task(name)
+  jm, jp = _f64(jspec.model), _f64(jspec.default_params)
+  run = jax_step(jspec, jm, jp, points=True)
+  q, v, u = (inputs[k] for k in ('qpos', 'qvel', 'ctrl'))
+  qacc, qfrc, res, _, nq, nv, dist, pos, normal = run(q, v, u)
+  out = {'qacc': qacc, 'qfrc_constraint': qfrc, 'residual': res,
+         'next_qpos': nq, 'next_qvel': nv, 'dist': dist, 'pos': pos,
+         'normal': normal}
+  key = jax.random.key(int(inputs['transition/seed']))
+  out['transition/draw'] = manipulation_draw(name, key)
+  for branch in ('reached', 'not'):
+    mp, mq = (inputs[f'transition/{branch}/mocap_{k}'] for k in ('pos',
+                                                                 'quat'))
+    jd = jkin.kinematics(jm, jmake_data(jm, dtype=jnp.float64).replace(
+        qpos=jnp.asarray(q[0]), qvel=jnp.asarray(v[0]),
+        mocap_pos=jnp.asarray(mp), mocap_quat=jnp.asarray(mq)))
+    jd2, _ = jspec.transition_fn(jm, jd, jp, key)
+    out[f'transition/{branch}/next_mocap_pos'] = np.asarray(jd2.mocap_pos)
+    out[f'transition/{branch}/next_mocap_quat'] = np.asarray(jd2.mocap_quat)
+  port = port_registry.get_task(name, device='cpu', dtype=torch.float64)
+  d0 = make_data(port.model).replace(qpos=torch.from_numpy(q[1:2]),
+                                     qvel=torch.from_numpy(v[1:2]))
+  plan = port_plan(port, d0, inputs, MANIPULATION_STEPS, candidates=True)
+  out['plan/returns'], out['plan/winner'] = jax_plan(run, plan, q[1], v[1],
+                                                     MANIPULATION_STEPS)
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def manipulation_inputs(name, seed):
+  """One task's golden inputs (numpy, default_rng(seed)): the states of
+  manipulation_states, the transition's key seed and both branches' mocap
+  poses (from state 0 after MuJoCo's kinematics), and the plan's knots
+  (uniform in the middle of the control range) and noise."""
+  import mujoco
+  from mujoco_mpc_tpu.tasks import registry
+  mjm = mujoco.MjModel.from_xml_string(manipulation_mjcf(name))
+  jm = registry.get_task(name).model
+  rng = np.random.default_rng(seed)
+  q, v, u = manipulation_states(mjm, rng)
+  mjd = mujoco.MjData(mjm)
+  mjd.qpos[:] = q[0]
+  mujoco.mj_kinematics(mjm, mjd)
+  site = mujoco.mj_name2id(mjm, mujoco.mjtObj.mjOBJ_SITE, 'object_site')
+  out = {'qpos': q, 'qvel': v, 'ctrl': u, 'transition/seed': np.asarray(seed)}
+  for branch in ('reached', 'not'):
+    mp, mq = manipulation_mocap(name, jm, mjd.site_xpos[site], q[0, 3:7],
+                                branch == 'reached')
+    out[f'transition/{branch}/mocap_pos'] = mp
+    out[f'transition/{branch}/mocap_quat'] = mq
+  clo, chi = mjm.actuator_ctrlrange.T
+  knots = int(registry.get_task(name).config['sampling_spline_points'])
+  out['plan/values'] = clo + (chi - clo) * rng.uniform(0.3, 0.7, (knots,
+                                                                   mjm.nu))
+  out['plan/eps'] = rng.normal(size=(MANIPULATION_CANDIDATES - 1, knots,
+                                     mjm.nu))
+  out['plan/use2'] = rng.uniform(size=MANIPULATION_CANDIDATES - 1) < 0.2
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def task_inputs(golden, name):
+  """One task's entries of a golden, without the task's prefix."""
+  return {k[len(name) + 1:]: v for k, v in golden.items()
+          if k.startswith(name + '/')}
+
+
+def write_manipulation_golden(path):
+  """Write the manipulation tasks' golden (inputs, JAX outputs,
+  provenance)."""
+  import jax
+  arrays = {}
+  for seed, name in enumerate(MANIPULATION):
+    inputs = manipulation_inputs(name, 31 + seed)
+    arrays.update(inputs)
+    arrays.update(jax_manipulation_golden(name, task_inputs(inputs, name)))
+  np.savez(path, **arrays, provenance=np.asarray(json.dumps({
+      'jax': jax.__version__, 'dtype': 'float64',
+      'command': MANIPULATION_COMMAND,
+      'inputs': 'manipulation_inputs: numpy default_rng(31 + the task\'s '
+                'index in MANIPULATION)'})))
 
 
 SENSOR_MODELS = 'sensor_models.npz'
@@ -485,7 +786,9 @@ def main():
              '--estimator-golden': (ESTIMATOR_GOLDEN,
                                     write_estimator_golden),
              '--sensor-models': (SENSOR_MODELS, lambda path: np.savez(
-                 path, **sensor_model_arrays()))}
+                 path, **sensor_model_arrays())),
+             '--manipulation-golden': (MANIPULATION_GOLDEN,
+                                       write_manipulation_golden)}
   flag = next((a for a in sys.argv[1:] if a in goldens), None)
   if flag:
     fname, writer = goldens[flag]

@@ -8,7 +8,8 @@ control flow before a run on the card; none of its numbers is a device
 measurement. Run from the repository root (a few minutes):
 
     python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube |
-                                                      estimators]
+                                                      estimators |
+                                                      manipulation]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
@@ -16,7 +17,10 @@ at `candidates`, goldens at 32 candidates, 2 timed iterations, testspeed
 over 0.05 s at 8 samples), with `cube` tools/cube_check.py (Cube
 Solving's phases at `candidates`, its golden at 8), with `estimators`
 tools/estimator_check.py (the estimator phases, 3m, phase 4's rows and
-27-30, at the card's sizes: the filters run one state).
+27-30, at the card's sizes: the filters run one state), with
+`manipulation` tools/manipulation_check.py (phase 3n at `candidates`
+states, phase 4's rows at the tasks' own batches and Handover's at
+`candidates`, phases 31-37 with Handover's wide plan at `candidates`).
 """
 
 import os
@@ -78,7 +82,7 @@ def _fake_build(name):
 
 
 def main():
-  modes = ('ilqg', 'planners', 'cube', 'estimators')
+  modes = ('ilqg', 'planners', 'cube', 'estimators', 'manipulation')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -100,6 +104,8 @@ def main():
   chip_smoke.CUBE_HOME = samples // 4
   chip_smoke.CUBE_PLANS = 2
   chip_smoke.CUBE_GOLDEN_SAMPLES = 8
+  chip_smoke.MANIP_STATES = chip_smoke.MANIP_WIDE = samples
+  chip_smoke.MANIP_FLOOR = samples // 4
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -133,6 +139,9 @@ def main():
   elif mode == 'estimators':
     from tools import estimator_check
     estimator_check.main()
+  elif mode == 'manipulation':
+    from tools import manipulation_check
+    manipulation_check.main()
   else:
     chip_smoke.main()
 
