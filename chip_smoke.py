@@ -139,7 +139,18 @@ Phases, one line each (any failure exits non-zero):
      its own candidates with the bounds of phase 9;
   36. Bimanual Handover plan-act: as phase 10, at its 96 candidates;
   37. Bimanual Handover at 4096 candidates x 51 (quadruped_ps4096's batch):
-     one timed plan, checked and profiled as in phase 5, no golden.
+     one timed plan, checked and profiled as in phase 5, no golden;
+  38-41. Walker, Bimanual Insert, Allegro Cube and Humanoid Interact (the
+     box-box, capsule-box and capsule-capsule pairs) from qpos0 at each
+     one's own settings (128 x 81 with 6 knots, 96 x 51 with 4, 128 x 31
+     with 3, 128 x 41 with 5): 2 timed plans each, checked and profiled
+     as in phase 5, launches a plan 2 T and T; its card-vs-CPU golden at
+     its own candidates with the bounds of phase 9 and best_return within
+     1e-5;
+  42. Humanoid Interact plan-act: as phase 10, Sitting, then a switch to
+     Standing that must write Standing's preset weights;
+  43. Allegro Cube at 8192 candidates x 31: one timed plan, checked and
+     profiled as in phase 5, no golden.
 Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
 B2's block instance on random dense, one-hot and frictionloss rows at nv
 33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
@@ -152,19 +163,27 @@ update on Quadruped Flat (B1 at B 1, 36 and 73; B2 at B 1 and 73, by
 manipulation tasks' steps give them (B 4096 each: 64 at qpos0 with the box
 on the floor, the rest with a fingertip sphere against the box, a quarter
 of them with its centre inside it; B1 on qM and the Euler system, B2 by
-3e's rule) and their contact points on the card against the CPU's.
+3e's rule) and their contact points on the card against the CPU's; 3o
+the same for the four box-pair tasks (B 4096 each: 64 at qpos0, the rest
+placed against their new pairs) with the contact points under a tie
+rule (box_pair_ties: a decision within 1e-5 m, a near-parallel capsule
+pair's solve, or points the float64 colliders place apart on the card's
+and the CPU's geom poses are exempt; samples with one in contact at most
+5 % beyond qpos0).
 Beside phase 4: both at Cube Solving's shapes, B1 at n 48 and 96 (random
 systems, B 512), both at the estimators' shapes (3m's operands), and both
 at the manipulation paths' (B 65 and 97 at nv 12, 15 and 18, and B 4097 at
-nv 18).
+nv 18) and the box-pair paths' (B 129, 97, 129, 129 at nv 9, 18, 18, 23,
+and B 8193 at Allegro Cube's nv 18, P 59).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all twenty, the iLQG ones
-at the line search's shapes with B1's derivative tangent under "tangent",
-the planner paths of phases 21-23 with their launches per iteration and
+(top-level keys: the Quadruped path; "paths": all twenty-five, the iLQG
+ones at the line search's shapes with B1's derivative tangent under
+"tangent", the planner paths of phases 21-23 with their launches per
+iteration and
 their golden's best_return relative error, Cube Solving's with its
 golden's, and the EKF's and UKF's with their launches, p50 and busy
-share an update, the manipulation tasks' with their golden's), and as
-the last line {"ok": true, "device": {...}}.
+share an update, the manipulation and box-pair tasks' with their
+golden's), and as the last line {"ok": true, "device": {...}}.
 """
 
 import concurrent.futures
@@ -265,6 +284,29 @@ MANIP_PLANS = 2
 MANIP_WIDE = 4096          # Bimanual Handover at quadruped_ps4096's batch
 MANIP_WIDE_PLANS = 1
 MANIP_WIDE_PATH = 'bimanual_handover_4096'
+# phases 3o, 38-43: the tasks of the box-box, capsule-box and
+# capsule-capsule pairs, each at its own planner settings
+BOX_TASKS = ('Walker', 'Bimanual Insert', 'Allegro Cube',
+             'Humanoid Interact')
+BOX_STATES = 4096          # phase 3o's states a task
+BOX_QPOS0 = 64             # of them at qpos0: aligned boxes, parallel legs
+BOX_PLANS = 2
+BOX_WIDE = 8192            # Allegro Cube at its full batch (phase 43)
+BOX_WIDE_PLANS = 1
+BOX_WIDE_PATH = 'allegro_cube_8192'
+# 3o's tie rule: a sample's points may differ card vs CPU only where one
+# of its pairs decides within TIE_MARGIN (m; separations of the best and
+# runner-up axes, the edge axis's 1e-4 bias, incident-face cosines, a
+# sphere centre's distance to the box surface or between its two least
+# depths) or where two capsule axes are so near parallel that float32
+# rounding (F32_ULPS, four ulps relative, of the world positions the
+# segment solve subtracts) over its denominator 1 - (a1.a2)^2 moves the
+# first clamped s by more than POINT_ATOL; such samples beyond the qpos0
+# ones at most BOX_TIE_CAP of the rest
+TIE_MARGIN = 1e-5
+F32_ULPS = 2.4e-7
+BOX_TIE_CAP = 0.05
+BOX_GOLDEN_RTOL = 1e-5     # 38-41: best_return card vs CPU, relative
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
@@ -3074,6 +3116,503 @@ def manip_path(name):
   return name.lower().replace(' ', '_')
 
 
+# ---------------------------------------------------------------------------
+# The tasks of the box-box, capsule-box and capsule-capsule pairs: Walker,
+# Bimanual Insert, Allegro Cube, Humanoid Interact (phases 3o, 38-43, and
+# their rows in phase 4)
+# ---------------------------------------------------------------------------
+
+
+def geoms_named(m, part):
+  return [g for g, n in enumerate(m.geom_names) if part in n]
+
+
+def lowest_z(m, d, geoms):
+  """The lowest world z (B, k) of the sphere, capsule or box geoms (B, k)
+  in states d after their kinematics."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import GeomType
+  rows = torch.arange(d.qpos.shape[0], device=d.qpos.device)[:, None]
+  z = d.geom_xpos[rows, geoms, 2]
+  mat = d.geom_xmat[rows, geoms]
+  size = m.geom_size[geoms]
+  gtype = torch.tensor(m.geom_type, device=d.qpos.device)[geoms]
+  box = z - torch.sum(size * torch.abs(mat[..., 2, :]), -1)
+  cap = z - size[..., 1] * torch.abs(mat[..., 2, 2]) - size[..., 0]
+  return torch.where(gtype == GeomType.BOX, box, torch.where(
+      gtype == GeomType.CAPSULE, cap, z - size[..., 0]))
+
+
+def yaw_quats(yaw):
+  import torch
+  z = torch.zeros_like(yaw)
+  return torch.stack([torch.cos(yaw / 2), z, z, torch.sin(yaw / 2)], -1)
+
+
+def box_states(spec, gen, bsz):
+  """bsz states of a box-pair task: the first BOX_QPOS0 at qpos0 at rest
+  (Walker and Humanoid Interact lowered until their lowest geom is 1 mm
+  into the floor, Allegro Cube's cube 1 mm into the palm: aligned boxes
+  and, in Walker, parallel legs); the others with every limited joint
+  uniform in its range, velocities normal (scale 0.1), controls uniform
+  in their ranges, and placed against the task's new pairs: Walker
+  pitched by up to 0.4 rad, its lowest capsule 0-3 mm into the floor;
+  Bimanual Insert's peg half upright and turned by up to 0.5 rad about z,
+  pressed 0-3 mm into a socket wall's inner face, half in a random
+  orientation over the socket, 0-3 mm below the walls' tops; Allegro
+  Cube's cube in a random orientation, a third 0-3 mm into the palm, the
+  rest against a finger capsule 0-3 mm into a face or (half of them)
+  across an edge, unless a digit is then more than 5 mm in (then onto
+  the palm, the digits as at qpos0); Humanoid Interact turned about z at
+  random, its pelvis, a shin or a foot 0-3 mm into the top of the seat
+  near its middle, unless a geom is then more than 5 mm into the floor or
+  the seat (then 1.5 m from the chair, its lowest geom 0-3 mm into the
+  floor)."""
+  import math
+  import torch
+  from mujoco_mpc_tpu_torch.physics import kinematics as kin
+  from mujoco_mpc_tpu_torch.physics.model import GeomType, make_data
+  from mujoco_mpc_tpu_torch.utils import math as tm
+  m, b, name = spec.model, bsz, spec.name
+  u = lambda *s: torch.rand(s, generator=gen, device=DEV)  # noqa: E731
+  rows = torch.arange(b, device=DEV)
+  qpos = m.qpos0.expand(b, -1).clone()
+  limited = [j for j in range(m.njnt) if m.jnt_limited[j]]
+  adr = torch.tensor([m.jnt_qposadr[j] for j in limited], device=DEV)
+  lo, hi = m.jnt_range[limited, 0], m.jnt_range[limited, 1]
+  qpos[:, adr] = lo + (hi - lo) * u(b, len(limited))
+  rest = torch.arange(b, device=DEV) < BOX_QPOS0
+  qpos[rest] = m.qpos0
+
+  def kinematics(q):
+    return kin.kinematics(m, make_data(m, b).replace(qpos=q))
+
+  def each(geoms):
+    return torch.tensor(geoms, device=DEV).expand(b, -1)
+
+  caps = [g for g in range(m.ngeom) if m.geom_type[g] == GeomType.CAPSULE]
+  depth = 0.003 * u(b)
+  depth[rest] = 0.001
+  if name == 'Walker':
+    qpos[~rest, 2] = (0.8 * u(b) - 0.4)[~rest]
+    qpos[:, 1] -= lowest_z(m, kinematics(qpos), each(caps)).amin(-1) + depth
+  elif name == 'Bimanual Insert':
+    (peg,) = geoms_named(m, 'peg_geom')
+    h = m.geom_size[peg]
+    upright = u(b) < 0.5
+    yaw = torch.where(upright, u(b) - 0.5, (2 * u(b) - 1) * math.pi)
+    quat = torch.where(upright[:, None], yaw_quats(yaw),
+                       tm.quat_normalize(torch.randn(
+                           (b, 4), generator=gen, device=DEV)))
+    wall = torch.randint(4, (b,), generator=gen, device=DEV)
+    normal = torch.tensor([[1.0, 0.0], [-1.0, 0.0], [0.0, 1.0],
+                           [0.0, -1.0]], device=DEV)[wall]
+    reach = h[0] * (torch.abs(torch.cos(yaw)) + torch.abs(torch.sin(yaw)))
+    along = 0.035 - reach + 0.003 * u(b)
+    side = 0.01 * u(b) - 0.005
+    xy_wall = normal * along[:, None] + normal.flip(-1) * side[:, None]
+    mat = tm.quat_to_mat(quat)
+    low = torch.sum(h * torch.abs(mat[:, 2, :]), -1)
+    z = torch.where(upright, h[2] - 0.001 + 0.01 * u(b),
+                    0.08 - 0.003 * u(b) + low)
+    xy = torch.where(upright[:, None], xy_wall, 0.11 * u(b, 2) - 0.055)
+    qpos[~rest, :3] = torch.cat([xy, z[:, None]], -1)[~rest]
+    qpos[~rest, 3:7] = quat[~rest]
+  elif name == 'Allegro Cube':
+    (cube,), (palm,) = geoms_named(m, 'cube_geom'), geoms_named(m,
+                                                                'palm_geom')
+    h = m.geom_size[cube, 0]
+    d = kinematics(qpos)
+    palm_top = d.geom_xpos[0, palm, 2] + m.geom_size[palm, 2]
+    on_palm = rest | (u(b) < 1 / 3)
+    quat = tm.quat_normalize(torch.randn((b, 4), generator=gen, device=DEV))
+    quat[rest] = m.qpos0[3:7]
+    mat = tm.quat_to_mat(quat)
+    low = torch.sum(h * torch.abs(mat[:, 2, :]), -1)
+    xy = torch.where(rest[:, None], 0.0, 0.02 * u(b, 2) - 0.01)
+    on = torch.cat([xy, (palm_top - depth + low)[:, None]], -1)
+    # against a finger capsule: a point of its segment, the cube turned
+    # about z, a face (or an edge) 0-3 mm into the capsule
+    g = torch.tensor(caps, device=DEV)[torch.randint(
+        len(caps), (b,), generator=gen, device=DEV)]
+    r, half = m.geom_size[g, 0], m.geom_size[g, 1]
+    p = (d.geom_xpos[rows, g]
+         + ((u(b) - 0.5) * half)[:, None] * d.geom_xmat[rows, g, :, 2])
+    turn = tm.quat_normalize(torch.randn((b, 4), generator=gen, device=DEV))
+    k = torch.randint(3, (b,), generator=gen, device=DEV)
+    j = (k + 1 + torch.randint(2, (b,), generator=gen, device=DEV)) % 3
+    sk = torch.where(u(b) < 0.5, 1.0, -1.0)
+    sj = torch.where(u(b) < 0.5, 1.0, -1.0)
+    local = (u(b, 3) - 0.5) * h
+    edge = u(b) < 0.5
+    off = torch.where(edge, h + (r - math.sqrt(2.0) * depth) / math.sqrt(2.0),
+                      h + r - depth)
+    local[rows, k] = sk * off
+    local[rows, j] = torch.where(edge, sj * off, local[rows, j])
+    at = p - torch.einsum('bij,bj->bi', tm.quat_to_mat(turn), local)
+    qpos[:, :3] = torch.where(on_palm[:, None], on, at)
+    qpos[:, 3:7] = torch.where(on_palm[:, None], quat, turn)
+    # where a digit is more than 5 mm into the cube, the cube goes onto
+    # the palm instead, the digits as at qpos0
+    deep = stacked_points(spec, kinematics(qpos))[0].amin(-1) < -0.005
+    qpos[deep, :3], qpos[deep, 3:7] = on[deep], quat[deep]
+    qpos[deep, 7:] = m.qpos0[7:]
+  elif name == 'Humanoid Interact':
+    (seat,) = geoms_named(m, 'seat')
+    feet = geoms_named(m, '_foot_geom')
+    targets = torch.tensor(geoms_named(m, 'pelvis_geom')
+                           + geoms_named(m, '_shin_geom') + feet, device=DEV)
+    qpos[~rest, 3:7] = yaw_quats((2 * u(b) - 1) * math.pi)[~rest]
+    d = kinematics(qpos)
+    seat_top = d.geom_xpos[0, seat, 2] + m.geom_size[seat, 2]
+    g = targets[torch.randint(len(targets), (b,), generator=gen, device=DEV)]
+    aim = (d.geom_xpos[0, seat, :2]
+           + (u(b, 2) - 0.5) * torch.tensor([0.4, 0.5], device=DEV))
+    shift = torch.cat([aim - d.geom_xpos[rows, g, :2], (
+        seat_top - depth - lowest_z(m, d, g[:, None])[:, 0])[:, None]], -1)
+    floor = -depth - lowest_z(m, d, each(feet)).amin(-1)
+    qpos[~rest, :3] += shift[~rest]
+    qpos[rest, 2] += floor[rest]
+    # where a geom is then more than 5 mm into the floor or the seat, the
+    # body moves to 1.5 m from the chair and down onto the floor, its
+    # lowest geom 0-3 mm in
+    deep = stacked_points(spec, kinematics(qpos))[0].amin(-1) < -0.005
+    qpos[deep, 0] = d.geom_xpos[0, seat, 0] + 1.5
+    qpos[deep, 1] = d.geom_xpos[0, seat, 1]
+    body = [g for g in range(m.ngeom) if (0, g) in m.collision_pairs]
+    low = lowest_z(m, kinematics(qpos), each(body)).amin(-1)
+    qpos[deep, 2] -= (low + depth)[deep]
+  clo, chi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  qvel = 0.1 * torch.randn((b, m.nv), generator=gen, device=DEV)
+  ctrl = clo + (chi - clo) * u(b, m.nu)
+  qvel[rest], ctrl[rest] = 0.0, 0.0
+  return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def _gap2(x):
+  """The gap (...) between the largest and the runner-up of x (..., n)."""
+  import torch
+  top = torch.topk(x, 2, -1).values
+  return top[..., 0] - top[..., 1]
+
+
+def box_box_margin(p1, m1, s1, p2, m2, s2):
+  """The smallest decision margin (...) of _box_box_sat's choices on these
+  poses (float64): the winning family's best against its runner-up (face
+  axes; edge axes), the edge's 1e-4 bias, and what follows the winner:
+  the reference normal's sign and the incident face's cosines (a face),
+  or the edge axis's sign and its supporting edges (an edge)."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import collision as col
+  inf = torch.full(p1.shape[:-1], float('inf'), dtype=p1.dtype)
+  face, edge, axis_n = col._sat_axes(p1, m1, s1.expand(p1.shape), p2, m2,
+                                     s2.expand(p2.shape))
+  best_face, best_edge = col._first_argmax(face), col._first_argmax(edge)
+  bias = torch.abs(col._pick(edge, best_edge) - col._pick(face, best_face)
+                   - 1e-4)
+  use_edge = col._pick(edge, best_edge) > col._pick(face, best_face) + 1e-4
+  # a face: the reference normal's sign, the incident face's cosines
+  a_is_1 = best_face < 3
+  a1v, a1m = a_is_1[..., None], a_is_1[..., None, None]
+  mata, matb = torch.where(a1m, m1, m2), torch.where(a1m, m2, m1)
+  ca, cb = torch.where(a1v, p1, p2), torch.where(a1v, p2, p1)
+  axis_a = col._column(mata, torch.where(a_is_1, best_face, best_face - 3))
+  along = col._dot(cb - ca, axis_a)
+  dots = torch.abs(col._mtv(matb, axis_a))
+  face_m = torch.minimum(torch.minimum(_gap2(face), torch.abs(along)),
+                         _gap2(dots))
+  # an edge: the runner-up edge axis, the axis's sign, the supports
+  axis_w = col._mv(m1, torch.gather(axis_n, -2, best_edge[..., None, None]
+                                    .expand(best_edge.shape + (1, 3)))[..., 0,
+                                                                       :])
+  sign_w = col._dot(p2 - p1, axis_w)
+  i_e, j_e = best_edge // 3, best_edge % 3
+  ar = torch.arange(3)
+  sup1 = torch.where(ar == i_e[..., None], inf[..., None], torch.abs(
+      col._mtv(m1, axis_w)))
+  sup2 = torch.where(ar == j_e[..., None], inf[..., None], torch.abs(
+      col._mtv(m2, axis_w)))
+  edge_m = torch.minimum(torch.minimum(_gap2(edge), torch.abs(sign_w)),
+                         torch.minimum(sup1.amin(-1), sup2.amin(-1)))
+  return torch.minimum(bias, torch.where(use_edge, edge_m, face_m))
+
+
+def sphere_box_margin(c, bc, bmat, bsize):
+  """A sphere centre's distance to the box's surface (..., float64), and
+  inside the box the gap between its two least depths: where the
+  collider's normal is decided."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import collision as col
+  local = col._mtv(bmat, c - bc)
+  out = torch.linalg.vector_norm(local - torch.clamp(local, -bsize, bsize),
+                                 dim=-1)
+  depth = bsize - torch.abs(local)
+  inside = torch.all(depth > 0, -1)
+  least = torch.sort(depth, -1).values
+  return torch.where(inside, torch.minimum(least[..., 0],
+                                           least[..., 1] - least[..., 0]), out)
+
+
+def box_pair_ties(m, d):
+  """(B, P) bool over the model's condim group's points in their stacking
+  order: whether the point's pair decides it within the tie rule's
+  margins (TIE_MARGIN, F32_ULPS) in that sample of states d (after
+  kinematics, on the CPU), computed in float64. Box-box: its five points
+  (box_box_margin); capsule-capsule: its point (the first s's spread);
+  capsule-box: each of its three points by its own sphere centre (the
+  segment's closest point by 8 projections, then the ends;
+  sphere_box_margin); sphere-box: its point; sphere-sphere: coincident
+  centres."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import collision as col
+  from mujoco_mpc_tpu_torch.physics.model import GeomType as G
+  (group,) = m.contact
+  check(all(src.kind == 'pair' for src in group.sources),
+        'a box-pair task with a hull cluster')
+  xpos, xmat = d.geom_xpos.double(), d.geom_xmat.double()
+  size = m.geom_size.double()
+  cols = []
+  for src in group.sources:
+    g1, g2 = src.pairs[0]
+    t1, t2 = m.geom_type[g1], m.geom_type[g2]
+    p1, p2, m1, m2 = xpos[:, g1], xpos[:, g2], xmat[:, g1], xmat[:, g2]
+    s1, s2 = size[g1], size[g2]
+    tie = torch.zeros((xpos.shape[0], col.points_per_pair(m, g1, g2)),
+                      dtype=torch.bool)
+    if (t1, t2) == (G.BOX, G.BOX):
+      tie[:] = (box_box_margin(p1, m1, s1, p2, m2, s2) < TIE_MARGIN)[:, None]
+    elif (t1, t2) == (G.CAPSULE, G.CAPSULE):
+      a1, a2 = m1[..., 2], m2[..., 2]
+      b = col._dot(a1, a2)
+      denom = torch.clamp(1.0 - b * b, min=1e-12)
+      bf, c = b * col._dot(a2, p1 - p2), col._dot(a1, p1 - p2)
+      s = (bf - c) / denom
+      err = F32_ULPS * (torch.linalg.vector_norm(p1, dim=-1)
+                        + torch.linalg.vector_norm(p2, dim=-1)
+                        + torch.abs(s)) / denom
+      tie[:, 0] = (torch.clamp(s + err, -s1[1], s1[1])
+                   - torch.clamp(s - err, -s1[1], s1[1])) > POINT_ATOL
+    elif (t1, t2) == (G.CAPSULE, G.BOX):
+      axis, half = m1[..., 2], s1[1]
+      t = torch.zeros_like(p1[:, 0])
+      for _ in range(8):
+        q = p2 + col._mv(m2, torch.clamp(
+            col._mtv(m2, p1 + t[:, None] * axis - p2), -s2, s2))
+        t = torch.clamp(col._dot(q - p1, axis), -half, half)
+      for j, c in enumerate((p1 + t[:, None] * axis, p1 - half * axis,
+                             p1 + half * axis)):
+        tie[:, j] = sphere_box_margin(c, p2, m2, s2) < TIE_MARGIN
+    elif (t1, t2) == (G.SPHERE, G.BOX):
+      tie[:, 0] = sphere_box_margin(p1, p2, m2, s2) < TIE_MARGIN
+    elif (t1, t2) == (G.SPHERE, G.SPHERE):
+      tie[:, 0] = torch.linalg.vector_norm(p2 - p1, dim=-1) < TIE_MARGIN
+    cols.append(tie)
+  return torch.cat(cols, 1)
+
+
+def check_box_points(spec, cpu_spec, d):
+  """Phase 3o's contact points: those the card's step stacks from states
+  d (every pair's candidates in JAX's order) against the same step on the
+  CPU through the plain path, float32 both. The tie rule exempts a point
+  whose pair decides within its margins (box_pair_ties) or that the
+  colliders place apart in float64 from the card's geom poses and from
+  the CPU's (the kinematics' f32 rounding amplified). Every other point
+  agrees: its depth within POINT_ATOL (the unselected box-box family's
+  1e6 exactly), and where the CPU's depth is a point's (below 1e5) its
+  position within POINT_ATOL and its normal within NORMAL_ATOL. The
+  samples beyond the first BOX_QPOS0 with a tied point in contact are at
+  most BOX_TIE_CAP of the rest. Returns the line's text."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.tasks import registry
+  card_d = fwd.fwd_position(spec.model, d)
+  card = [x.cpu() for x in stacked_points(spec, card_d)]
+  cpu_d = fwd.fwd_position(cpu_spec.model, to_cpu(d))
+  cpu = stacked_points(cpu_spec, cpu_d)
+  tied = box_pair_ties(cpu_spec.model, cpu_d)                  # (B, P)
+  check(tied.shape == cpu[0].shape, 'points and pairs do not line up')
+  # conditioning: the colliders in float64 on the card's geom poses and
+  # on the CPU's already disagree there
+  spec64 = registry.get_task(spec.name, device='cpu', dtype=torch.float64)
+  ref = [stacked_points(spec64, make_data(spec64.model,
+                                          d.qpos.shape[0]).replace(
+      geom_xpos=x.geom_xpos.cpu().double(),
+      geom_xmat=x.geom_xmat.cpu().double()))
+         for x in (card_d, cpu_d)]
+  ill = ((torch.abs(ref[0][0] - ref[1][0]) > POINT_ATOL)
+         | (torch.amax(torch.abs(ref[0][1] - ref[1][1]), -1) > POINT_ATOL)
+         | (torch.amax(torch.abs(ref[0][2] - ref[1][2]), -1) > NORMAL_ATOL))
+  n_ill = int((ill & ~tied).sum())
+  tied = tied | ill
+  free = ~tied
+  near = cpu[0] < 1e5
+  dist_err = torch.abs(card[0] - cpu[0])
+  pos_err = torch.amax(torch.abs(card[1] - cpu[1]), -1)
+  normal_err = torch.amax(torch.abs(card[2] - cpu[2]), -1)
+  worst = [float(x[free & mask].max()) if bool((free & mask).any()) else 0.0
+           for x, mask in ((dist_err, free), (pos_err, near),
+                           (normal_err, near))]
+  bad = free & ((dist_err > POINT_ATOL) | (near & (pos_err > POINT_ATOL))
+                | (near & (normal_err > NORMAL_ATOL)))
+  def show(pts, b, k):
+    return [round(float(x), 7) for x in (pts[0][b, k], *pts[1][b, k],
+                                         *pts[2][b, k])]
+
+  for b, k in torch.nonzero(bad)[:4].tolist():
+    print(f'phase 3o {spec.name} point off (dist, pos, normal): sample {b} '
+          f'point {k} card {show(card, b, k)}, CPU {show(cpu, b, k)}, '
+          f'float64 {show(ref[1], b, k)}')
+  check(worst[0] <= POINT_ATOL, f'contact depths, card vs CPU: '
+        f'{worst[0]:.3g} > {POINT_ATOL:g} outside the ties')
+  check(worst[1] <= POINT_ATOL and worst[2] <= NORMAL_ATOL,
+        f'contact positions / normals, card vs CPU: {worst[1]:.3g} / '
+        f'{worst[2]:.3g} > {POINT_ATOL:g} / {NORMAL_ATOL:g} outside the ties')
+  tied_contact = (tied & (cpu[0] < 0)).any(-1)
+  n_rest = int(tied_contact[BOX_QPOS0:].sum())
+  cap = int(BOX_TIE_CAP * (tied.shape[0] - BOX_QPOS0))
+  check(n_rest <= cap, f'{n_rest} samples beyond qpos0 with a tied point '
+        f'in contact, more than {cap}')
+  moved = tied & ((dist_err > POINT_ATOL) | (near & (pos_err > POINT_ATOL)))
+  return (f'{card[0].shape[1]} points a sample, {int((cpu[0] < 0).sum())} '
+          f'in contact; outside the ties depths, positions and normals max '
+          f'abs err {worst[0]:.3g}, {worst[1]:.3g}, {worst[2]:.3g} (tol '
+          f'{POINT_ATOL:g}, {POINT_ATOL:g}, {NORMAL_ATOL:g}); tied points '
+          f'{int(tied.sum())} of {tied.numel()} ({n_ill} of them by the '
+          f'float64 colliders alone), samples with a tied point '
+          f'in contact {int(tied_contact[:BOX_QPOS0].sum())} of the '
+          f'{BOX_QPOS0} at qpos0 and {n_rest} of the rest (cap {cap}); '
+          f'{int(moved.any(-1).sum())} samples with a tied point that '
+          f'differs')
+
+
+def check_box_kernels(spec, cpu_spec, gen):
+  """Phase 3o for one task: both kernels on the inputs its step gives them
+  at BOX_STATES box_states (B1 on qM and the Euler system within 1e-4
+  relative, B2 by phase 3e's rule), and its contact points card vs CPU
+  under the tie rule. Returns the states."""
+  m = spec.model
+  states = box_states(spec, gen, BOX_STATES)
+  spd_in, (args, gargs, condims, dmasks) = solver_inputs(spec, states)
+  _, spd_err = check_spd_inputs(spd_in, 1e-4, spec.name)
+  _, euler_err = check_spd_inputs(euler_inputs(spec, states), 1e-4,
+                                  spec.name + ' Euler')
+  kw = dict(cap=m.opt.iterations, tol=1e-5, condims=condims, dmasks=dmasks)
+  _, line = check_newton_task(spec.name, args, gargs, kw)
+  print(f'phase 3o {spec.name} step inputs (B {BOX_STATES}, the first '
+        f'{BOX_QPOS0} at qpos0; condims {condims}, P {gargs[1].shape[1]}, ns '
+        f'{args[6].shape[1]}): chol_solve n {m.nv} rel err qM '
+        f'{spd_err:.3g}, Euler system {euler_err:.3g} (tol 1e-4); {line}')
+  print(f'phase 3o {spec.name} contact points, card vs the CPU plain path: '
+        + check_box_points(spec, cpu_spec, states))
+  return states
+
+
+def box_timing(specs, states, kern):
+  """Phase 4's rows of the box-pair paths (manipulation_kernels), each
+  task's rollout batch: Walker (B 129, nv 9), Bimanual Insert (B 97, nv
+  18), Allegro Cube (B 129, nv 18) and Humanoid Interact (B 129, nv 23),
+  and Allegro Cube at BOX_WIDE + 1. Fills `kern` for every path; returns
+  their (B1, B2) max abs errors."""
+  errs = {}
+  for n in BOX_TASKS:
+    errs[manip_path(n)] = manipulation_kernels(
+        specs[n], states[n], own_settings(specs[n])[0] + 1, kern,
+        manip_path(n))
+  errs[BOX_WIDE_PATH] = manipulation_kernels(
+      specs['Allegro Cube'], states['Allegro Cube'], BOX_WIDE + 1, kern,
+      BOX_WIDE_PATH)
+  return errs
+
+
+def interact_mode_switch(spec, samples, points, gen):
+  """Phase 42: Humanoid Interact's plan-act loop, PLAN_ACT_STEPS steps in
+  Sitting (mode 0, the default), then as many with select_mode set to
+  Standing (1) from where the first stopped; the transition at the next
+  plan must write Standing's preset into the weights and store the mode.
+  Returns (steps, simulated s, wall s, real-time factor, mean cost, last
+  cost)."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.tasks import registry
+  names = spec.residual_param_names
+  sel, cur = names.index('select_mode'), names.index('_cur_mode')
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  carry, costs0 = agent.synchronous_mpc(
+      spec, samples, PLAN_ACT_STEPS, 4, gen, num_spline_points=points,
+      sim0=make_data(spec.model))
+  rp = carry.params.residual_params.clone()
+  rp[sel] = 1.0
+  carry, costs1 = agent.synchronous_mpc(
+      spec, samples, PLAN_ACT_STEPS, 4, gen, num_spline_points=points,
+      sim0=carry.sim, params=carry.params.replace(residual_params=rp))
+  costs = torch.cat([costs0, costs1]).cpu()
+  wall = time.perf_counter() - t0
+  terms = [spec.term_names.index(n) for n in registry._INTERACT_TERMS]
+  preset = torch.tensor(registry._INTERACT_MODE_WEIGHTS[1],
+                        dtype=torch.float32)
+  check(bool(torch.equal(carry.params.weights[terms].cpu(), preset)),
+        'the mode switch did not write the Standing preset')
+  check(float(carry.params.residual_params[cur]) == 1.0,
+        'the mode switch did not store the mode')
+  check(bool(torch.isfinite(costs).all()), 'plan-act costs not finite')
+  sim_time = len(costs) * float(spec.model.opt.timestep)
+  return (len(costs), sim_time, wall, sim_time / wall, float(costs.mean()),
+          float(costs[-1]))
+
+
+def box_phases(specs, cpu_specs, gen, elapsed):
+  """Phases 38-43 from the four tasks' specs (card and CPU): each task's
+  main path at its own candidates x horizon and knots from qpos0 with its
+  launches as predicted (2 T B1, T B2 a plan), and its card-vs-CPU golden
+  at its own candidates with phase 9's bounds and best_return within
+  BOX_GOLDEN_RTOL (38-41); Humanoid Interact's plan-act loop with a mode
+  switch (42); Allegro Cube's plan at BOX_WIDE candidates (43, timed, no
+  golden). Returns ({path: main path record}, {path: golden best_return
+  rel err})."""
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  main, rel_err = {}, {}
+  for phase, name in enumerate(BOX_TASKS, 38):
+    spec, cpu_spec = specs[name], cpu_specs[name]
+    samples, _, points = own_settings(spec)
+    d0 = make_data(spec.model)
+    r = main_path(spec, d0, samples, BOX_PLANS, gen, points)
+    print_main_path(phase, name, samples, BOX_PLANS, r)
+    br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+        spec, cpu_spec, d0, make_data(cpu_spec.model), gen, 0.2, samples,
+        points)
+    print(f'phase {phase} golden: {name} {samples}-candidate plan '
+          f'({points} knots) best_return card {br_gpu:.6g} vs CPU plain '
+          f'{br_cpu:.6g}: rel err {rel:.3g} (tol {BOX_GOLDEN_RTOL:g}); '
+          f'winner card {win_gpu} vs CPU {win_cpu} (match '
+          f'{win_gpu == win_cpu}); 5-step rollout qpos drift {drift:.3g} '
+          f'(tol 0.05)')
+    check(rel <= BOX_GOLDEN_RTOL, f'{name} golden best_return rel err '
+          f'{rel:.3g} > {BOX_GOLDEN_RTOL:g}')
+    main[manip_path(name)], rel_err[manip_path(name)] = r, rel
+    elapsed(str(phase))
+  inter = specs['Humanoid Interact']
+  samples, _, points = own_settings(inter)
+  steps, sim_t, wall, rtf, mean, last = interact_mode_switch(
+      inter, samples, points, gen)
+  print(f'phase 42 plan-act: Humanoid Interact {steps} steps ({sim_t:.2f} s '
+        f'simulated, {steps // 4} plans of 4 steps, {samples} candidates, '
+        f'Sitting then Standing: the preset weights written at the switch) '
+        f'in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
+        f'{mean:.4g}, last {last:.4g}')
+  elapsed('42')
+  allegro = specs['Allegro Cube']
+  samples, _, points = own_settings(allegro)
+  r = main_path(allegro, make_data(allegro.model), BOX_WIDE, BOX_WIDE_PLANS,
+                gen, points)
+  print_main_path(43, 'Allegro Cube', BOX_WIDE, BOX_WIDE_PLANS, r)
+  main[BOX_WIDE_PATH] = r
+  elapsed('43')
+  return main, rel_err
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -3219,6 +3758,11 @@ def main():
   manip_cpu = {n: registry.get_task(n, device='cpu') for n in MANIP_TASKS}
   manip_in = {n: check_manipulation_kernels(manip[n], manip_cpu[n], gen)
               for n in MANIP_TASKS}
+  # the box-pair tasks' step inputs and contact points (3o)
+  boxes = {n: registry.get_task(n) for n in BOX_TASKS}
+  boxes_cpu = {n: registry.get_task(n, device='cpu') for n in BOX_TASKS}
+  boxes_in = {n: check_box_kernels(boxes[n], boxes_cpu[n], gen)
+              for n in BOX_TASKS}
 
   elapsed('1-3')
 
@@ -3258,6 +3802,7 @@ def main():
   time_cube_kernels(cube, c_spd_in, c_n_in, gen, kern)
   time_estimator_kernels(est_in, kern)
   manip_errs = manipulation_timing(manip, manip_in, kern)
+  box_errs = box_timing(boxes, boxes_in, kern)
 
   elapsed('4')
 
@@ -3394,6 +3939,9 @@ def main():
   # 31-37. the manipulation tasks on the sphere-box pair
   manip_main, manip_rel = manipulation_phases(manip, manip_cpu, gen, elapsed)
 
+  # 38-43. the box-pair tasks
+  box_main, box_rel = box_phases(boxes, boxes_cpu, gen, elapsed)
+
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -3485,11 +4033,13 @@ def main():
     paths['cube_solving']['golden_rel_err'] = cube_rel
     for p in ('quadruped_ekf', 'quadruped_ukf'):
       paths[p] = est_entry(name, p)
-    for p, r in manip_main.items():
-      paths[p] = entry(name, p, r['launches'],
-                       manip_errs[p][0 if name == 'chol_solve' else 1])
-      if p in manip_rel:
-        paths[p]['golden_rel_err'] = manip_rel[p]
+    for main_, errs_, rel_ in ((manip_main, manip_errs, manip_rel),
+                               (box_main, box_errs, box_rel)):
+      for p, r in main_.items():
+        paths[p] = entry(name, p, r['launches'],
+                         errs_[p][0 if name == 'chol_solve' else 1])
+        if p in rel_:
+          paths[p]['golden_rel_err'] = rel_[p]
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

@@ -145,7 +145,8 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   back out, as _newton_reference does (:799-815). Runs `cap` iterations
   with per-sample done masks and frozen finished samples, which is what
   the vmapped while_loop computes, and never reads a tensor value on the
-  host, so on the card it queues without a sync."""
+  host, so on the card it queues without a sync. On the CPU it stops once
+  every sample is done: the iterations left would change nothing."""
   bsz, nv = qs.shape
   n_dense = j.shape[1]
   j, aref, dvec, eqf, gsizes = expand_groups(j, aref, dvec, eqf, gargs,
@@ -243,6 +244,8 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
     prev_exact_new = torch.where(live, exact, prev_exact)
     done = done | ((exact & prev_exact) | small)
     prev_exact = prev_exact_new
+    if not qs.is_cuda and bool(torch.all(done)):
+      break
   jar_groups = []
   off = n_dense
   for (nrep, p) in gsizes:

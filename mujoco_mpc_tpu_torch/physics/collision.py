@@ -2,19 +2,23 @@
 
 Port of mujoco_mpc_tpu/physics/collision.py: ContactPoint :32,
 _make_frame :44, _make_frames :59, _plane_sphere :81, _plane_capsule :87,
-_plane_box :103, _sphere_sphere :116, _sphere_box :145, the convex-hull
-colliders
+_plane_box :103, _sphere_sphere :116, _closest_on_segment :125,
+_segment_closest :130, _sphere_box :145, _box_box_sat :170,
+_capsule_box :376, the convex-hull colliders
 (_points_vs_halfspaces :395, _hull_world :416, _plane_mesh :426,
 _sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), narrowphase :604
 (plane against sphere, capsule, box and mesh; sphere against sphere, box
-and mesh; box, capsule and mesh against mesh), the batched hull clusters
+and mesh; box against box and mesh; capsule against capsule, box and
+mesh; mesh against mesh), the batched hull clusters
 (_hull_sig :712, contact_clusters :717, _hulls_local :762,
 plane_mesh_batched :783, box_mesh_batched :809, mesh_mesh_batched :874
 with its broadphase, capsule_mesh_batched :949, sphere_mesh_batched
 :983), PairParams :1005 and pair_params :1015. As in JAX, each static geom
 pair emits a fixed number of candidate points (inactive ones are masked
 by distance later), so every shape is static; here each field carries a
-leading batch dimension B.
+leading batch dimension B. The segment, capsule and box-box colliders
+take any leading dimensions (...), so that the pairs of one kind can be
+stacked; narrowphase calls them a pair at a time, as JAX does.
 
 Two selection rules are mirrored exactly, not unified: the unrolled
 colliders take the normal of the first face at the maximum (argmax), the
@@ -26,8 +30,8 @@ contractions over them go through matmul, which runs in full float32
 unless the caller enables TF32.
 
 Not ported yet, and refused where reached: the other primitive pairs
-(sphere-capsule, capsule-capsule, capsule-box, box-box, cylinder and
-ellipsoid: ROADMAP A6) and height fields (A7).
+(sphere-capsule, cylinder and ellipsoid: ROADMAP A6) and height fields
+(A7).
 """
 
 from __future__ import annotations
@@ -115,35 +119,218 @@ def _sphere_sphere(c1, r1, c2, r2):
   return [ContactPoint(dist, pos, n)]
 
 
+def _closest_on_segment(p, c, axis, half):
+  """The point of the segment c +- half axis closest to p (..., 3)."""
+  t = torch.clamp(_dot(p - c, axis), -half, half)
+  return c + t[..., None] * axis
+
+
+def _segment_closest(c1, a1, h1, c2, a2, h2):
+  """Closest points (q1, q2) (..., 3) between the segments c1 +- h1 a1 and
+  c2 +- h2 a2 (unit axes), JAX's clamped solve: s, then t, then s again,
+  the denominator 1 - (a1.a2)^2 floored at 1e-12 (parallel axes: s 0
+  before its re-clamp)."""
+  r = c1 - c2
+  b = _dot(a1, a2)
+  cdot = _dot(a1, r)
+  f = _dot(a2, r)
+  denom = torch.clamp(1.0 - b * b, min=1e-12)
+  s = torch.clamp((b * f - cdot) / denom, -h1, h1)
+  t = torch.clamp(f + s * b, -h2, h2)
+  s = torch.clamp(t * b - cdot, -h1, h1)
+  return c1 + s[..., None] * a1, c2 + t[..., None] * a2
+
+
+def _capsule_capsule(c1, a1, h1, r1, c2, a2, h2, r2):
+  """Capsule vs capsule: the spheres at the segments' closest points."""
+  q1, q2 = _segment_closest(c1, a1, h1, c2, a2, h2)
+  return _sphere_sphere(q1, r1, q2, r2)
+
+
 def _sphere_box(c, r, bc, bmat, bsize):
-  """Sphere (centre c (B, 3), radius r) vs box (centre bc (B, 3), frame
-  bmat (B, 3, 3), half sizes bsize (3,)), in the box's frame. Shallow,
-  the centre outside or on the surface: the closest box point, the normal
-  towards the centre (guarded at 1e-12: zero on the surface). Deep, the
-  centre strictly inside on every axis: pushed out along the axis of least
-  depth, the first such axis at a tie (jnp.argmin's), the normal's sign
-  that of the centre's coordinate there (0 at the exact centre, as
-  jnp.sign gives it). The normal points from the box to the sphere; the
-  caller flips it."""
-  local = torch.einsum('bji,bj->bi', bmat, c - bc)
+  """Sphere (centre c (..., 3), radius r) vs box (centre bc (..., 3),
+  frame bmat (..., 3, 3), half sizes bsize (3,)), in the box's frame.
+  Shallow, the centre outside or on the surface: the closest box point,
+  the normal towards the centre (guarded at 1e-12: zero on the surface).
+  Deep, the centre strictly inside on every axis: pushed out along the
+  axis of least depth, the first such axis at a tie (jnp.argmin's), the
+  normal's sign that of the centre's coordinate there (0 at the exact
+  centre, as jnp.sign gives it). The normal points from the box to the
+  sphere; the caller flips it."""
+  local = torch.einsum('...ji,...j->...i', bmat, c - bc)
   clamped = torch.clamp(local, -bsize, bsize)
   inside = torch.all(torch.abs(local) < bsize, -1)
   delta = local - clamped
   ln = torch.linalg.vector_norm(delta, dim=-1)
-  n_shallow = delta / torch.clamp(ln, min=1e-12)[:, None]
+  n_shallow = delta / torch.clamp(ln, min=1e-12)[..., None]
   depth = bsize - torch.abs(local)
   d0, d1, d2 = depth.unbind(-1)
   k = torch.where((d0 <= d1) & (d0 <= d2), 0, torch.where(d1 <= d2, 1, 2))
-  dk = torch.gather(depth, 1, k[:, None])[:, 0]
-  sign = torch.sign(torch.gather(local, 1, k[:, None]))
+  dk = torch.gather(depth, -1, k[..., None])[..., 0]
+  sign = torch.sign(torch.gather(local, -1, k[..., None]))
   n_deep = torch.nn.functional.one_hot(k, 3).to(c.dtype) * sign
-  n_local = torch.where(inside[:, None], n_deep, n_shallow)
+  n_local = torch.where(inside[..., None], n_deep, n_shallow)
   dist = torch.where(inside, -(dk + r), ln - r)
-  surface_local = torch.where(inside[:, None], local + n_local * dk[:, None],
-                              clamped)
-  n = torch.einsum('bij,bj->bi', bmat, n_local)
-  surface = bc + torch.einsum('bij,bj->bi', bmat, surface_local)
-  return [ContactPoint(dist, surface + 0.5 * dist[:, None] * n, n)]
+  surface_local = torch.where(inside[..., None],
+                              local + n_local * dk[..., None], clamped)
+  n = torch.einsum('...ij,...j->...i', bmat, n_local)
+  surface = bc + torch.einsum('...ij,...j->...i', bmat, surface_local)
+  return [ContactPoint(dist, surface + 0.5 * dist[..., None] * n, n)]
+
+
+def _first_argmax(x: torch.Tensor) -> torch.Tensor:
+  """Index (...) of the first maximum of x (..., n): jnp.argmax's choice
+  among equals, by explicit comparison."""
+  hit = x >= torch.amax(x, -1, keepdim=True)
+  n = x.shape[-1]
+  ar = torch.arange(n, device=x.device)
+  return torch.amin(torch.where(hit, ar, n), -1)
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """x (..., n) at the index idx (...) of its last axis."""
+  return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def _column(mat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """Column idx (...) of mat (..., 3, 3): (..., 3)."""
+  return torch.gather(mat, -1, idx[..., None, None].expand(
+      mat.shape[:-1] + (1,)))[..., 0]
+
+
+def _mv(mat, v):
+  return torch.einsum('...ij,...j->...i', mat, v)
+
+
+def _mtv(mat, v):
+  return torch.einsum('...ji,...j->...i', mat, v)
+
+
+# the 4 incident-face vertices (su, sv) in JAX's order, su outermost
+_FACE_SIGNS = ((-1.0, -1.0), (-1.0, 1.0), (1.0, -1.0), (1.0, 1.0))
+
+
+def _sat_axes(p1, m1, s1, p2, m2, s2):
+  """The separating-axis test of _box_box_sat on boxes (centres (..., 3),
+  frames (..., 3, 3), half sizes (..., 3)): (face separations (..., 6),
+  box 1's axes then box 2's; edge separations (..., 9) over e_i x b_j, i
+  outer, -1e6 where the edges are parallel (the axis's norm below 1e-6);
+  the unit edge axes (..., 9, 3) in box 1's frame)."""
+  eps = 1e-9
+  r = torch.einsum('...ji,...jk->...ik', m1, m2)   # box2 axes in box1 frame
+  t = _mtv(m1, p2 - p1)                            # box2 centre in box1 frame
+  absr = torch.abs(r) + eps
+  sep1 = torch.abs(t) - (s1 + _mv(absr, s2))
+  t2f = _mtv(r, t)
+  sep2 = torch.abs(t2f) - (s2 + _mtv(absr, s1))
+  # edge axes cross(e_i, r[:, j]) in box1's frame, (..., 9, 3), i outer
+  eye = torch.eye(3, dtype=p1.dtype, device=p1.device)
+  rt = r.transpose(-1, -2)                         # rows: r[:, j]
+  axis = tm.cross(eye[:, None, :], rt[..., None, :, :]).flatten(-3, -2)
+  ln = torch.linalg.vector_norm(axis, dim=-1)
+  axis_n = axis / torch.clamp(ln, min=eps)[..., None]
+  ra = torch.sum(s1[..., None, :] * torch.abs(axis_n), -1)
+  rb = torch.sum(s2[..., None, :] * torch.abs(
+      torch.einsum('...ji,...aj->...ai', r, axis_n)), -1)
+  sep = torch.abs(torch.sum(t[..., None, :] * axis_n, -1)) - (ra + rb)
+  return (torch.cat([sep1, sep2], -1), torch.where(ln < 1e-6, -1e6, sep),
+          axis_n)
+
+
+def _box_box_sat(p1, m1, s1, p2, m2, s2):
+  """Box vs box (centres (..., 3), frames (..., 3, 3), half sizes (3,) or
+  (..., 3)) by the separating-axis test, JAX's _box_box_sat (_sat_axes):
+  the first face axis of largest separation unless the first such edge
+  axis beats it by more than 1e-4. Five points: the incident face's 4
+  vertices clamped into the reference face (dist 1e6 when the edge
+  wins), then the edges' closest-point contact (dist 1e6 when a face
+  wins). jnp.sign(0) = 0 carries through: at exact alignment a normal or
+  a support may be zero, as in JAX. The normal points g1 -> g2."""
+  dtype = p1.dtype
+  big = 1e6
+  s1 = s1.expand(p1.shape)
+  s2 = s2.expand(p2.shape)
+  face_seps, edge_seps, axis_n = _sat_axes(p1, m1, s1, p2, m2, s2)
+  best_face = _first_argmax(face_seps)
+  best_edge = _first_argmax(edge_seps)
+  face_sep = _pick(face_seps, best_face)
+  edge_sep_v = _pick(edge_seps, best_edge)
+  use_edge = edge_sep_v > face_sep + 1e-4
+  separation = torch.maximum(face_sep, edge_sep_v)
+
+  # ---- face manifold: reference box A, incident face of B ----
+  a_is_1 = best_face < 3
+  ia = torch.where(a_is_1, best_face, best_face - 3)
+  a1v, a1m = a_is_1[..., None], a_is_1[..., None, None]
+  ca, mata, sa = (torch.where(a1v, p1, p2), torch.where(a1m, m1, m2),
+                  torch.where(a1v, s1, s2))
+  cb, matb, sb = (torch.where(a1v, p2, p1), torch.where(a1m, m2, m1),
+                  torch.where(a1v, s2, s1))
+  axis_a = _column(mata, ia)
+  sign_a = torch.sign(_dot(cb - ca, axis_a))
+  n_ref = axis_a * sign_a[..., None]               # A -> B
+  dots = _mtv(matb, n_ref)
+  jb = _first_argmax(torch.abs(dots))
+  sign_b = -torch.sign(_pick(dots, jb))
+  n_inc = _column(matb, jb) * sign_b[..., None]
+  face_center_b = cb + n_inc * _pick(sb, jb)[..., None]
+  j1 = torch.remainder(jb + 1, 3)
+  j2 = torch.remainder(jb + 2, 3)
+  tb1 = _column(matb, j1) * _pick(sb, j1)[..., None]
+  tb2 = _column(matb, j2) * _pick(sb, j2)[..., None]
+  su, sv = (torch.tensor(x, dtype=dtype, device=p1.device)[:, None]
+            for x in zip(*_FACE_SIGNS))            # (4, 1) each
+  v = (face_center_b[..., None, :] + su * tb1[..., None, :]
+       + sv * tb2[..., None, :])                   # (..., 4, 3)
+  vl = torch.einsum('...ji,...aj->...ai', mata, v - ca[..., None, :])
+  sa4 = sa[..., None, :]
+  vl_clamped = torch.clamp(vl, -sa4, sa4)
+  keep = torch.nn.functional.one_hot(ia, 3).to(dtype)[..., None, :]
+  vl2 = keep * vl + (1.0 - keep) * vl_clamped
+  vw = ca[..., None, :] + torch.einsum('...ij,...aj->...ai', mata, vl2)
+  depth = (torch.sum((vw - ca[..., None, :]) * n_ref[..., None, :], -1)
+           - torch.sum(sa * torch.abs(_mtv(mata, n_ref)), -1)[..., None])
+  dist = torch.where(use_edge[..., None], big, depth)
+  n_out = torch.where(a1v, n_ref, -n_ref)
+  pos = vw - 0.5 * depth[..., None] * n_ref[..., None, :]
+  pts = [ContactPoint(dist[..., k], pos[..., k, :], n_out)
+         for k in range(4)]
+
+  # ---- edge manifold ----
+  i_e = torch.div(best_edge, 3, rounding_mode='floor')
+  j_e = torch.remainder(best_edge, 3)
+  axis_e = torch.gather(axis_n, -2, best_edge[..., None, None].expand(
+      best_edge.shape + (1, 3)))[..., 0, :]
+  axis_w = _mv(m1, axis_e)
+  axis_w = axis_w * torch.sign(_dot(p2 - p1, axis_w))[..., None]
+  ar3 = torch.arange(3, device=p1.device)
+  sup1 = torch.where(ar3 == i_e[..., None], 0.0,
+                     torch.sign(_mtv(m1, axis_w)))
+  e1c = p1 + _mv(m1, sup1 * s1)
+  sup2 = torch.where(ar3 == j_e[..., None], 0.0,
+                     -torch.sign(_mtv(m2, axis_w)))
+  e2c = p2 + _mv(m2, sup2 * s2)
+  q1, q2 = _segment_closest(e1c, _column(m1, i_e), _pick(s1, i_e), e2c,
+                            _column(m2, j_e), _pick(s2, j_e))
+  edge_dist = torch.where(use_edge, separation, big)
+  return pts + [ContactPoint(edge_dist, 0.5 * (q1 + q2), axis_w)]
+
+
+def _capsule_box(c, axis, half, r, bc, bmat, bsize):
+  """Capsule (centre c (..., 3), unit axis, half length, radius) vs box:
+  the segment point closest to the box by 8 alternating projections
+  from the centre (t = 0), then _sphere_box there and at the two ends,
+  in that order, each normal flipped to point capsule -> box."""
+  t = torch.zeros(c.shape[:-1], dtype=c.dtype, device=c.device)
+  for _ in range(8):
+    p = c + t[..., None] * axis
+    local = torch.clamp(_mtv(bmat, p - bc), -bsize, bsize)
+    q = bc + _mv(bmat, local)
+    t = torch.clamp(_dot(q - c, axis), -half, half)
+  ha = half[..., None] * axis
+  ends = (c + t[..., None] * axis, c - ha, c + ha)
+  return [ContactPoint(x.dist, x.pos, -x.normal)
+          for pt in ends for x in _sphere_box(pt, r, bc, bmat, bsize)]
 
 
 def _deepest(depth: torch.Tensor, k: int) -> torch.Tensor:
@@ -267,8 +454,15 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
               for cp in _sphere_box(p1, s1[0], p2, m2, s2)]
     if t2 == GeomType.MESH:
       return _sphere_mesh(m, d, p1, s1[0], g2)
+  elif t1 == GeomType.BOX and t2 == GeomType.BOX:
+    return _box_box_sat(p1, m1, s1, p2, m2, s2)
   elif t1 == GeomType.BOX and t2 == GeomType.MESH:
     return _box_mesh(m, d, g1, g2, m.idx.box_signs)
+  elif t1 == GeomType.CAPSULE and t2 == GeomType.CAPSULE:
+    return _capsule_capsule(p1, m1[..., 2], s1[1], s1[0], p2, m2[..., 2],
+                            s2[1], s2[0])
+  elif t1 == GeomType.CAPSULE and t2 == GeomType.BOX:
+    return _capsule_box(p1, m1[..., 2], s1[1], s1[0], p2, m2, s2)
   elif t1 == GeomType.CAPSULE and t2 == GeomType.MESH:
     return [cp for sgn in (-1.0, 1.0)
             for cp in _sphere_mesh(m, d, p1 + (sgn * s1[1]) * m1[..., 2],
@@ -608,7 +802,10 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
             (GeomType.SPHERE, GeomType.SPHERE): 1,
             (GeomType.SPHERE, GeomType.BOX): 1,
             (GeomType.SPHERE, GeomType.MESH): 1,
+            (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+            (GeomType.CAPSULE, GeomType.BOX): 3,
             (GeomType.CAPSULE, GeomType.MESH): 2,
+            (GeomType.BOX, GeomType.BOX): 5,
             (GeomType.BOX, GeomType.MESH): 8}
   if (t1, t2) == (GeomType.PLANE, GeomType.MESH):
     return min(4, m.geom_mesh[g2][0].shape[0])

@@ -7,7 +7,11 @@ Stand and Walk (_make_humanoid :722-765, registered at :767-782),
 Shadow Reorient (_hand_task :925-988 without a goal schedule, registered
 at :991-995), Cube Solving (:1003-1116), Humanoid Track (:1381-1508,
 its procedural clip), FreeFingers (:790-814), Panda and Panda Bring
-(:833-911), and Bimanual Handover and Reorient (:1131-1261). The JAX
+(:833-911), Bimanual Handover and Reorient (:1131-1261), and the tasks
+on the box-box, capsule-box and capsule-capsule pairs: Walker
+(:201-218), Bimanual Insert (:1191-1218), Allegro Cube (_hand_task with
+3 fingers and a box cube, :998-1000) and Humanoid Interact
+(:1512-1674). The JAX
 registry compiles models/*.xml with `mujoco`; the port loads the
 compiled model, the task parameters and the task's own arrays (Track's
 clip, Cube Solving's scramble tables, the manipulation tasks' ids) from
@@ -111,6 +115,29 @@ def _swimmer(spec: base.TaskSpec, task: dict):
         1)), params
 
   return residual, transition
+
+
+# ---------------------------------------------------------------------------
+# Walker (reference: mjpc/tasks/walker/walker.cc), registry.py :201-218:
+# the planar walker on capsule limbs (plane-capsule and capsule-capsule).
+# ---------------------------------------------------------------------------
+
+
+def _walker(spec: base.TaskSpec, task: dict):
+  m = spec.model
+  torso_site, torso = m.site('torso_site'), m.body('torso')
+
+  def residual(m, d, rp):
+    height = d.site_xpos[:, torso_site, 2]
+    torso_up = d.xmat[:, torso, 2, 2]
+    com_vel = support.subtree_linvel(m, d, torso)[:, 0]
+    return torch.cat([d.ctrl, torch.stack([
+        height - rp[0],            # Height (parameter 0)
+        torso_up - 1.0,            # Rotation: stay upright
+        com_vel - rp[1]], -1)],    # Speed (parameter 1)
+                     -1)
+
+  return residual, None
 
 
 # ---------------------------------------------------------------------------
@@ -856,6 +883,131 @@ def _bimanual(spec: base.TaskSpec, task: dict, reorient: bool):
   return residual, transition
 
 
+def _bimanual_insert(spec: base.TaskSpec, task: dict):
+  """Bimanual Insert: both grippers reach and grasp the peg (a box
+  against the socket's four walls, box-box), lift it, and put its tip
+  into the socket opening with its axis vertical. No transition."""
+  gl, gr, peg, peg_site, peg_tip, socket = _ids(
+      task, 'gl', 'gr', 'peg', 'peg_site', 'peg_tip', 'socket')
+  tips_l = [int(s) for s in task['tips_l']]
+  tips_r = [int(s) for s in task['tips_r']]
+  m = spec.model
+  up = torch.tensor([0.0, 0.0, 1.0], device=m.device, dtype=m.dtype)
+
+  def residual(m, d, rp):
+    p = d.site_xpos[:, peg_site]
+    lift = torch.clamp(0.12 - p[:, 2], min=0.0)
+    tip_err = d.site_xpos[:, peg_tip] - d.site_xpos[:, socket]
+    axis_err = d.xmat[:, peg, :, 2] - up
+    return torch.cat([d.site_xpos[:, gl] - p, d.site_xpos[:, gr] - p,
+                      _grasp_quality(d, tips_l, p)[:, None],
+                      _grasp_quality(d, tips_r, p)[:, None], lift[:, None],
+                      tip_err, axis_err], -1)
+
+  return residual, None
+
+
+# ---------------------------------------------------------------------------
+# Humanoid Interact (reference: mjpc/tasks/humanoid/interact/interact.cc),
+# registry.py :1512-1674: the humanoid beside a chair (capsule-box,
+# box-box), with contact keyframes and per-mode weight presets carried in
+# the residual parameters.
+# ---------------------------------------------------------------------------
+
+_INTERACT_NPAIRS = 5
+# rows: Sitting, Standing, Relaxing, StayingStill, over the 13 terms
+_INTERACT_MODE_WEIGHTS = (
+    (10., 10., 5., 5., 0., 20., 30., 0., 0., 0., 0.01, 0.1, 80.),
+    (10., 0., 1., 1., 80., 0., 0., 100., 0., 0., 0.01, 0.025, 0.),
+    (0., 0., 0., 0., 0., 0., 0., 0., 0., 0., 0.01, 0.8, 80.),
+    (0., 0., 0., 0., 0., 0., 0., 0., 0., 50., 20., 0.025, 80.),
+)
+_INTERACT_TERMS = ('Up Torso', 'Up Pelvis', 'Up Foot R', 'Up Foot L',
+                   'Head Height', 'Torso Height', 'Knee Feet XY',
+                   'COM Feet XY', 'Facing', 'COM Vel', 'Joint Vel',
+                   'Control', 'Contact')
+
+
+def _humanoid_interact(spec: base.TaskSpec, task: dict):
+  """Humanoid Interact. Keyframe pair i joins a point of body kf{i}_body1
+  (local offset kf{i}_l1*) to one of kf{i}_body2; the body ids are the
+  float parameters rounded half to even and clipped to the bodies, and a
+  pair counts only when both parameters are at least -0.5. The
+  transition writes the preset weights of `select_mode` (the float32
+  table, as JAX holds it) when it differs from the state parameter
+  `_cur_mode`, then stores the mode there."""
+  m = spec.model
+  idx = {n: i for i, n in enumerate(spec.residual_param_names)}
+  torso, pelvis = m.body('torso'), m.body('pelvis')
+  feet = [m.body('right_foot'), m.body('left_foot')]
+  knees = [m.body('right_shin'), m.body('left_shin')]
+  head_s, torso_s = m.site('head_site'), m.site('torso_site')
+  nbody = m.nbody
+  up_bodies = [torso, pelvis, *feet]
+  dev = m.device
+  at = lambda names: torch.tensor([idx[n] for n in names],  # noqa: E731
+                                  device=dev)
+  pairs = range(_INTERACT_NPAIRS)
+  body_at = [at([f'kf{i}_body{k}' for i in pairs]) for k in (1, 2)]
+  local_at = [at([f'kf{i}_l{k}{x}' for i in pairs for x in 'xyz'])
+              for k in (1, 2)]
+  facing_at = at(['facing_x', 'facing_y'])
+  mode_w = torch.tensor(_INTERACT_MODE_WEIGHTS, dtype=torch.float32,
+                        device=dev)
+  terms = torch.tensor([spec.term_names.index(n) for n in _INTERACT_TERMS],
+                       device=dev)
+  sel_at, cur_at = idx['select_mode'], idx['_cur_mode']
+
+  def residual(m, d, rp):
+    bsz = d.qpos.shape[0]
+    up = torch.abs(d.xmat[:, up_bodies, 2, 2] - 1.0)
+    head_h = torch.abs(d.site_xpos[:, head_s, 2] - rp[idx['head_height']])
+    torso_h = torch.abs(d.site_xpos[:, torso_s, 2]
+                        - rp[idx['torso_height']])
+    knee_xy = 0.5 * (d.xpos[:, knees[0], :2] + d.xpos[:, knees[1], :2])
+    foot_xy = 0.5 * (d.xpos[:, feet[0], :2] + d.xpos[:, feet[1], :2])
+    knee_feet = torch.linalg.vector_norm(knee_xy - foot_xy, dim=-1)
+    com = d.subtree_com[:, torso]
+    com_feet = torch.linalg.vector_norm(com[:, :2] - foot_xy, dim=-1)
+    target = rp[facing_at] - d.site_xpos[:, torso_s, :2]
+    target = target / torch.clamp(torch.linalg.vector_norm(
+        target, dim=-1, keepdim=True), min=1e-6)
+    fwd = d.xmat[:, torso, :2, 0]
+    facing = (torch.linalg.vector_norm(target - fwd, dim=-1)
+              * (rp[idx['facing_active']] > 0.5))
+    com_vel = support.subtree_linvel(m, d, torso)[:, :2]
+    ends = []
+    for k in (0, 1):
+      bf = rp[body_at[k]]                                     # (5,)
+      b = torch.clamp(torch.round(bf).long(), 0, nbody - 1)
+      local = rp[local_at[k]].reshape(_INTERACT_NPAIRS, 3)
+      ends.append(d.xpos[:, b] + torch.einsum('bkij,kj->bki', d.xmat[:, b],
+                                              local))
+    active = ((rp[body_at[0]] >= -0.5)
+              & (rp[body_at[1]] >= -0.5)).to(rp.dtype)
+    contacts = torch.abs(ends[0] - ends[1]) * active[:, None]
+    return torch.cat([
+        up, head_h[:, None], torso_h[:, None], knee_feet[:, None],
+        com_feet[:, None], facing[:, None], com_vel, d.qvel[:, 6:], d.ctrl,
+        contacts.reshape(bsz, -1)], -1)
+
+  def transition(m, d, params, generator):
+    """The mode preset swap (interact.cc:200-206); the state is
+    returned as it came."""
+    rp = params.residual_params
+    mode = torch.clamp(torch.round(rp[sel_at]).long(), 0, 3)
+    prev = torch.clamp(torch.round(rp[cur_at]).long(), 0, 3)
+    w = params.weights
+    new_w = w.clone()
+    new_w[terms] = mode_w[mode].to(w.dtype)
+    w = torch.where(mode != prev, new_w, w)
+    rp = rp.clone()
+    rp[cur_at] = mode.to(rp.dtype)
+    return d, params.replace(weights=w, residual_params=rp)
+
+  return residual, transition
+
+
 # task name -> (snapshot file, (spec, task arrays) -> (residual_fn,
 # transition_fn))
 TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
@@ -879,7 +1031,11 @@ TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
          'Bimanual Handover': ('bimanual_handover.npz',
                                functools.partial(_bimanual, reorient=False)),
          'Bimanual Reorient': ('bimanual_reorient.npz',
-                               functools.partial(_bimanual, reorient=True))}
+                               functools.partial(_bimanual, reorient=True)),
+         'Walker': ('walker.npz', _walker),
+         'Bimanual Insert': ('bimanual_insert.npz', _bimanual_insert),
+         'Allegro Cube': ('allegro_cube.npz', _hand_task),
+         'Humanoid Interact': ('humanoid_interact.npz', _humanoid_interact)}
 
 
 def task_names():

@@ -14,8 +14,10 @@
   JAX's, eagerly vmapped, on Shadow Reorient's chamfered-cube hull and its
   own pairs, in float64: random poses and the resting pose at qpos0, where
   8 hull vertices tie for the lowest; the tied choice takes the same
-  vertex indices as lax.top_k. Sphere-box builds; height fields and the
-  other primitive pairs still raise, naming their ROADMAP item.
+  vertex indices as lax.top_k. Sphere-box, box-box, capsule-box and
+  capsule-capsule build (the last three against JAX's points); height
+  fields and the other primitive pairs still raise, naming their ROADMAP
+  item.
 """
 
 import os
@@ -390,18 +392,25 @@ def test_contact_clusters_match_jax(shadow):
 
 
 @pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('hfield', 'A7'),
-                                       ((7, 4), 'A6'), ((3, 3), 'A6')])
+                                       ((7, 4), 'A6'), ('cylinder', 'A6')])
 def test_unported_pairs_raise(shadow, pair, item):
   """No pair falls back to nothing: a mesh before a plane (the pair order
   no collider takes) and height fields raise naming A7, the other
-  primitive pairs A6, in narrowphase, in the point count and when a model
+  primitive pairs A6 (sphere-capsule, and the palm box made a cylinder
+  against itself), in narrowphase, in the point count and when a model
   with such a pair builds its contact table. (Mesh-mesh, refused here
-  before Cube Solving's slice, is ported: test_mesh_mesh_cluster_raises.)"""
+  before Cube Solving's slice, is ported: test_mesh_mesh_cluster_raises;
+  box-box, this test's fourth case before the box-pair slice, too:
+  test_box_pairs_are_ported.)"""
   _, m, d, _, _ = shadow
   if pair == 'hfield':
     m = m.replace(geom_type=(int(model_lib.GeomType.HFIELD),)
                   + m.geom_type[1:])
     pair = (0, 2)
+  if pair == 'cylinder':
+    m = m.replace(geom_type=m.geom_type[:3]
+                  + (int(model_lib.GeomType.CYLINDER),) + m.geom_type[4:])
+    pair = (3, 3)
   for call in (lambda: collision.narrowphase(m, d, *pair),
                lambda: collision.points_per_pair(m, *pair),
                lambda: constraint.contact_table(
@@ -423,6 +432,30 @@ def test_sphere_box_pairs_are_ported(shadow):
   assert collision.points_per_pair(m, 7, 1) == 1
   (group,) = constraint.contact_table(m.replace(collision_pairs=((7, 1),)))
   assert group.margin.shape == (1,)
+
+
+@pytest.mark.parametrize('pair,count', [((1, 3), 5), ((4, 3), 3),
+                                        ((4, 5), 1)])
+def test_box_pairs_are_ported(shadow, pair, count):
+  """Box-box (the goal marker against the palm, geoms 1 and 3),
+  capsule-box (a finger capsule against the palm) and capsule-capsule
+  (two finger capsules), refused before the box-pair slice: narrowphase
+  emits JAX's points at the fixture's random poses, points_per_pair
+  counts them and a model with the pair builds its contact table."""
+  jm, m, d, jd, (xpos, xmat) = shadow
+  types = {1: model_lib.GeomType.BOX, 3: model_lib.GeomType.BOX,
+           4: model_lib.GeomType.CAPSULE, 5: model_lib.GeomType.CAPSULE}
+  assert all(m.geom_type[g] == types[g] for g in pair)
+  got = collision.narrowphase(m, d, *pair)
+  assert len(got) == count == collision.points_per_pair(m, *pair)
+  want = _jax_vmap(jd, lambda x: [tuple(p[:3]) for p in
+                                  jcollision.narrowphase(jm, x, *pair)],
+                   xpos, xmat)
+  for g, w in zip(got, want):
+    for name, a, b in zip(('dist', 'pos', 'normal'), g[:3], w):
+      _close(a.numpy(), b, f'{pair} {name}')
+  (group,) = constraint.contact_table(m.replace(collision_pairs=(pair,)))
+  assert group.margin.shape == (count,)
 
 
 def test_mesh_mesh_cluster_raises(shadow):

@@ -16,10 +16,15 @@
 
 Cartpole with the cart moving, a 10-step horizon, 5 knots; the sampling
 noise is regenerated from the JAX key as in tests/test_torch_planners.py.
+JAX's Gradient and iLQS optimize are replayed from their recorded calls
+(assets/gradient_ilqs_jax_calls_golden.npz, tests/torch_recorded.py: the
+iLQS compile took ~40 s); the slow test_jax_calls_golden_is_jaxs makes
+them live.
 """
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -45,6 +50,7 @@ from mujoco_mpc_tpu_torch.planners import ilqs
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
 from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
 
@@ -93,6 +99,38 @@ def cart():
 
 def _values(seed):
   return np.random.default_rng(seed).uniform(-0.8, 0.8, (POINTS, 1))
+
+
+# the module's JAX optimize calls, replayed from their recorded calls
+# (tests/torch_recorded.py)
+JAX_CALLS = 'gradient_ilqs_jax_calls_golden.npz'
+GRADIENT_CANDIDATES = 6
+
+
+@pytest.fixture(scope='module')
+def jax_calls(cart):
+  """JAX's 'gradient' optimize (6 candidates) and 'ilqs' optimize (the
+  sampling config an argument, so that both branches share it), each
+  jitted once."""
+  jspec, jd0, _, _ = cart
+
+  def live():
+    fns = {'gradient': functools.partial(
+        jgrad.optimize, jspec, cfg=jgrad.default_config(jspec, jnp.float64),
+        num_candidates=GRADIENT_CANDIDATES, horizon_steps=HORIZON,
+        interp=INTERP),
+           'ilqs': functools.partial(
+               jilqs.optimize, jspec, d0=jd0, params=jspec.default_params,
+               icfg=jilqg.default_config(jspec, dtype=jnp.float64),
+               num_samples=SAMPLES, num_ilqg_candidates=ILQG_CANDIDATES,
+               horizon_steps=HORIZON, interp=INTERP)}
+    return {k: jax.jit(f, compiler_options=QUICK_COMPILE)
+            for k, f in fns.items()}
+
+  rec = RecordedJax(os.path.join(registry.ASSETS, JAX_CALLS), live)
+  yield rec
+  if rec.recording:
+    rec.save()
 
 
 # ---------------------------------------------------------------------------
@@ -158,21 +196,18 @@ def test_linesearch_steps_match_jax(k):
 # ---------------------------------------------------------------------------
 
 
-def test_gradient_optimize_matches_jax(cart):
+def test_gradient_optimize_matches_jax(cart, jax_calls):
   jspec, jd0, spec, d0 = cart
   jpol = jsampling.default_policy(jspec, POINTS, dtype=jnp.float64).replace(
       values=jnp.asarray(_values(1)))
   pol = sampling.SamplingPolicy(torch.from_numpy(np.array(jpol.times)),
                                 torch.from_numpy(_values(1)))
-  k = 6
-  jnew, jinfo = jax.jit(functools.partial(
-      jgrad.optimize, jspec, cfg=jgrad.default_config(jspec, jnp.float64),
-      num_candidates=k, horizon_steps=HORIZON, interp=INTERP),
-                         compiler_options=QUICK_COMPILE)(
-                             jpol, d0=jd0, params=jspec.default_params)
+  jnew, jinfo = jax_calls('gradient', jpol, d0=jd0,
+                          params=jspec.default_params)
   new, info = gradient_planner.optimize(
       spec, pol, d0, spec.default_params,
-      gradient_planner.default_config(spec), k, HORIZON, INTERP)
+      gradient_planner.default_config(spec), GRADIENT_CANDIDATES, HORIZON,
+      INTERP)
   assert float(info['action_step']) == float(jinfo['action_step'])
   for key in ('best_return', 'nominal_return', 'improvement', 'action_step',
               'expected', 'qu_norm'):
@@ -241,15 +276,9 @@ def _check_ilqs(state, jstate, info, jinfo, what):
 
 
 @pytest.fixture(scope='module')
-def jilqs_opt(cart):
-  """JAX's iLQS optimize, jitted once a module (the sampling config is an
-  argument, so both branches share the compile)."""
-  jspec, jd0, _, _ = cart
-  return jax.jit(functools.partial(
-      jilqs.optimize, jspec, d0=jd0, params=jspec.default_params,
-      icfg=jilqg.default_config(jspec, dtype=jnp.float64),
-      num_samples=SAMPLES, num_ilqg_candidates=ILQG_CANDIDATES,
-      horizon_steps=HORIZON, interp=INTERP), compiler_options=QUICK_COMPILE)
+def jilqs_opt(jax_calls):
+  """JAX's iLQS optimize (jax_calls)."""
+  return functools.partial(jax_calls, 'ilqs')
 
 
 def _ilqs_start(jspec, spec):
@@ -326,3 +355,9 @@ def test_convert_continues_a_jax_ilqs_state(cart, jilqs_opt):
                             ilqg.default_config(spec), _sampling_noise(key),
                             ILQG_CANDIDATES, HORIZON, INTERP)
   _check_ilqs(new, jnew, info, jinfo, 'continued')
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(jax_calls):
+  """The recorded JAX calls are what the JAX package computes now."""
+  jax_calls.check_live()

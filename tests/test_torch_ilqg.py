@@ -9,7 +9,10 @@
 * boxqp and riccati on random inputs, mirroring tests/test_ilqg.py.
 * ilqg.optimize on Particle: two pipelined iterations, then one eager, at
   T 6 with 4 candidates, from the same state: the same returns, winner,
-  improvement and gains.
+  improvement and gains. JAX's iterations are replayed from their recorded
+  calls (assets/particle_ilqg_optimize_golden.npz, tests/torch_recorded.py;
+  its compiles took ~22 s); the slow test_optimize_golden_is_jaxs makes
+  them live.
 * make_planner's interface and convert's iLQG state.
 
 B2's Function and Cartpole's derivatives and optimize (the slider past
@@ -24,6 +27,7 @@ held against the plain versions on the card by chip_smoke.py.
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -48,6 +52,7 @@ from mujoco_mpc_tpu_torch.planners import ilqg
 from mujoco_mpc_tpu_torch.planners import registry as planners
 from mujoco_mpc_tpu_torch.tasks import registry
 from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
 
@@ -293,22 +298,40 @@ INFO = ('best_return', 'nominal_return', 'improvement', 'action_step',
         'surprise', 'regularization')
 
 
+# JAX's optimize calls, replayed from their recorded calls
+# (tests/torch_recorded.py)
+OPTIMIZE_GOLDEN = '{}_ilqg_optimize_golden.npz'
+
+
+def jax_optimize(name):
+  """JAX's iLQG optimize on task `name` ('pipelined' and 'eager', each
+  jitted once), replayed from assets/<name>_ilqg_optimize_golden.npz."""
+  jspec, _, _, _, _ = _trajectories(name, T_STEPS)
+
+  def live():
+    jcfg = jilqg.default_config(jspec, dtype=jnp.float64)
+    return {k: jax.jit(functools.partial(
+        jilqg.optimize, jspec, cfg=jcfg, num_candidates=CANDIDATES,
+        horizon_steps=T_STEPS, pipelined=k == 'pipelined'),
+                       compiler_options=QUICK_COMPILE)
+            for k in ('pipelined', 'eager')}
+  return RecordedJax(os.path.join(registry.ASSETS, OPTIMIZE_GOLDEN.format(
+      name.lower())), live)
+
+
 def check_optimize(name):
   """Two pipelined iterations, then one eager, in both packages, each
   package from its own previous state: returns, the winning scale, the
   new policy's nominal, improvement and gains."""
   jspec, jd0, spec, d0, _ = _trajectories(name, T_STEPS)
   jp = jspec.default_params
-  jcfg = jilqg.default_config(jspec, dtype=jnp.float64)
   jstate = jilqg.default_state(jspec, T_STEPS, dtype=jnp.float64)
-  jopt = {p: jax.jit(functools.partial(
-      jilqg.optimize, jspec, cfg=jcfg, num_candidates=CANDIDATES,
-      horizon_steps=T_STEPS, pipelined=p), compiler_options=QUICK_COMPILE)
-          for p in (True, False)}
+  jopt = jax_optimize(name)
   cfg = ilqg.default_config(spec)
   state = ilqg.default_state(spec, T_STEPS)
   for it, pipelined in enumerate((True, True, False)):
-    jstate, jinfo = jopt[pipelined](jstate, d0=jd0, params=jp)
+    jstate, jinfo = jopt('pipelined' if pipelined else 'eager', jstate,
+                         d0=jd0, params=jp)
     state, info = ilqg.optimize(spec, state, d0, spec.default_params, cfg,
                                 CANDIDATES, T_STEPS, pipelined=pipelined)
     assert bool(info['backward_pass_ok']) == bool(jinfo['backward_pass_ok'])
@@ -321,10 +344,19 @@ def check_optimize(name):
     _rel(state.expected_dv, jstate.expected_dv, 1e-8, 'expected_dv')
   # the planner improved on its nominal
   assert float(info['best_return']) <= float(info['nominal_return'])
+  if jopt.recording:
+    jopt.save()
 
 
 def test_particle_optimize_matches_jax():
   check_optimize('Particle')
+
+
+@pytest.mark.slow
+def test_optimize_golden_is_jaxs():
+  """The recorded calls of JAX's iLQG optimize on Particle are what the
+  JAX package computes now."""
+  jax_optimize('Particle').check_live()
 
 
 def test_make_planner_ilqg_and_sampling():

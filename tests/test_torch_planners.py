@@ -19,11 +19,15 @@ returns are means over 10 steps of f64 physics in two frameworks, so they
 agree to rounding: rtol 1e-9. JAX's rollout scan is traced without
 unrolling here (MJPC_TPU_UNROLL=1, which halves its compile and changes
 no result), and each delegate's candidates and its Robust iteration are
-one jit.
+one jit. Those JAX calls are replayed from their recorded calls
+(assets/planners_jax_calls_golden.npz, tests/torch_recorded.py: ten
+compiles of ~4-5 s); the slow test_jax_calls_golden_is_jaxs makes them
+live.
 """
 
 import dataclasses
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -52,6 +56,7 @@ from mujoco_mpc_tpu_torch.planners import sample_gradient
 from mujoco_mpc_tpu_torch.planners import sampling
 from mujoco_mpc_tpu_torch.tasks import registry
 from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
 
@@ -87,6 +92,57 @@ def cart():
     mp.setenv('MJPC_TPU_UNROLL', '1')
     yield from _cart()
   jax.clear_caches()
+
+
+# the module's JAX calls, replayed from their recorded calls
+# (tests/torch_recorded.py)
+JAX_CALLS = 'planners_jax_calls_golden.npz'
+NOISE = (0.7, 0.2)         # noisy_rollout_return's std and rate
+
+
+@pytest.fixture(scope='module')
+def jax_calls(cart):
+  """The JAX functions the tests hold the port to, by name, each jitted
+  once: 'noisy' (noisy_rollout_return vmapped over actions and keys),
+  'cem', 'sg1' and 'sg4' (Cross Entropy and Sample Gradient with 1 and 4
+  gradient candidates), 'ranked/<delegate id>' (the delegate's ranked
+  candidates, select(2) of them and Robust's iteration over it)."""
+  jspec, jd0, _, _ = cart
+  p = jspec.default_params
+
+  def live():
+    jsg_cfg = jsg.default_config(jspec, dtype=jnp.float64).replace(
+        gradient_filter=jnp.asarray(0.7))
+    std, rate = NOISE
+    fns = {'noisy': jax.vmap(lambda a, k: jrollout.noisy_rollout_return(
+        jspec, jd0, a, p, k, jnp.asarray(std), jnp.asarray(rate))),
+           'cem': functools.partial(
+               jcem.optimize, jspec, d0=jd0, params=p,
+               cfg=jcem.default_config(jspec, dtype=jnp.float64),
+               num_samples=SAMPLES, n_elite=N_ELITE, horizon_steps=HORIZON,
+               interp=INTERP)}
+    for ng in (1, 4):
+      fns[f'sg{ng}'] = functools.partial(
+          jsg.optimize, jspec, d0=jd0, params=p, cfg=jsg_cfg,
+          num_samples=SAMPLES, num_gradient=ng, horizon_steps=HORIZON,
+          interp=INTERP)
+    jrcfg = jrobust.default_config(jspec, dtype=jnp.float64)
+    for delegate_id in DELEGATES:
+      jd = _delegates(cart, delegate_id)[0]
+
+      def run(s, k_rank, k_robust, jd=jd):
+        rc = jd.optimize_candidates(s, jd0, p, k_rank, NCAND)
+        return (rc, jd.select(rc, 2)) + jrobust.optimize_ranked(
+            jspec, jd, s, jd0, p, jrcfg, k_robust, NCAND, NREP, HORIZON,
+            INTERP)
+      fns[f'ranked/{delegate_id}'] = run
+    return {k: jax.jit(f, compiler_options=QUICK_COMPILE)
+            for k, f in fns.items()}
+
+  rec = RecordedJax(os.path.join(registry.ASSETS, JAX_CALLS), live)
+  yield rec
+  if rec.recording:
+    rec.save()
 
 
 def _cart():
@@ -157,16 +213,13 @@ def delegate_noise(delegate_id, key, k):
 # ---------------------------------------------------------------------------
 
 
-def test_noisy_rollout_return_matches_jax(cart):
+def test_noisy_rollout_return_matches_jax(cart, jax_calls):
   jspec, jd0, spec, d0 = cart
   rng = np.random.default_rng(1)
   acts = rng.uniform(-1.0, 1.0, (6, HORIZON, 1))
   keys = jax.random.split(jax.random.key(2), 6)
-  std, rate = 0.7, 0.2
-  want = jax.jit(jax.vmap(lambda a, k: jrollout.noisy_rollout_return(
-      jspec, jd0, a, jspec.default_params, k, jnp.asarray(std),
-      jnp.asarray(rate))), compiler_options=QUICK_COMPILE)(
-          jnp.asarray(acts), keys)
+  std, rate = NOISE
+  want = jax_calls('noisy', jnp.asarray(acts), keys)
   eps = xfrc_noise(keys, spec.model.nbody)
   got = rollout.noisy_rollout_return(
       spec, d0, torch.from_numpy(acts), spec.default_params, eps,
@@ -184,23 +237,10 @@ def test_noisy_rollout_return_matches_jax(cart):
 
 
 @pytest.fixture(scope='module')
-def jax_opt(cart):
-  """JAX's CEM and Sample Gradient optimize, jitted once a module so that
-  the continuation tests reuse the compiles."""
-  jspec, jd0, _, _ = cart
-  jsg_cfg = jsg.default_config(jspec, dtype=jnp.float64).replace(
-      gradient_filter=jnp.asarray(0.7))
-  opts = {'cem': jax.jit(functools.partial(
-      jcem.optimize, jspec, d0=jd0, params=jspec.default_params,
-      cfg=jcem.default_config(jspec, dtype=jnp.float64),
-      num_samples=SAMPLES, n_elite=N_ELITE, horizon_steps=HORIZON,
-      interp=INTERP), compiler_options=QUICK_COMPILE)}
-  for ng in (1, 4):
-    opts[ng] = jax.jit(functools.partial(
-        jsg.optimize, jspec, d0=jd0, params=jspec.default_params,
-        cfg=jsg_cfg, num_samples=SAMPLES, num_gradient=ng,
-        horizon_steps=HORIZON, interp=INTERP), compiler_options=QUICK_COMPILE)
-  return opts
+def jax_opt(jax_calls):
+  """JAX's CEM and Sample Gradient optimize (jax_calls)."""
+  return {k: functools.partial(jax_calls, name)
+          for k, name in (('cem', 'cem'), (1, 'sg1'), (4, 'sg4'))}
 
 
 N_ELITE = 4
@@ -378,25 +418,16 @@ def _check_states(got, want, what):
 
 
 @pytest.fixture(scope='module')
-def jax_ranked(cart):
+def jax_ranked(cart, jax_calls):
   """delegate id -> JAX's (ranked candidates from key 13, select(2) of
-  them, Robust's new state and info from key 17), one jit a delegate."""
-  jspec, jd0, _, _ = cart
-  jrcfg = jrobust.default_config(jspec, dtype=jnp.float64)
+  them, Robust's new state and info from key 17) (jax_calls)."""
   out = {}
 
   def get(delegate_id):
     if delegate_id not in out:
-      jd, jstate, _, _ = _delegates(cart, delegate_id)
-
-      def run(s, k_rank, k_robust):
-        rc = jd.optimize_candidates(s, jd0, jspec.default_params, k_rank,
-                                    NCAND)
-        return (rc, jd.select(rc, 2)) + jrobust.optimize_ranked(
-            jspec, jd, s, jd0, jspec.default_params, jrcfg, k_robust, NCAND,
-            NREP, HORIZON, INTERP)
-      out[delegate_id] = jax.jit(run, compiler_options=QUICK_COMPILE)(
-          jstate, jax.random.key(13), jax.random.key(17))
+      jstate = _delegates(cart, delegate_id)[1]
+      out[delegate_id] = jax_calls(f'ranked/{delegate_id}', jstate,
+                                   jax.random.key(13), jax.random.key(17))
     return out[delegate_id]
   return get
 
@@ -435,6 +466,12 @@ def test_robust_optimize_ranked_matches_jax(cart, jax_ranked, delegate_id):
   for k in ('best_return', 'best_robust_score', 'nominal_return'):
     _close(info[k], jinfo[k], k)
   _check_states(new, jnew, 'new state')
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(jax_calls):
+  """The recorded JAX calls are what the JAX package computes now."""
+  jax_calls.check_live()
 
 
 def test_robust_over_sampling_and_the_delegate_key(cart):

@@ -7,7 +7,9 @@
 * Cartpole from its cart past the slider limit, so that the limit rows and
   B2's tangent are live in every step: the exact derivatives at T 4, and
   ilqg.optimize, two pipelined iterations then one eager, at T 6 with 4
-  candidates, against JAX (helpers in tests/test_torch_ilqg.py).
+  candidates, against JAX (helpers in tests/test_torch_ilqg.py; JAX's
+  iterations replayed from assets/cartpole_ilqg_optimize_golden.npz, made
+  live by the slow test_optimize_golden_is_jaxs).
 
 The CPU runs B2's plain version through the same Function, so its jvp and
 vmap rules are exercised here; the kernel itself is held against the
@@ -23,7 +25,8 @@ from torch.func import jvp, vmap
 
 from mujoco_mpc_tpu.ops import pallas_newton
 from mujoco_mpc_tpu_torch.ops import newton
-from tests.test_torch_ilqg import F64, _rel, check_derivatives, check_optimize
+from tests.test_torch_ilqg import (F64, _rel, check_derivatives, check_optimize,
+                                   jax_optimize)
 from tests.test_torch_newton import _cone_empty, _group_problem
 
 torch.set_num_threads(1)
@@ -113,3 +116,10 @@ def test_cartpole_derivatives_match_jax():
 
 def test_cartpole_optimize_matches_jax():
   check_optimize('Cartpole')
+
+
+@pytest.mark.slow
+def test_optimize_golden_is_jaxs():
+  """The recorded calls of JAX's iLQG optimize on Cartpole are what the
+  JAX package computes now."""
+  jax_optimize('Cartpole').check_live()

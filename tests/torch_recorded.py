@@ -19,9 +19,16 @@ would write only its own calls:
 
 Each file that records has a slow test that calls the live function on
 every recorded input and holds its outputs to the file (`check_live`).
+
+`RecordedJax` does the same for jitted JAX functions of pytrees (planner
+states, configs, PRNG keys), named, so that one file holds a test
+module's calls of several: a call's inputs are the function's name and
+its arguments' leaves; its outputs, the result's leaves with the tree
+structures of arguments and result (pickled PyTreeDefs).
 """
 
 import os
+import pickle
 
 import numpy as np
 
@@ -85,3 +92,81 @@ class Recorded:
       for k, v in out.items():
         np.testing.assert_allclose(np.asarray(got[k]), v, rtol=1e-10,
                                    atol=1e-12, err_msg=k)
+
+
+def _pickled(obj):
+  return np.frombuffer(pickle.dumps(obj), np.uint8)
+
+
+def _unpickled(arr):
+  return pickle.loads(np.asarray(arr, np.uint8).tobytes())
+
+
+def _flat_leaves(tree):
+  """(numpy leaves, key mask, structure) of a pytree: a typed PRNG key
+  leaf as its key data."""
+  import jax
+  import jax.numpy as jnp
+  leaves, struct = jax.tree.flatten(tree)
+  keys = [jnp.issubdtype(getattr(x, 'dtype', np.float64),
+                         jax.dtypes.prng_key) for x in leaves]
+  return ([np.asarray(jax.random.key_data(x) if k else x)
+           for x, k in zip(leaves, keys)], np.asarray(keys, bool), struct)
+
+
+def _tree(leaves, keys, struct):
+  import jax
+  import jax.numpy as jnp
+  return jax.tree.unflatten(struct, [
+      jax.random.wrap_key_data(jnp.asarray(x)) if k else jnp.asarray(x)
+      for x, k in zip(leaves, keys)])
+
+
+class RecordedJax:
+  """Named JAX functions of pytrees, called as `rec(name, *args,
+  **kwargs)` and replayed from `path` (or recorded from
+  `make_live()`, a dict of the functions, built only when needed)."""
+
+  def __init__(self, path, make_live):
+    self._in = None       # (key mask, structure) of the call being recorded
+    self.recorded = Recorded(path, lambda: self._flat(make_live()))
+
+  @property
+  def recording(self):
+    return self.recorded.recording
+
+  def _flat(self, fns):
+    def call(name, *leaves):
+      keys, struct = self._in
+      args, kwargs = _tree(leaves, keys, struct)
+      out, out_keys, out_struct = _flat_leaves(
+          fns[bytes(name).decode()](*args, **kwargs))
+      return {'in_keys': keys, 'in_tree': _pickled(struct),
+              'keys': out_keys, 'tree': _pickled(out_struct),
+              **{f'leaf/{i}': x for i, x in enumerate(out)}}
+    return call
+
+  def __call__(self, name, *args, **kwargs):
+    leaves, keys, struct = _flat_leaves((args, kwargs))
+    self._in = (keys, struct)
+    out = self.recorded(np.frombuffer(name.encode(), np.uint8), *leaves)
+    n = len([k for k in out if k.startswith('leaf/')])
+    return _tree([out[f'leaf/{i}'] for i in range(n)], out['keys'],
+                 _unpickled(out['tree']))
+
+  def save(self):
+    self.recorded.save()
+
+  def check_live(self):
+    """Every recorded call made live: the leaves the file holds (rtol
+    1e-10, atol 1e-12) and the same structure."""
+    rec = self.recorded
+    assert rec.calls
+    for inputs, out in rec.calls:
+      self._in = (out['in_keys'], _unpickled(out['in_tree']))
+      got = rec.live()(*inputs)
+      assert _unpickled(got['tree']) == _unpickled(out['tree'])
+      for k, v in out.items():
+        if k.startswith('leaf/'):
+          np.testing.assert_allclose(np.asarray(got[k]), v, rtol=1e-10,
+                                     atol=1e-12, err_msg=k)

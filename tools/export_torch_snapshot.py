@@ -6,8 +6,10 @@ compiles the task's MJCF with `mujoco`. The port loads these files where
 neither JAX nor `mujoco` is installed. Run from the repository root after
 changing a task's MJCF or the port's Model fields:
 
-    python tools/export_torch_snapshot.py
+    python tools/export_torch_snapshot.py ['Task Name' ...]
 
+(every task, or the tasks named; np.savez stamps the time into each
+file, so rewrite only the snapshots that changed).
 tests/test_torch_package.py re-exports in memory and fails when a
 committed snapshot is stale.
 
@@ -137,6 +139,8 @@ def manipulation_arrays(spec):
   under the names they have there: each int, or list of ints, of them."""
   out = {}
   for fn in (spec.residual_fn, spec.transition_fn):
+    if fn is None:
+      continue
     for k, v in inspect.getclosurevars(fn).nonlocals.items():
       vals = v if isinstance(v, list) else [v]
       if all(isinstance(x, (int, np.integer)) for x in vals):
@@ -146,10 +150,14 @@ def manipulation_arrays(spec):
 
 MANIPULATION = ('FreeFingers', 'Panda', 'Panda Bring', 'Bimanual Handover',
                 'Bimanual Reorient')
+# the tasks of the box-box, capsule-box and capsule-capsule pairs
+BOX_PAIR_TASKS = ('Walker', 'Bimanual Insert', 'Allegro Cube',
+                  'Humanoid Interact')
 
 # task name -> its arrays beside Model and TaskParams ('task/<name>')
 TASK_ARRAYS = {'Humanoid Track': track_arrays, 'Cube Solving': rubik_arrays,
-               **{name: manipulation_arrays for name in MANIPULATION}}
+               **{name: manipulation_arrays
+                  for name in MANIPULATION + ('Bimanual Insert',)}}
 
 
 def task_snapshot(spec):
@@ -716,6 +724,428 @@ def write_manipulation_golden(path):
                 'index in MANIPULATION)'})))
 
 
+# ---------------------------------------------------------------------------
+# The box-pair tasks' golden, held by tests/test_torch_box_pairs.py: Walker
+# (capsule-capsule), Bimanual Insert (box-box), Allegro Cube (box-box,
+# capsule-box) and Humanoid Interact (capsule-box, box-box).
+# ---------------------------------------------------------------------------
+
+BOX_PAIRS_GOLDEN = 'box_pairs_golden.npz'
+BOX_PAIRS_COMMAND = ('python tools/export_torch_snapshot.py '
+                     '--box-pairs-golden')
+# Humanoid Interact's keyframe pairs in the golden's second residual: pair i
+# (body1, body2, offsets l1 then l2); 3.5 rounds half to even (to 4)
+INTERACT_ACTIVE = ((3.5, 1.0, (0.1, 0.0, -0.05), (0.0, 0.05, 0.03)),
+                   (12.0, 0.0, (0.0, 0.0, 0.0), (-0.4, 0.1, 0.45)),
+                   (-0.4, 7.0, (0.02, -0.03, 0.0), (0.0, 0.0, 0.1)))
+
+
+def _lowest(mjm, mjd, g):
+  """The lowest world z of geom g (sphere, capsule or box)."""
+  import mujoco
+  z, mat, size = mjd.geom_xpos[g, 2], mjd.geom_xmat[g].reshape(3, 3), \
+      mjm.geom_size[g]
+  t = mjm.geom_type[g]
+  if t == mujoco.mjtGeom.mjGEOM_SPHERE:
+    return z - size[0]
+  if t == mujoco.mjtGeom.mjGEOM_CAPSULE:
+    return z - size[1] * abs(mat[2, 2]) - size[0]
+  return z - float(np.sum(size * np.abs(mat[2])))
+
+
+def _contacts(mjm, mjd, q):
+  """MuJoCo's contacts at qpos q: {(geom1, geom2): depth <= 0 dist}."""
+  import mujoco
+  mjd.qpos[:] = q
+  mujoco.mj_forward(mjm, mjd)
+  out = {}
+  for c in mjd.contact[:mjd.ncon]:
+    k = (int(c.geom1), int(c.geom2))
+    out[k] = min(out.get(k, 0.0), float(c.dist))
+  return out
+
+
+def _yaw_quat(yaw):
+  return np.array([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)])
+
+
+def _random_quat(rng):
+  q = rng.normal(size=4)
+  return q / np.linalg.norm(q)
+
+
+def _quat_mat(q):
+  import mujoco
+  mat = np.zeros(9)
+  mujoco.mju_quat2Mat(mat, q)
+  return mat.reshape(3, 3)
+
+
+def _joints_in_range(mjm, q, rng, first, lo_frac=0.0, hi_frac=1.0):
+  """q with the limited hinge joints from `first` on drawn in [lo_frac,
+  hi_frac] of their ranges."""
+  for j in range(first, mjm.njnt):
+    if mjm.jnt_limited[j]:
+      lo, hi = mjm.jnt_range[j]
+      u = rng.uniform(lo_frac, hi_frac)
+      q[mjm.jnt_qposadr[j]] = lo + (hi - lo) * u
+  return q
+
+
+def _geoms(mjm, name_part):
+  import mujoco
+  return [g for g in range(mjm.ngeom)
+          if name_part in (mujoco.mj_id2name(mjm, mujoco.mjtObj.mjOBJ_GEOM, g)
+                           or '')]
+
+
+def _lower_to(mjm, mjd, q, zadr, geoms, target):
+  """q with the root's z coordinate (qpos[zadr]) moved so that the lowest
+  of `geoms` sits at `target`."""
+  import mujoco
+  mjd.qpos[:] = q
+  mujoco.mj_kinematics(mjm, mjd)
+  q = q.copy()
+  q[zadr] += target - min(_lowest(mjm, mjd, g) for g in geoms)
+  return q
+
+
+def _pair_types(mjm, contacts, t1, t2, lo=-np.inf, hi=0.0):
+  return [k for k, dist in contacts.items()
+          if (mjm.geom_type[k[0]], mjm.geom_type[k[1]]) == (t1, t2)
+          and lo <= dist < hi]
+
+
+def _shallow(contacts, limit=-0.005):
+  """Whether no contact is deeper than `limit`."""
+  return all(dist >= limit for dist in contacts.values())
+
+
+def walker_states(mjm, mjd, rng):
+  """0: qpos0 (the legs parallel side by side, 8 of the 15 capsule pairs
+  parallel) with the feet 1 mm into the floor; 1, 2: the joints drawn in
+  their ranges, the torso pitched by up to 0.4 rad, the lowest capsule
+  0.5-3 mm into the floor; 3: a leg folded onto the torso (hip in the top
+  third of its range, knee in the bottom third) until a capsule-capsule
+  pair penetrates by 0.5 mm or more, the lowest capsule on the floor.
+  1-3 are drawn again where a capsule pair touches within 0.1 mm: the
+  thighs, and the feet, side by side at 0.1 m, touch at dist 0 where they
+  cross, and there float64 rounding alone decides whether the row is
+  active."""
+  import mujoco
+  caps = [g for g in range(mjm.ngeom)
+          if mjm.geom_type[g] == mujoco.mjtGeom.mjGEOM_CAPSULE]
+  cap = mujoco.mjtGeom.mjGEOM_CAPSULE
+  out = [_lower_to(mjm, mjd, mjm.qpos0.copy(), 1, caps, -0.001)]
+  while len(out) < 4:
+    q = mjm.qpos0.copy()
+    fold = len(out) == 3
+    q = _joints_in_range(mjm, q, rng, 3)
+    if fold:
+      for j, (lo_f, hi_f) in ((3, (0.7, 1.0)), (4, (0.0, 0.3))):
+        lo, hi = mjm.jnt_range[j]
+        q[mjm.jnt_qposadr[j]] = lo + (hi - lo) * rng.uniform(lo_f, hi_f)
+    q[2] = rng.uniform(-0.4, 0.4)
+    q = _lower_to(mjm, mjd, q, 1, caps, -rng.uniform(0.0005, 0.003))
+    con = _contacts(mjm, mjd, q)
+    if _pair_types(mjm, con, cap, cap, lo=-1e-4) or (
+        fold and not _pair_types(mjm, con, cap, cap, hi=-0.0005)):
+      continue
+    out.append(q)
+  return np.stack(out)
+
+
+def insert_states(mjm, mjd, rng):
+  """0: qpos0 (the peg upright, 42 mm into the table, away from the
+  socket); 1: the peg upright in the socket pressed 0.5-3 mm into the
+  inner face of wall sock_a (aligned boxes: the face tie), 1 mm into the
+  table; 2: the same turned 20-40 degrees about z (a vertical peg edge
+  into the wall); 3: the peg in a random orientation over the top edge of
+  a wall, drawn until the box-box edge axis wins in a pair that
+  penetrates 0.5-5 mm and no contact is deeper than 5 mm (MuJoCo's
+  contacts). The arm joints drawn in their ranges in 1-3."""
+  from mujoco_mpc_tpu_torch.physics import collision
+  import torch
+  import mujoco
+  peg = _geoms(mjm, 'peg_geom')[0]
+  walls = _geoms(mjm, 'sock_')
+  h = mjm.geom_size[peg]
+  box = mujoco.mjtGeom.mjGEOM_BOX
+  out = [mjm.qpos0.copy()]
+  for yawed in (False, True):
+    q = _joints_in_range(mjm, mjm.qpos0.copy(), rng, 1)
+    yaw = rng.uniform(np.pi / 9, 2 * np.pi / 9) if yawed else 0.0
+    reach = h[0] * (abs(np.cos(yaw)) + abs(np.sin(yaw)))
+    q[:3] = [0.035 - reach + rng.uniform(0.0005, 0.003),
+             rng.uniform(-0.004, 0.004), h[2] - 0.001]
+    q[3:7] = _yaw_quat(yaw)
+    out.append(q)
+  t = lambda x: torch.from_numpy(np.asarray(x, np.float64))  # noqa: E731
+  while True:
+    q = _joints_in_range(mjm, mjm.qpos0.copy(), rng, 1)
+    q[3:7] = _random_quat(rng)
+    q[:3] = [rng.uniform(0.02, 0.07), rng.uniform(-0.05, 0.05),
+             rng.uniform(0.09, 0.16)]
+    con = _contacts(mjm, mjd, q)
+    hits = [k for k in _pair_types(mjm, con, box, box, -0.005, -0.0005)
+            if k[1] == peg and k[0] in walls]
+    if not hits or any(k[0] == 0 for k in con) or not _shallow(con):
+      continue
+    for g1, _ in hits:
+      pts = collision._box_box_sat(
+          t(mjd.geom_xpos[g1]), t(mjd.geom_xmat[g1].reshape(3, 3)),
+          t(mjm.geom_size[g1]), t(mjd.geom_xpos[peg]),
+          t(mjd.geom_xmat[peg].reshape(3, 3)), t(h))
+      if float(pts[4].dist) < 0:
+        out.append(q)
+        return np.stack(out)
+
+
+def allegro_states(mjm, mjd, rng):
+  """0: qpos0 with the cube 1 mm into the palm (aligned boxes: the face
+  tie); 1: the cube in a random orientation over the palm, its lowest
+  corner 0.5-3 mm into it; 2: the finger joints drawn in their ranges and
+  the cube turned about z, placed with a finger capsule 0.5-3 mm into one
+  of its faces; 3: the same with the capsule across one of the cube's
+  edges (the segment's closest point off both faces), 0.5-3 mm in; 2 and
+  3 drawn again until no contact is deeper than 5 mm."""
+  import mujoco
+  cube = _geoms(mjm, 'cube_geom')[0]
+  palm = _geoms(mjm, 'palm_geom')[0]
+  h = mjm.geom_size[cube, 0]
+  mjd.qpos[:] = mjm.qpos0
+  mujoco.mj_kinematics(mjm, mjd)
+  palm_top = mjd.geom_xpos[palm, 2] + mjm.geom_size[palm, 2]
+  q0 = mjm.qpos0.copy()
+  q0[2] = palm_top + h - 0.001
+  q1 = mjm.qpos0.copy()
+  q1[3:7] = _random_quat(rng)
+  q1[:2] = rng.uniform(-0.01, 0.01, 2)
+  q1 = _lower_to(mjm, mjd, q1, 2, [cube], palm_top
+                 - rng.uniform(0.0005, 0.003))
+  out = [q0, q1]
+  caps = [g for g in range(mjm.ngeom)
+          if mjm.geom_type[g] == mujoco.mjtGeom.mjGEOM_CAPSULE]
+  while len(out) < 4:
+    edge = len(out) == 3
+    q = _joints_in_range(mjm, mjm.qpos0.copy(), rng, 1)
+    mjd.qpos[:] = q
+    mujoco.mj_kinematics(mjm, mjd)
+    g = caps[rng.integers(len(caps))]
+    r, half = mjm.geom_size[g, :2]
+    axis = mjd.geom_xmat[g].reshape(3, 3)[:, 2]
+    p = mjd.geom_xpos[g] + rng.uniform(-0.5, 0.5) * half * axis
+    yaw = rng.uniform(-np.pi, np.pi)
+    rot = _quat_mat(_yaw_quat(yaw))
+    k, j = rng.choice(3, 2, replace=False)
+    local = rng.uniform(-0.5, 0.5, 3) * h     # p in the cube's frame
+    pen = rng.uniform(0.0005, 0.003)
+    sk, sj = rng.choice([-1.0, 1.0], 2)
+    if edge:
+      off = h + (r - np.sqrt(2.0) * pen) / np.sqrt(2.0)
+      local[k], local[j] = sk * off, sj * off
+    else:
+      local[k] = sk * (h + r - pen)
+    q[:3] = p - rot @ local
+    q[3:7] = _yaw_quat(yaw)
+    if _shallow(_contacts(mjm, mjd, q)):
+      out.append(q)
+  return np.stack(out)
+
+
+def interact_states(mjm, mjd, rng):
+  """0: qpos0 lowered until the feet are 1 mm into the floor; 1: seated,
+  the joints drawn in their ranges until, with the pelvis capsule 0.5-3 mm
+  into the top of the seat box, no contact is deeper than 5 mm; 2:
+  standing on the seat, the lowest foot box 0.5-3 mm into its top; 3: the
+  joints drawn in their ranges, turned about z and placed over the seat's
+  edge until a shin capsule penetrates the seat 0.5-5 mm and no contact is
+  deeper than 5 mm (MuJoCo's contacts)."""
+  import mujoco
+  seat = _geoms(mjm, 'seat')[0]
+  feet = _geoms(mjm, '_foot_geom')
+  pelvis = _geoms(mjm, 'pelvis_geom')[0]
+  shins = _geoms(mjm, '_shin_geom')
+  mjd.qpos[:] = mjm.qpos0
+  mujoco.mj_kinematics(mjm, mjd)
+  seat_top = mjd.geom_xpos[seat, 2] + mjm.geom_size[seat, 2]
+  seat_xy = mjd.geom_xpos[seat, :2].copy()
+  out = [_lower_to(mjm, mjd, mjm.qpos0.copy(), 2, feet, -0.001)]
+  while len(out) < 2:
+    q = _joints_in_range(mjm, mjm.qpos0.copy(), rng, 1)
+    mjd.qpos[:] = q
+    mujoco.mj_kinematics(mjm, mjd)
+    q[:2] += seat_xy - mjd.geom_xpos[pelvis, :2]
+    q = _lower_to(mjm, mjd, q, 2, [pelvis],
+                  seat_top - rng.uniform(0.0005, 0.003))
+    if _shallow(_contacts(mjm, mjd, q)):
+      out.append(q)
+  q = mjm.qpos0.copy()
+  q[:2] = seat_xy + rng.uniform(-0.03, 0.03, 2)
+  out.append(_lower_to(mjm, mjd, q, 2, feet,
+                       seat_top - rng.uniform(0.0005, 0.003)))
+  cap, box = mujoco.mjtGeom.mjGEOM_CAPSULE, mujoco.mjtGeom.mjGEOM_BOX
+  while True:
+    q = _joints_in_range(mjm, mjm.qpos0.copy(), rng, 1)
+    q[3:7] = _yaw_quat(rng.uniform(-np.pi, np.pi))
+    q[:2] = seat_xy + rng.uniform(-0.5, 0.5, 2)
+    shin = shins[rng.integers(len(shins))]
+    q = _lower_to(mjm, mjd, q, 2, [shin],
+                  seat_top - rng.uniform(0.0005, 0.005))
+    con = _contacts(mjm, mjd, q)
+    if _shallow(con) and any(k == (shin, seat) for k in _pair_types(
+        mjm, con, cap, box, -0.005, -0.0005)):
+      out.append(q)
+      return np.stack(out)
+
+
+BOX_PAIR_STATES = {'Walker': walker_states, 'Bimanual Insert': insert_states,
+                   'Allegro Cube': allegro_states,
+                   'Humanoid Interact': interact_states}
+
+
+def interact_active_params(rp, names):
+  """Humanoid Interact's residual parameters with INTERACT_ACTIVE's
+  keyframe pairs set (the others left inactive)."""
+  rp = np.array(rp, np.float64)
+  idx = {n: i for i, n in enumerate(names)}
+  for i, (b1, b2, l1, l2) in enumerate(INTERACT_ACTIVE):
+    rp[idx[f'kf{i}_body1']], rp[idx[f'kf{i}_body2']] = b1, b2
+    for k, vals in (('l1', l1), ('l2', l2)):
+      for x, val in zip('xyz', vals):
+        rp[idx[f'kf{i}_{k}{x}']] = val
+  return rp
+
+
+def box_pair_inputs(name, seed):
+  """One task's golden inputs (numpy, default_rng(seed)): the four states
+  of BOX_PAIR_STATES, velocities normal with scale 0.1 and controls
+  uniform in their ranges; the plan's knots (the middle of the control
+  range) and noise; Allegro Cube's transition key seed and both branches'
+  states (the goal at the cube's orientation; the goal 1 rad about z off
+  and the cube dropped below -0.12); Humanoid Interact's residual
+  parameters with active keyframe pairs and both transition branches'
+  (select_mode 2 over _cur_mode 0; both 1)."""
+  import mujoco
+  from mujoco_mpc_tpu.tasks import registry
+  jspec = registry.get_task(name)
+  mjm = jspec.mj_model
+  mjd = mujoco.MjData(mjm)
+  rng = np.random.default_rng(seed)
+  q = BOX_PAIR_STATES[name](mjm, mjd, rng)
+  clo, chi = mjm.actuator_ctrlrange.T
+  out = {'qpos': q, 'qvel': rng.normal(scale=0.1, size=(4, mjm.nv)),
+         'ctrl': clo + (chi - clo) * rng.uniform(size=(4, mjm.nu))}
+  knots = int(jspec.config['sampling_spline_points'])
+  out['plan/values'] = clo + (chi - clo) * rng.uniform(0.3, 0.7,
+                                                        (knots, mjm.nu))
+  out['plan/eps'] = rng.normal(size=(MANIPULATION_CANDIDATES - 1, knots,
+                                     mjm.nu))
+  out['plan/use2'] = rng.uniform(size=MANIPULATION_CANDIDATES - 1) < 0.2
+  rp = np.asarray(jspec.default_params.residual_params, np.float64)
+  if name == 'Allegro Cube':
+    out['transition/seed'] = np.asarray(seed)
+    cube_quat = q[0, 3:7]
+    half = 0.5
+    off = np.array([cube_quat[0] * np.cos(half) - cube_quat[3] * np.sin(half),
+                    cube_quat[1] * np.cos(half) + cube_quat[2] * np.sin(half),
+                    cube_quat[2] * np.cos(half) - cube_quat[1] * np.sin(half),
+                    cube_quat[3] * np.cos(half) + cube_quat[0] * np.sin(half)])
+    dropped = q[0].copy()
+    dropped[2] = -0.2
+    out['transition/reached/qpos'] = q[0]
+    out['transition/reached/mocap_quat'] = cube_quat[None]
+    out['transition/not/qpos'] = dropped
+    out['transition/not/mocap_quat'] = off[None]
+  if name == 'Humanoid Interact':
+    names = list(jspec.residual_param_names)
+    out['residual_params_active'] = interact_active_params(rp, names)
+    sel, cur = names.index('select_mode'), names.index('_cur_mode')
+    for branch, (mode, prev) in (('reached', (2.0, 0.0)),
+                                 ('not', (1.0, 1.0))):
+      p = rp.copy()
+      p[sel], p[cur] = mode, prev
+      out[f'transition/{branch}/residual_params'] = p
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def jax_box_pair_golden(name, inputs):
+  """One task's golden outputs from the JAX package in float64, from its
+  inputs: at each state the condim-3 contact points, qacc,
+  qfrc_constraint, the residual and the next qpos, qvel (jax_step;
+  Humanoid Interact's residual also at its active keyframe parameters);
+  the transition in both branches (Allegro Cube: the next state and goal
+  with what it drew; Humanoid Interact: the weights and parameters); the
+  plan's returns and winner from state 1."""
+  import jax
+  import jax.numpy as jnp
+  import torch
+  from mujoco_mpc_tpu.physics import kinematics as jkin
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  from mujoco_mpc_tpu.tasks import registry
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  jax.config.update('jax_enable_x64', True)
+  jspec = registry.get_task(name)
+  jm, jp = _f64(jspec.model), _f64(jspec.default_params)
+  run = jax_step(jspec, jm, jp, points=True)
+  q, v, u = (inputs[k] for k in ('qpos', 'qvel', 'ctrl'))
+  qacc, qfrc, res, _, nq, nv, dist, pos, normal = run(q, v, u)
+  out = {'qacc': qacc, 'qfrc_constraint': qfrc, 'residual': res,
+         'next_qpos': nq, 'next_qvel': nv, 'dist': dist, 'pos': pos,
+         'normal': normal}
+  jd0 = jmake_data(jm, dtype=jnp.float64)
+  if 'residual_params_active' in inputs:
+    from mujoco_mpc_tpu.physics import forward as jfwd
+    rpa = jnp.asarray(inputs['residual_params_active'])
+    fn = jax.jit(lambda qq, vv, uu: jspec.residual_fn(
+        jm, jfwd.forward(jm, jd0.replace(qpos=qq, qvel=vv, ctrl=uu)), rpa))
+    out['residual_active'] = np.stack([np.asarray(fn(*(jnp.asarray(x[i])
+                                                       for x in (q, v, u))))
+                                       for i in range(len(q))])
+  if name == 'Allegro Cube':
+    key = jax.random.key(int(inputs['transition/seed']))
+    out['transition/draw'] = np.asarray(jax.random.normal(key, (4,),
+                                                          dtype=jnp.float64))
+    for branch in ('reached', 'not'):
+      jd = jkin.kinematics(jm, jd0.replace(
+          qpos=jnp.asarray(inputs[f'transition/{branch}/qpos']),
+          qvel=jnp.asarray(v[0]),
+          mocap_quat=jnp.asarray(inputs[f'transition/{branch}/mocap_quat'])))
+      jd2, _ = jspec.transition_fn(jm, jd, jp, key)
+      for k in ('qpos', 'qvel', 'mocap_quat'):
+        out[f'transition/{branch}/next_{k}'] = np.asarray(getattr(jd2, k))
+  if name == 'Humanoid Interact':
+    for branch in ('reached', 'not'):
+      p = jp.replace(residual_params=jnp.asarray(
+          inputs[f'transition/{branch}/residual_params']))
+      _, p2 = jspec.transition_fn(jm, jd0, p, jax.random.key(0))
+      out[f'transition/{branch}/next_weights'] = np.asarray(p2.weights)
+      out[f'transition/{branch}/next_residual_params'] = np.asarray(
+          p2.residual_params)
+  port = port_registry.get_task(name, device='cpu', dtype=torch.float64)
+  d0 = make_data(port.model).replace(qpos=torch.from_numpy(q[1:2]),
+                                     qvel=torch.from_numpy(v[1:2]))
+  plan = port_plan(port, d0, inputs, MANIPULATION_STEPS, candidates=True)
+  out['plan/returns'], out['plan/winner'] = jax_plan(run, plan, q[1], v[1],
+                                                     MANIPULATION_STEPS)
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def write_box_pairs_golden(path):
+  """Write the box-pair tasks' golden (inputs, JAX outputs, provenance)."""
+  import jax
+  arrays = {}
+  for seed, name in enumerate(BOX_PAIR_TASKS):
+    inputs = box_pair_inputs(name, 41 + seed)
+    arrays.update(inputs)
+    arrays.update(jax_box_pair_golden(name, task_inputs(inputs, name)))
+  np.savez(path, **arrays, provenance=np.asarray(json.dumps({
+      'jax': jax.__version__, 'dtype': 'float64',
+      'command': BOX_PAIRS_COMMAND,
+      'inputs': 'box_pair_inputs: numpy default_rng(41 + the task\'s '
+                'index in BOX_PAIR_TASKS)'})))
+
+
 SENSOR_MODELS = 'sensor_models.npz'
 SENSOR_MODEL_STATES = 64
 
@@ -788,7 +1218,9 @@ def main():
              '--sensor-models': (SENSOR_MODELS, lambda path: np.savez(
                  path, **sensor_model_arrays())),
              '--manipulation-golden': (MANIPULATION_GOLDEN,
-                                       write_manipulation_golden)}
+                                       write_manipulation_golden),
+             '--box-pairs-golden': (BOX_PAIRS_GOLDEN,
+                                    write_box_pairs_golden)}
   flag = next((a for a in sys.argv[1:] if a in goldens), None)
   if flag:
     fname, writer = goldens[flag]
@@ -798,7 +1230,10 @@ def main():
           f'({os.path.getsize(path)} bytes)')
     return
   from mujoco_mpc_tpu.tasks import registry
+  names = [a for a in sys.argv[1:] if not a.startswith('--')]
   for name, (fname, _) in port_registry.TASKS.items():
+    if names and name not in names:
+      continue
     path = os.path.join(port_registry.ASSETS, fname)
     write(path, *task_snapshot(registry.get_task(name)))
     print(f'wrote {os.path.relpath(path, ROOT)} '

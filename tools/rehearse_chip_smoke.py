@@ -9,7 +9,8 @@ measurement. Run from the repository root (a few minutes):
 
     python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube |
                                                       estimators |
-                                                      manipulation]
+                                                      manipulation |
+                                                      box_pairs]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
@@ -20,7 +21,11 @@ tools/estimator_check.py (the estimator phases, 3m, phase 4's rows and
 27-30, at the card's sizes: the filters run one state), with
 `manipulation` tools/manipulation_check.py (phase 3n at `candidates`
 states, phase 4's rows at the tasks' own batches and Handover's at
-`candidates`, phases 31-37 with Handover's wide plan at `candidates`).
+`candidates`, phases 31-37 with Handover's wide plan at `candidates`),
+with `box_pairs` tools/box_pairs_check.py (phase 3o at `candidates`
+states, phase 4's rows at the tasks' own batches and Allegro Cube's at
+`candidates`, phases 38-43 with Allegro Cube's wide plan at
+`candidates`).
 """
 
 import os
@@ -82,7 +87,8 @@ def _fake_build(name):
 
 
 def main():
-  modes = ('ilqg', 'planners', 'cube', 'estimators', 'manipulation')
+  modes = ('ilqg', 'planners', 'cube', 'estimators', 'manipulation',
+           'box_pairs')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -106,6 +112,8 @@ def main():
   chip_smoke.CUBE_GOLDEN_SAMPLES = 8
   chip_smoke.MANIP_STATES = chip_smoke.MANIP_WIDE = samples
   chip_smoke.MANIP_FLOOR = samples // 4
+  chip_smoke.BOX_STATES = chip_smoke.BOX_WIDE = samples
+  chip_smoke.BOX_QPOS0 = samples // 4
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -142,6 +150,9 @@ def main():
   elif mode == 'manipulation':
     from tools import manipulation_check
     manipulation_check.main()
+  elif mode == 'box_pairs':
+    from tools import box_pairs_check
+    box_pairs_check.main()
   else:
     chip_smoke.main()
 
