@@ -150,7 +150,19 @@ Phases, one line each (any failure exits non-zero):
   42. Humanoid Interact plan-act: as phase 10, Sitting, then a switch to
      Standing that must write Standing's preset weights;
   43. Allegro Cube at 8192 candidates x 31: one timed plan, checked and
-     profiled as in phase 5, no golden.
+     profiled as in phase 5, no golden;
+  44-47. Acrobot, Quadrotor, OP3 Stand and Quadruped Hill (site
+     transmissions, height fields) from `home` (Acrobot hanging down) at
+     each one's own settings (128 x 301 with 10 knots, 128 x 76 with 5,
+     96 x 41 with 4, 60 x 36 with 3): 2 timed plans each, checked and
+     profiled as in phase 5, launches a plan 2 T B1 and T B2 (none at
+     Acrobot and Quadrotor, which have no constraint rows); its
+     card-vs-CPU golden at its own candidates with the bounds of phase 9;
+  48. Quadruped Hill at 4096 candidates x 36 (quadruped_ps4096's batch):
+     one timed plan, checked and profiled as in phase 5, no golden;
+  49. Quadrotor plan-act: synchronous MPC from qpos0, 63 candidates, 100
+     steps, 5 steps a plan, the goal moving on its circle (JAX's
+     test_quadrotor_hovers_with_planning): every cost finite, z > 0.4.
 Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
 B2's block instance on random dense, one-hot and frictionloss rows at nv
 33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
@@ -169,21 +181,30 @@ placed against their new pairs) with the contact points under a tie
 rule (box_pair_ties: a decision within 1e-5 m, a near-parallel capsule
 pair's solve, or points the float64 colliders place apart on the card's
 and the CPU's geom poses are exempt; samples with one in contact at most
-5 % beyond qpos0).
+5 % beyond qpos0); 3p the same for the last four tasks (B 4096 each: 64
+at rest at `home`, the rest moved; Quadruped Hill's out on the rough
+terrain; B2 only where the model has rows) with the height-field tie
+rule (hfield_ties: a point within 1e-5 cell units of a cell's edge or
+diagonal, a box whose 4th and 5th corners lie within 1e-5 m), and
+Quadrotor's site transmissions card vs CPU (1e-5 relative).
 Beside phase 4: both at Cube Solving's shapes, B1 at n 48 and 96 (random
 systems, B 512), both at the estimators' shapes (3m's operands), and both
 at the manipulation paths' (B 65 and 97 at nv 12, 15 and 18, and B 4097 at
 nv 18) and the box-pair paths' (B 129, 97, 129, 129 at nv 9, 18, 18, 23,
-and B 8193 at Allegro Cube's nv 18, P 59).
+and B 8193 at Allegro Cube's nv 18, P 59), and the last four paths' (B1
+alone at Acrobot's B 129 n 2 and Quadrotor's B 129 n 6; both at OP3
+Stand's B 97, P 29, and Quadruped Hill's B 61 and B 4097, P 36).
 Then one JSON line with the kernels' launches, errors, times and bounds
-(top-level keys: the Quadruped path; "paths": all twenty-five, the iLQG
+(top-level keys: the Quadruped path; "paths": all thirty, the iLQG
 ones at the line search's shapes with B1's derivative tangent under
 "tangent", the planner paths of phases 21-23 with their launches per
 iteration and
 their golden's best_return relative error, Cube Solving's with its
 golden's, and the EKF's and UKF's with their launches, p50 and busy
-share an update, the manipulation and box-pair tasks' with their
-golden's), and as the last line {"ok": true, "device": {...}}.
+share an update, the manipulation, box-pair and last four tasks' with
+their golden's; B2's entry at Acrobot and Quadrotor holds its 0
+launches and no times), and as the last line {"ok": true, "device":
+{...}}.
 """
 
 import concurrent.futures
@@ -307,6 +328,25 @@ TIE_MARGIN = 1e-5
 F32_ULPS = 2.4e-7
 BOX_TIE_CAP = 0.05
 BOX_GOLDEN_RTOL = 1e-5     # 38-41: best_return card vs CPU, relative
+# phases 3p, 44-49: the last four tasks, each at its own planner settings
+LAST_TASKS = ('Acrobot', 'Quadrotor', 'OP3 Stand', 'Quadruped Hill')
+LAST_STATES = 4096         # phase 3p's states a task
+LAST_HOME = 64             # of them at rest at `home` (Acrobot: qpos0)
+LAST_PLANS = 2
+LAST_WIDE = 4096           # Quadruped Hill at quadruped_ps4096's batch
+LAST_WIDE_PLANS = 1
+LAST_WIDE_PATH = 'quadruped_hill_4096'
+# 3p's tie rule for height-field points: within HFIELD_TIE cell units of a
+# cell's edge or diagonal (and a box's 4th and 5th corners within
+# TIE_MARGIN m); samples beyond `home` with such a point in contact at
+# most BOX_TIE_CAP of the rest
+HFIELD_TIE = 1e-5
+LAST_ACT_RTOL = 1e-5       # 3p: Quadrotor's site transmissions, card vs CPU
+ACROBOT_HANG = 3.14159     # 44: Acrobot's shoulder angle, hanging down
+# phase 49: tests/test_tasks.py test_quadrotor_hovers_with_planning
+HOVER_SAMPLES = 63
+HOVER_STEPS = 100
+HOVER_STEPS_PER_PLAN = 5
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
@@ -1188,8 +1228,9 @@ def main_path(spec, d0, samples, reps, gen, points=SPLINE_POINTS):
   """Predictive Sampling plans of `spec` from d0 through the planner
   registry's entry point (make_planner(spec, 0, samples, T, points)): a
   warm-up, then `reps` timed plans with the kernels' counts set to 0 just
-  before and read just after, then one profiled plan (its device
-  activity)."""
+  before and read just after (B1 twice a rollout step; B2 once, or never
+  where the model has no constraint rows), then one profiled plan (its
+  device activity)."""
   import torch
   from mujoco_mpc_tpu_torch import agent
   from mujoco_mpc_tpu_torch.ops import newton, spd_solve
@@ -1214,9 +1255,10 @@ def main_path(spec, d0, samples, reps, gen, points=SPLINE_POINTS):
     infos.append(info)
   launches = {'chol_solve': spd_solve.solve_spd.launches,
               'newton': newton.newton.launches}
-  check(launches['newton'] == reps * t_steps,
+  per_step = int(has_rows(spec.model))
+  check(launches['newton'] == per_step * reps * t_steps,
         f'newton launched {launches["newton"]} times, expected '
-        f'{reps * t_steps} (once per rollout step)')
+        f'{per_step * reps * t_steps} ({per_step} a rollout step)')
   check(launches['chol_solve'] == 2 * reps * t_steps,
         f'chol_solve launched {launches["chol_solve"]} times, expected '
         f'{2 * reps * t_steps} (twice per rollout step)')
@@ -1233,6 +1275,12 @@ def main_path(spec, d0, samples, reps, gen, points=SPLINE_POINTS):
   return dict(t_steps=t_steps, p50=p50, launches=launches,
               best=float(best[-1]), nominal=float(nominal[-1]),
               dev_us=dev_us, ops=ops, top=top)
+
+
+def has_rows(m):
+  """Whether a step of model m has constraint rows (contacts, joint
+  limits, frictionloss), so that it launches B2."""
+  return bool(m.collision_pairs or any(m.jnt_limited) or m.friction_dof)
 
 
 def print_main_path(phase, name, samples, reps, r):
@@ -3031,18 +3079,20 @@ def check_manipulation_kernels(spec, cpu_spec, gen):
   return states
 
 
-def manipulation_kernels(spec, states, bsz, kern, path):
+def manipulation_kernels(spec, states, bsz, kern, path, share=True):
   """Phase 4's rows of a manipulation path: both kernels on the step
   inputs of bsz of phase 3n's states (its rollouts' batch), checked
-  against their plain versions and timed with their bounds (path_kernels);
-  fills kern[path] and returns the (B1, B2) max abs errors."""
+  against their plain versions (B2 with `share` as newton_ok takes it)
+  and timed with their bounds (path_kernels); fills kern[path] and
+  returns the (B1, B2) max abs errors."""
   m = spec.model
   spd_in, (args, gargs, condims, dmasks) = solver_inputs(
       spec, batch_of(states, bsz))
   kern[path], errs = path_kernels(
       f'4 {path} (B {bsz}, one condim-3 group P {gargs[1].shape[1]})',
       spd_in, args, gargs, dict(cap=m.opt.iterations, tol=1e-5,
-                                condims=condims, dmasks=dmasks), 1e-4)
+                                condims=condims, dmasks=dmasks), 1e-4,
+      share=share)
   return errs[:2]
 
 
@@ -3410,18 +3460,23 @@ def box_pair_ties(m, d):
   return torch.cat(cols, 1)
 
 
-def check_box_points(spec, cpu_spec, d):
+def check_box_points(spec, cpu_spec, d, ties=None, rest=None, phase='3o',
+                     label='qpos0'):
   """Phase 3o's contact points: those the card's step stacks from states
   d (every pair's candidates in JAX's order) against the same step on the
   CPU through the plain path, float32 both. The tie rule exempts a point
-  whose pair decides within its margins (box_pair_ties) or that the
+  whose pair decides within its margins (`ties`, box_pair_ties by
+  default: (model, CPU data after kinematics) -> (B, P) bool) or that the
   colliders place apart in float64 from the card's geom poses and from
   the CPU's (the kinematics' f32 rounding amplified). Every other point
   agrees: its depth within POINT_ATOL (the unselected box-box family's
-  1e6 exactly), and where the CPU's depth is a point's (below 1e5) its
-  position within POINT_ATOL and its normal within NORMAL_ATOL. The
-  samples beyond the first BOX_QPOS0 with a tied point in contact are at
-  most BOX_TIE_CAP of the rest. Returns the line's text."""
+  1e6 and a height field's 1e10 exactly), and where the CPU's depth is a
+  point's (below 1e5) its position within POINT_ATOL and its normal
+  within NORMAL_ATOL. The samples beyond the first `rest` (BOX_QPOS0 by
+  default, the states at `label`) with a tied point in contact are at
+  most BOX_TIE_CAP of the others. Returns the line's text."""
+  ties = ties or box_pair_ties
+  rest = BOX_QPOS0 if rest is None else rest
   import torch
   from mujoco_mpc_tpu_torch.physics import forward as fwd
   from mujoco_mpc_tpu_torch.physics.model import make_data
@@ -3430,7 +3485,7 @@ def check_box_points(spec, cpu_spec, d):
   card = [x.cpu() for x in stacked_points(spec, card_d)]
   cpu_d = fwd.fwd_position(cpu_spec.model, to_cpu(d))
   cpu = stacked_points(cpu_spec, cpu_d)
-  tied = box_pair_ties(cpu_spec.model, cpu_d)                  # (B, P)
+  tied = ties(cpu_spec.model, cpu_d)                          # (B, P)
   check(tied.shape == cpu[0].shape, 'points and pairs do not line up')
   # conditioning: the colliders in float64 on the card's geom poses and
   # on the CPU's already disagree there
@@ -3460,8 +3515,8 @@ def check_box_points(spec, cpu_spec, d):
                                          *pts[2][b, k])]
 
   for b, k in torch.nonzero(bad)[:4].tolist():
-    print(f'phase 3o {spec.name} point off (dist, pos, normal): sample {b} '
-          f'point {k} card {show(card, b, k)}, CPU {show(cpu, b, k)}, '
+    print(f'phase {phase} {spec.name} point off (dist, pos, normal): '
+          f'sample {b} point {k} card {show(card, b, k)}, CPU {show(cpu, b, k)}, '
           f'float64 {show(ref[1], b, k)}')
   check(worst[0] <= POINT_ATOL, f'contact depths, card vs CPU: '
         f'{worst[0]:.3g} > {POINT_ATOL:g} outside the ties')
@@ -3469,8 +3524,8 @@ def check_box_points(spec, cpu_spec, d):
         f'contact positions / normals, card vs CPU: {worst[1]:.3g} / '
         f'{worst[2]:.3g} > {POINT_ATOL:g} / {NORMAL_ATOL:g} outside the ties')
   tied_contact = (tied & (cpu[0] < 0)).any(-1)
-  n_rest = int(tied_contact[BOX_QPOS0:].sum())
-  cap = int(BOX_TIE_CAP * (tied.shape[0] - BOX_QPOS0))
+  n_rest = int(tied_contact[rest:].sum())
+  cap = int(BOX_TIE_CAP * (tied.shape[0] - rest))
   check(n_rest <= cap, f'{n_rest} samples beyond qpos0 with a tied point '
         f'in contact, more than {cap}')
   moved = tied & ((dist_err > POINT_ATOL) | (near & (pos_err > POINT_ATOL)))
@@ -3480,8 +3535,8 @@ def check_box_points(spec, cpu_spec, d):
           f'{POINT_ATOL:g}, {POINT_ATOL:g}, {NORMAL_ATOL:g}); tied points '
           f'{int(tied.sum())} of {tied.numel()} ({n_ill} of them by the '
           f'float64 colliders alone), samples with a tied point '
-          f'in contact {int(tied_contact[:BOX_QPOS0].sum())} of the '
-          f'{BOX_QPOS0} at qpos0 and {n_rest} of the rest (cap {cap}); '
+          f'in contact {int(tied_contact[:rest].sum())} of the '
+          f'{rest} at {label} and {n_rest} of the rest (cap {cap}); '
           f'{int(moved.any(-1).sum())} samples with a tied point that '
           f'differs')
 
@@ -3610,6 +3665,325 @@ def box_phases(specs, cpu_specs, gen, elapsed):
   print_main_path(43, 'Allegro Cube', BOX_WIDE, BOX_WIDE_PLANS, r)
   main[BOX_WIDE_PATH] = r
   elapsed('43')
+  return main, rel_err
+
+
+# ---------------------------------------------------------------------------
+# The last four tasks: Acrobot, Quadrotor (site transmissions), OP3 Stand
+# and Quadruped Hill (height fields) (phases 3p, 44-49, and their rows in
+# phase 4)
+# ---------------------------------------------------------------------------
+
+
+def last_states(spec, gen, bsz):
+  """bsz states of one of the last four tasks, the first LAST_HOME at
+  rest: Acrobot's angles uniform on the circle (the first at qpos0),
+  velocities normal (scale 1); Quadrotor at `home`, the rest moved by
+  ~0.3 m (normal) and turned at random; OP3 Stand at `home` lowered onto
+  the floor 1 mm, the rest with its joints uniform in their ranges and
+  turned about z; Quadruped Hill at `home` (its feet on the floor and on
+  the flattened terrain at once), the rest out on the rough terrain: x
+  and y uniform in [-3.5, 3.5] at least 1.5 m from the centre, turned
+  about z, the joints spread by 0.2 rad. OP3's and Hill's moved states
+  are lowered until their deepest point (twice: a slope turns the
+  vertical move) is 0-3 mm in. Velocities normal (scale 0.1), controls
+  uniform in their ranges, both zero at rest."""
+  import math
+  import torch
+  from mujoco_mpc_tpu_torch.physics import kinematics as kin
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.utils import math as tm
+  m, b, name = spec.model, bsz, spec.name
+  u = lambda *s: torch.rand(s, generator=gen, device=DEV)  # noqa: E731
+  rest = torch.arange(b, device=DEV) < LAST_HOME
+  moved = ~rest
+  home = m.keyframe_qpos('home') if m.keyframe_names else m.qpos0
+  qpos = home.expand(b, -1).clone()
+  depth = 0.003 * u(b)
+  if name == 'Acrobot':
+    qpos = torch.where(rest[:, None], m.qpos0,
+                       (2 * u(b, m.nq) - 1) * math.pi)
+  elif name == 'Quadrotor':
+    qpos[moved, :3] += 0.3 * torch.randn((b, 3), generator=gen,
+                                         device=DEV)[moved]
+    qpos[moved, 3:7] = tm.quat_normalize(torch.randn(
+        (b, 4), generator=gen, device=DEV))[moved]
+  else:
+    if name == 'OP3 Stand':
+      limited = [j for j in range(m.njnt) if m.jnt_limited[j]]
+      adr = torch.tensor([m.jnt_qposadr[j] for j in limited], device=DEV)
+      lo, hi = m.jnt_range[limited, 0], m.jnt_range[limited, 1]
+      spread = qpos.clone()
+      spread[:, adr] = lo + (hi - lo) * u(b, len(limited))
+      qpos = torch.where(moved[:, None], spread, qpos)
+    else:
+      r = 1.5 + 2.0 * u(b)
+      ang = 2 * math.pi * u(b)
+      xy = torch.stack([r * torch.cos(ang), r * torch.sin(ang)], -1)
+      qpos[moved, :2] = torch.clamp(xy, -3.5, 3.5)[moved]
+      qpos[moved, 7:] += 0.2 * torch.randn((b, 12), generator=gen,
+                                           device=DEV)[moved]
+    qpos[moved, 3:7] = yaw_quats((2 * u(b) - 1) * math.pi)[moved]
+    depth[rest] = 0.001 if name == 'OP3 Stand' else 0.0
+    for _ in range(2):
+      d = kin.kinematics(m, make_data(m, b).replace(qpos=qpos))
+      low = stacked_points(spec, d)[0].amin(-1)
+      shift = low + depth
+      if name == 'Quadruped Hill':   # `home` as it stands
+        shift = torch.where(rest, 0.0, shift)
+      qpos[:, 2] -= shift
+  clo, chi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  qvel = torch.randn((b, m.nv), generator=gen, device=DEV)
+  qvel *= 1.0 if name == 'Acrobot' else 0.1
+  ctrl = clo + (chi - clo) * u(b, m.nu)
+  qvel[rest], ctrl[rest] = 0.0, 0.0
+  return make_data(m, b).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def hfield_ties(m, d):
+  """3p's tie rule, (B, P) over the stacked condim-3 points of the step
+  from CPU states d after kinematics, in float64: a height-field point
+  whose centre lies within HFIELD_TIE cell units of a cell's edge or of
+  its diagonal (the card and the CPU may take different triangles there:
+  the same height, another normal), and all four points of a box whose
+  4th and 5th deepest corners lie within TIE_MARGIN m of each other or
+  one of whose corners lies on such a line (its corner set is then
+  decided by rounding)."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import collision as col
+  from mujoco_mpc_tpu_torch.physics.model import GeomType as G
+  bsz = d.qpos.shape[0]
+  cols = []
+  for g1, g2 in m.collision_pairs:
+    n = col.points_per_pair(m, g1, g2)
+    tie = torch.zeros((bsz, n), dtype=torch.bool)
+    if m.geom_type[g1] == G.HFIELD:
+      grid, size = (x.double() for x in m.geom_hfield[g1])
+      p1, m1 = d.geom_xpos[:, g1].double(), d.geom_xmat[:, g1].double()
+      p2, m2 = d.geom_xpos[:, g2].double(), d.geom_xmat[:, g2].double()
+      s2 = m.geom_size[g2].double()
+      t2 = m.geom_type[g2]
+      if t2 == G.BOX:
+        c = p2[:, None] + (m.idx.box_signs.double() * s2) @ m2.transpose(
+            -1, -2)
+      elif t2 == G.CAPSULE:
+        ha = s2[1] * m2[..., 2]
+        c = torch.stack([p2 + ha, p2 - ha], 1)
+      else:
+        c = p2[:, None]
+      lc = col._mtv(m1[:, None], c - p1[:, None])
+      nrow, ncol = grid.shape
+      fx = (lc[..., 0] + size[0]) / (2.0 * size[0] / (ncol - 1))
+      fy = (lc[..., 1] + size[1]) / (2.0 * size[1] / (nrow - 1))
+      ux, uy = fx - torch.floor(fx), fy - torch.floor(fy)
+      line = ((torch.minimum(ux, 1 - ux) < HFIELD_TIE)
+              | (torch.minimum(uy, 1 - uy) < HFIELD_TIE)
+              | (torch.abs(ux - uy) < HFIELD_TIE))
+      if t2 == G.BOX:
+        depth = col._hfield_point(grid, size, p1[:, None], m1[:, None], c,
+                                  0.0).dist
+        srt = torch.sort(depth, -1).values
+        tie[:] = (line.any(-1) | (srt[:, 4] - srt[:, 3] < TIE_MARGIN))[:, None]
+      else:
+        tie = line
+    cols.append(tie)
+  return torch.cat(cols, 1)
+
+
+def check_last_kernels(spec, cpu_spec, gen):
+  """Phase 3p for one task: both kernels on the inputs its step gives them
+  at LAST_STATES last_states (B1 on qM and the Euler system within 1e-4
+  relative; B2, where the model has rows, by phase 3e's rule), the
+  contact points card vs CPU under the tie rule (hfield_ties), and
+  Quadrotor's actuator moment and qfrc_actuator card vs CPU within
+  LAST_ACT_RTOL relative. Returns the states."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  m = spec.model
+  states = last_states(spec, gen, LAST_STATES)
+  spd_in, (args, gargs, condims, dmasks) = solver_inputs(spec, states)
+  _, spd_err = check_spd_inputs(spd_in, 1e-4, spec.name)
+  _, euler_err = check_spd_inputs(euler_inputs(spec, states), 1e-4,
+                                  spec.name + ' Euler')
+  head = (f'phase 3p {spec.name} step inputs (B {LAST_STATES}, the first '
+          f'{LAST_HOME} at rest): chol_solve n {m.nv} rel err qM '
+          f'{spd_err:.3g}, Euler system {euler_err:.3g} (tol 1e-4)')
+  if not has_rows(m):
+    print(head + '; no constraint rows, no newton')
+  else:
+    kw = dict(cap=m.opt.iterations, tol=1e-5, condims=condims, dmasks=dmasks)
+    _, line = check_newton_task(spec.name, args, gargs, kw)
+    print(f'{head}; condims {condims}, P {gargs[1].shape[1]}, ns '
+          f'{args[6].shape[1]}: {line}')
+    print(f'phase 3p {spec.name} contact points, card vs the CPU plain path: '
+          + check_box_points(spec, cpu_spec, states, hfield_ties, LAST_HOME,
+                             '3p', 'home'))
+  if m.nu and any(t != 0 for t in m.actuator_trntype):
+    card = fwd.fwd_actuation(m, fwd.fwd_velocity(m, fwd.fwd_position(
+        m, states)))
+    cpu = fwd.fwd_actuation(cpu_spec.model, fwd.fwd_velocity(
+        cpu_spec.model, fwd.fwd_position(cpu_spec.model, to_cpu(states))))
+    errs = [errors(getattr(card, k).cpu(), getattr(cpu, k))
+            for k in ('actuator_moment', 'qfrc_actuator')]
+    check(max(e[1] for e in errs) <= LAST_ACT_RTOL,
+          f'{spec.name} site transmissions card vs CPU: {errs}')
+    print(f'phase 3p {spec.name} site transmissions, card vs CPU: '
+          f'actuator_moment {tuple(card.actuator_moment.shape)} rel err '
+          f'{errs[0][1]:.3g}, qfrc_actuator rel err {errs[1][1]:.3g} (tol '
+          f'{LAST_ACT_RTOL:g})')
+  return states
+
+
+def spd_path_kernels(label, spd_args, spd_tol):
+  """B1 alone at a path's shapes (a model with no constraint rows):
+  checked against its plain version and timed with its bound. Returns
+  (timings as phase 4 keeps them, (B1, None) max abs errors)."""
+  spd_abs = check_spd_inputs(spd_args, spd_tol, label)[0]
+  spd_times = time_spd(spd_args, PLAIN_REPS)
+  print(f'phase {label} timing per call, wall / device only: '
+        + spd_timing_line(*spd_times, spd_args[0]) + '; no newton')
+  return dict(wall=spd_times[0], dev=spd_times[1],
+              spd_bound=spd_times[2]), (spd_abs, None)
+
+
+def spread_batch(d, bsz, first=0):
+  """bsz samples of batched Data d from its sample `first` on, spread
+  over them (the first, then evenly), or, past their number, all of them
+  and the last ones again."""
+  import dataclasses
+  import torch
+  b = d.batch - first
+  ar = torch.arange(bsz, device=d.qpos.device)
+  idx = first + (ar * b // bsz if bsz <= b else (ar - (bsz - b)) % b)
+  return d.replace(**{f.name: getattr(d, f.name)[idx]
+                      for f in dataclasses.fields(d)
+                      if getattr(d, f.name) is not None})
+
+
+def home_ties(spec, states, bsz):
+  """B2 at bsz copies of 3p's state at rest (`home`) against its plain
+  version, held to 3d's rule for dense problems (every sample outside the
+  tolerance a near tie, no share: the copies are one state, all of them
+  or none). Quadruped Hill's `home` puts each foot on the floor and on
+  the flattened terrain at once: duplicate rows, which at B 61 B2 and its
+  plain version split differently within cap 6 (on an NVIDIA H100,
+  relative cost gap 7.83e-12), while at B 4096 (3p) they agree."""
+  m = spec.model
+  _, (args, gargs, condims, dmasks) = solver_inputs(
+      spec, batch_of(states, 1).expand(bsz))
+  args = tuple(t.contiguous() for t in args)
+  gargs = tuple(t.contiguous() for t in gargs)
+  nbad, gap, _, bad_gap = compare_newton(
+      args, gargs, cap=m.opt.iterations, tol=1e-5, condims=condims,
+      dmasks=dmasks)
+  newton_ok(f'{spec.name} at home', bsz, nbad, gap, bad_gap, share=False)
+  print(f'phase 4 {manip_path(spec.name)} at `home` (B {bsz}, one state): '
+        f'newton {newton_line(nbad, bsz, gap, bad_gap, share=False)}')
+
+
+def last_timing(specs, states, kern):
+  """Phase 4's rows of the last four paths, each task's rollout batch of
+  phase 3p's moved states spread over them (spread_batch; the states at
+  rest are one state, which home_ties checks alone): Acrobot (B 129, n
+  2) and Quadrotor (B 129, n 6), B1 alone; OP3 Stand (B 97, nv 18, P 29)
+  and Quadruped Hill (B 61, nv 18, P 36), and Hill at LAST_WIDE + 1.
+  B2's samples outside the tolerance must each be a near tie; their share
+  is held to 3e's 1 % at LAST_WIDE + 1 and, as at 3p's B 4096, not at B
+  61-97, where 1 % is no sample (3p's near ties come once in ~1,000
+  samples at OP3 and Hill). Fills `kern` for every path; returns their
+  (B1, B2) max abs errors."""
+  errs = {}
+  for n in LAST_TASKS:
+    spec = specs[n]
+    bsz = own_settings(spec)[0] + 1
+    d = spread_batch(states[n], bsz, LAST_HOME)
+    if has_rows(spec.model):
+      errs[manip_path(n)] = manipulation_kernels(spec, d, bsz, kern,
+                                                 manip_path(n), share=False)
+      home_ties(spec, states[n], bsz)
+    else:
+      spd_in, _ = solver_inputs(spec, d)
+      kern[manip_path(n)], errs[manip_path(n)] = spd_path_kernels(
+          f'4 {manip_path(n)} (B {bsz})', spd_in, 1e-4)
+  hill = 'Quadruped Hill'
+  errs[LAST_WIDE_PATH] = manipulation_kernels(
+      specs[hill], spread_batch(states[hill], LAST_WIDE + 1, LAST_HOME),
+      LAST_WIDE + 1, kern, LAST_WIDE_PATH)
+  return errs
+
+
+def quadrotor_hover(spec):
+  """Phase 49: JAX's tests/test_tasks.py test_quadrotor_hovers_with_
+  planning on the card: synchronous MPC from qpos0, HOVER_SAMPLES
+  candidates, HOVER_STEPS steps, HOVER_STEPS_PER_PLAN a plan, the goal
+  moving on its circle. Returns (steps, simulated s, wall s, real-time
+  factor, mean cost, last cost, final z)."""
+  import torch
+  from mujoco_mpc_tpu_torch import agent
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  carry, costs = agent.synchronous_mpc(
+      spec, HOVER_SAMPLES, HOVER_STEPS, HOVER_STEPS_PER_PLAN,
+      torch.Generator(device=DEV).manual_seed(0))
+  costs = costs.cpu()
+  wall = time.perf_counter() - t0
+  z = float(carry.sim.qpos[0, 2])
+  check(bool(torch.isfinite(costs).all()), 'hover costs not finite')
+  check(z > 0.4, f'the quadrotor fell: z {z:.3f} <= 0.4')
+  sim_time = len(costs) * float(spec.model.opt.timestep)
+  return (len(costs), sim_time, wall, sim_time / wall, float(costs.mean()),
+          float(costs[-1]), z)
+
+
+def last_phases(specs, cpu_specs, gen, elapsed):
+  """Phases 44-49 from the four tasks' specs (card and CPU): each task's
+  main path at its own candidates x horizon and knots from `home`
+  (Acrobot hanging down) with its launches as predicted (2 T B1 a plan; T B2 for
+  OP3 and Hill, none for Acrobot and Quadrotor), and its card-vs-CPU
+  golden at its own candidates with phase 9's bounds (44-47); Quadruped
+  Hill at LAST_WIDE candidates (48, timed, no golden); Quadrotor's
+  plan-act hover (49). Returns ({path: main path record}, {path: golden
+  best_return rel err})."""
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  main, rel_err = {}, {}
+
+  def start(spec):
+    """`home`; Acrobot (no keyframe; qpos0 is its upright goal, where a
+    plan at rest costs nothing) hanging down, the swing-up's start."""
+    import torch
+    m = spec.model
+    d0 = make_data(m)
+    if m.keyframe_names:
+      return d0.replace(qpos=m.keyframe_qpos('home')[None])
+    return d0.replace(qpos=torch.tensor([[ACROBOT_HANG, 0.0]], device=DEV))
+  for phase, name in enumerate(LAST_TASKS, 44):
+    spec, cpu_spec = specs[name], cpu_specs[name]
+    samples, _, points = own_settings(spec)
+    d0 = start(spec)
+    r = main_path(spec, d0, samples, LAST_PLANS, gen, points)
+    print_main_path(phase, name, samples, LAST_PLANS, r)
+    br_gpu, br_cpu, rel, win_gpu, win_cpu, drift = golden(
+        spec, cpu_spec, d0, to_cpu(d0), gen, 0.2, samples, points)
+    print(f'phase {phase} golden: {name} {samples}-candidate plan '
+          f'({points} knots) best_return card {br_gpu:.6g} vs CPU plain '
+          f'{br_cpu:.6g}: rel err {rel:.3g} (tol 0.02); winner card '
+          f'{win_gpu} vs CPU {win_cpu} (match {win_gpu == win_cpu}); 5-step '
+          f'rollout qpos drift {drift:.3g} (tol 0.05)')
+    main[manip_path(name)], rel_err[manip_path(name)] = r, rel
+    elapsed(str(phase))
+  hill = specs['Quadruped Hill']
+  r = main_path(hill, start(hill), LAST_WIDE, LAST_WIDE_PLANS, gen,
+                own_settings(hill)[2])
+  print_main_path(48, 'Quadruped Hill', LAST_WIDE, LAST_WIDE_PLANS, r)
+  main[LAST_WIDE_PATH] = r
+  elapsed('48')
+  steps, sim_t, wall, rtf, mean, last, z = quadrotor_hover(specs['Quadrotor'])
+  print(f'phase 49 plan-act: Quadrotor {steps} steps ({sim_t:.2f} s '
+        f'simulated, {steps // HOVER_STEPS_PER_PLAN} plans of '
+        f'{HOVER_STEPS_PER_PLAN} steps, {HOVER_SAMPLES} candidates, the goal '
+        f'moving) in {wall:.2f} s wall: real-time factor {rtf:.3f}; mean cost '
+        f'{mean:.4g}, last {last:.4g}; final z {z:.3f} (> 0.4)')
+  elapsed('49')
   return main, rel_err
 
 
@@ -3763,6 +4137,11 @@ def main():
   boxes_cpu = {n: registry.get_task(n, device='cpu') for n in BOX_TASKS}
   boxes_in = {n: check_box_kernels(boxes[n], boxes_cpu[n], gen)
               for n in BOX_TASKS}
+  # the last four tasks' step inputs, contact points and transmissions (3p)
+  lasts = {n: registry.get_task(n) for n in LAST_TASKS}
+  lasts_cpu = {n: registry.get_task(n, device='cpu') for n in LAST_TASKS}
+  lasts_in = {n: check_last_kernels(lasts[n], lasts_cpu[n], gen)
+              for n in LAST_TASKS}
 
   elapsed('1-3')
 
@@ -3803,6 +4182,7 @@ def main():
   time_estimator_kernels(est_in, kern)
   manip_errs = manipulation_timing(manip, manip_in, kern)
   box_errs = box_timing(boxes, boxes_in, kern)
+  last_errs = last_timing(lasts, lasts_in, kern)
 
   elapsed('4')
 
@@ -3942,9 +4322,16 @@ def main():
   # 38-43. the box-pair tasks
   box_main, box_rel = box_phases(boxes, boxes_cpu, gen, elapsed)
 
+  # 44-49. the last four tasks
+  last_main, last_rel = last_phases(lasts, lasts_cpu, gen, elapsed)
+
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
+    if short == 'newton' and 'newton_bound' not in k:   # no rows, no B2
+      return {'launches': launches[name], 'max_abs_err': None, 'ms': None,
+              'plain_ms': None, 'device_ms': None, 'bound_ms': None,
+              'bound_by': None, 'library_ms': None}
     b_ms, b_by = k['spd_bound' if short == 'chol' else 'newton_bound']
     return {'launches': launches[name], 'max_abs_err': err,
             'ms': k['wall'][name], 'plain_ms': k['wall'][short + '_plain'],
@@ -4034,7 +4421,8 @@ def main():
     for p in ('quadruped_ekf', 'quadruped_ukf'):
       paths[p] = est_entry(name, p)
     for main_, errs_, rel_ in ((manip_main, manip_errs, manip_rel),
-                               (box_main, box_errs, box_rel)):
+                               (box_main, box_errs, box_rel),
+                               (last_main, last_errs, last_rel)):
       for p, r in main_.items():
         paths[p] = entry(name, p, r['launches'],
                          errs_[p][0 if name == 'chol_solve' else 1])

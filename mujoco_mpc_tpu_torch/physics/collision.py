@@ -6,10 +6,13 @@ _plane_box :103, _sphere_sphere :116, _closest_on_segment :125,
 _segment_closest :130, _sphere_box :145, _box_box_sat :170,
 _capsule_box :376, the convex-hull colliders
 (_points_vs_halfspaces :395, _hull_world :416, _plane_mesh :426,
-_sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), narrowphase :604
-(plane against sphere, capsule, box and mesh; sphere against sphere, box
-and mesh; box against box and mesh; capsule against capsule, box and
-mesh; mesh against mesh), the batched hull clusters
+_sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), the height-field
+colliders (_hfield_surface :515, _hfield_point :552, _hfield_collide
+:568), narrowphase :604 (plane against sphere, capsule, box and mesh;
+height field against sphere, capsule, cylinder, ellipsoid and box;
+sphere against sphere, capsule, box and mesh; box against box and mesh;
+capsule against capsule, box and mesh; mesh against mesh), the batched
+hull clusters
 (_hull_sig :712, contact_clusters :717, _hulls_local :762,
 plane_mesh_batched :783, box_mesh_batched :809, mesh_mesh_batched :874
 with its broadphase, capsule_mesh_batched :949, sphere_mesh_batched
@@ -29,9 +32,14 @@ face has exact ties). The hull tables are float32 values; the small
 contractions over them go through matmul, which runs in full float32
 unless the caller enables TF32.
 
-Not ported yet, and refused where reached: the other primitive pairs
-(sphere-capsule, cylinder and ellipsoid: ROADMAP A6) and height fields
-(A7).
+A height field is a triangulated grid: a point takes the plane of the
+triangle under it, each cell split along its (0, 0)-(1, 1) diagonal, and
+a point beyond the grid's extent (by more than a cell) gets depth _BIG.
+The cell indices are per sample, so the grid is gathered per point.
+
+Not ported yet, and refused where reached: the cylinder and ellipsoid
+pairs (ROADMAP A6) and a height field against a mesh (A7; JAX emits no
+point there).
 """
 
 from __future__ import annotations
@@ -44,6 +52,10 @@ import torch
 
 from mujoco_mpc_tpu_torch.physics.model import Data, GeomType, Model
 from mujoco_mpc_tpu_torch.utils import math as tm
+
+
+# the depth of a candidate that is no contact (JAX's _BIG)
+_BIG = 1e10
 
 
 class ContactPoint(NamedTuple):
@@ -421,6 +433,82 @@ def _mesh_mesh(m: Model, d: Data, g1: int, g2: int):
   return pts + _points_vs_halfspaces(v2, n1, b1)
 
 
+def _hfield_surface(grid, size, lx, ly):
+  """The triangulated height field (grid (nrow, ncol) in [0, 1], size
+  (rx, ry, z_top, z_bottom)) under local (lx, ly) (...): (surface z, unit
+  normal (..., 3) in the field's frame, inside the extent). Heights are
+  grid * z_top over [-rx, rx] x [-ry, ry]; a cell's lower triangle (u >=
+  v) is (00, 10, 11), its upper one (00, 11, 01). The cell indices are
+  clamped as floats before the integer cast (JAX's int32 cast saturates
+  where a point lies far off)."""
+  nrow, ncol = grid.shape
+  dx = 2.0 * size[0] / (ncol - 1)
+  dy = 2.0 * size[1] / (nrow - 1)
+  fx = (lx + size[0]) / dx
+  fy = (ly + size[1]) / dy
+  i = torch.clamp(torch.floor(fx), 0, ncol - 2)
+  j = torch.clamp(torch.floor(fy), 0, nrow - 2)
+  u = torch.clamp(fx - i, 0.0, 1.0)
+  v = torch.clamp(fy - j, 0.0, 1.0)
+  flat = grid.reshape(-1)
+  at = j.long() * ncol + i.long()
+  z00 = flat[at] * size[2]
+  z10 = flat[at + 1] * size[2]
+  z01 = flat[at + ncol] * size[2]
+  z11 = flat[at + ncol + 1] * size[2]
+  lower = u >= v
+  a = torch.where(lower, z10 - z00, z11 - z01)
+  b = torch.where(lower, z11 - z10, z01 - z00)
+  z = z00 + a * u + b * v
+  n = tm.normalize(torch.stack([-a / dx, -b / dy, torch.ones_like(a)], -1))
+  inside = (torch.abs(lx) <= size[0] + dx) & (torch.abs(ly) <= size[1] + dy)
+  return z, n, inside
+
+
+def _hfield_point(grid, size, p1, m1, c, r):
+  """A sphere (centre c (..., 3), radius r; 0 for a point) against the
+  height field at pose (p1 (..., 3), m1 (..., 3, 3)): depth along the
+  normal of the triangle under the centre, _BIG outside the extent; the
+  normal points from the field to the sphere."""
+  lc = _mtv(m1, c - p1)
+  z, n, inside = _hfield_surface(grid, size, lc[..., 0], lc[..., 1])
+  p_surf = torch.stack([lc[..., 0], lc[..., 1], z], -1)
+  dist = torch.where(inside, _dot(n, lc - p_surf) - r, _BIG)
+  n_w = _mv(m1, n)
+  return ContactPoint(dist, c - n_w * (r + 0.5 * dist)[..., None], n_w)
+
+
+def _hfield_collide(m: Model, d: Data, g1: int, g2: int):
+  """Height field g1 against geom g2, point-sampled: a sphere's centre (1
+  point), a capsule's or a cylinder's two end-cap centres (+ end first,
+  the cylinder as spheres of its radius), an ellipsoid's centre with its
+  least semi-axis (1), and a box's 4 deepest of its 8 corners (the lower
+  corner index first among equal depths: jnp.argsort is stable)."""
+  grid, size = m.geom_hfield[g1]
+  p1, m1 = d.geom_xpos[:, g1], d.geom_xmat[:, g1]
+  t2 = m.geom_type[g2]
+  p2, m2, s2 = d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2]
+
+  def point(c, r):
+    return _hfield_point(grid, size, p1, m1, c, r)
+  if t2 == GeomType.SPHERE:
+    return [point(p2, s2[0])]
+  if t2 in (GeomType.CAPSULE, GeomType.CYLINDER):
+    ha = s2[1] * m2[..., 2]
+    return [point(p2 + ha, s2[0]), point(p2 - ha, s2[0])]
+  if t2 == GeomType.ELLIPSOID:
+    return [point(p2, torch.amin(s2))]
+  if t2 == GeomType.BOX:
+    corners = p2[:, None, :] + (m.idx.box_signs * s2) @ m2.transpose(-1, -2)
+    cp = _hfield_point(grid, size, p1[:, None], m1[:, None], corners, 0.0)
+    idx = _deepest(cp.dist, 4)                                # (B, 4)
+    dist = torch.gather(cp.dist, 1, idx)
+    pos, normal = _take(cp.pos, idx), _take(cp.normal, idx)
+    return [ContactPoint(dist[:, k], pos[:, k], normal[:, k])
+            for k in range(4)]
+  raise _unported(int(GeomType.HFIELD), t2)
+
+
 def _unported(t1: int, t2: int) -> NotImplementedError:
   mesh = {int(GeomType.MESH), int(GeomType.HFIELD)}
   item = 'A7' if t1 in mesh or t2 in mesh else 'A6'
@@ -445,9 +533,14 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
       return _plane_box(p1, pn, p2, m2, s2, m.idx.box_signs)
     if t2 == GeomType.MESH:
       return _plane_mesh(m, d, p1, pn, g2)
+  elif t1 == GeomType.HFIELD:
+    return _hfield_collide(m, d, g1, g2)
   elif t1 == GeomType.SPHERE:
     if t2 == GeomType.SPHERE:
       return _sphere_sphere(p1, s1[0], p2, s2[0])
+    if t2 == GeomType.CAPSULE:
+      cp = _closest_on_segment(p1, p2, m2[..., 2], s2[1])
+      return _sphere_sphere(p1, s1[0], cp, s2[0])
     if t2 == GeomType.BOX:
       # _sphere_box's normal points box -> sphere, g2 -> g1: flipped
       return [cp._replace(normal=-cp.normal)
@@ -799,7 +892,13 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
   counts = {(GeomType.PLANE, GeomType.SPHERE): 1,
             (GeomType.PLANE, GeomType.CAPSULE): 2,
             (GeomType.PLANE, GeomType.BOX): 8,
+            (GeomType.HFIELD, GeomType.SPHERE): 1,
+            (GeomType.HFIELD, GeomType.CAPSULE): 2,
+            (GeomType.HFIELD, GeomType.ELLIPSOID): 1,
+            (GeomType.HFIELD, GeomType.CYLINDER): 2,
+            (GeomType.HFIELD, GeomType.BOX): 4,
             (GeomType.SPHERE, GeomType.SPHERE): 1,
+            (GeomType.SPHERE, GeomType.CAPSULE): 1,
             (GeomType.SPHERE, GeomType.BOX): 1,
             (GeomType.SPHERE, GeomType.MESH): 1,
             (GeomType.CAPSULE, GeomType.CAPSULE): 1,

@@ -23,13 +23,14 @@ touch zones' site_type and site_size (:163, :240) and the magnetic field
 (Option.magnetic) for physics/sensors.py, and so are the
 convex hulls of the mesh, cylinder and ellipsoid geoms (geom_mesh, :255,
 built by put_model at :569-620 and kept as JAX keeps them, float32
-values, promoted to the model's dtype), and so are the frictionloss
+values, promoted to the model's dtype), the height fields (geom_hfield,
+:258, built at :622-632: each hfield geom's elevation grid and size, the
+same float32 values promoted), the site transmissions' reference sites
+(actuator_refid) and the frictionloss
 rows' constants (dof_frictionloss, dof_friction_solref/solimp, :225-228,
 one entry per dof of friction_dof). Model fields not carried yet (their
-consumers are still to be ported; ROADMAP A7-A8): the height fields
-(geom_hfield: a model with an hfield geom is refused where contacts or
-ground_height reach it), equality data (eq_*) and tendons (ten_*,
-tendon_*). As JAX's put_model does (:397-421), from_arrays refuses a
+consumers are still to be ported; ROADMAP A8): equality data (eq_*) and
+tendons (ten_*, tendon_*). As JAX's put_model does (:397-421), from_arrays refuses a
 sensor type outside sensors.SUPPORTED_SENSORS; a supported sensor whose
 physics the port lacks (tendon sensors, force sensors over elliptic
 cones) raises where it is evaluated.
@@ -155,6 +156,11 @@ OPTION_ARRAYS = ('timestep', 'gravity', 'wind', 'magnetic', 'density',
 # The arrays of one convex hull in Model.geom_mesh, in from_arrays' `arrays`
 # dict as 'geom_mesh/<geom id>/<name>'.
 HULL_ARRAYS = ('verts', 'normals', 'offsets')
+# The arrays of one height field in Model.geom_hfield, in from_arrays'
+# `arrays` dict as 'geom_hfield/<geom id>/<name>': the elevation grid
+# (nrow, ncol) in [0, 1] and the size (4,) = (radius_x, radius_y, z_top,
+# z_bottom).
+HFIELD_ARRAYS = ('grid', 'size')
 # The frictionloss rows' constants, (F,), (F, 2) and (F, 5) for the F dofs
 # of friction_dof: in a snapshot only where F > 0, empty otherwise.
 FRICTION_ARRAYS = {'dof_frictionloss': (), 'dof_friction_solref': (2,),
@@ -223,6 +229,7 @@ class Model(_Replace):
   actuator_gaintype: Tuple[int, ...]
   actuator_biastype: Tuple[int, ...]
   actuator_trnid: Tuple[int, ...]
+  actuator_refid: Tuple[int, ...]     # a site transmission's reference site
   actuator_actadr: Tuple[int, ...]
   actuator_actnum: Tuple[int, ...]
   actuator_ctrllimited: Tuple[int, ...]
@@ -297,6 +304,9 @@ class Model(_Replace):
   # convex hulls, geom id -> (verts (V, 3), face normals (F, 3), face
   # offsets (F,)) in the geom frame, n.x + b <= 0 inside
   geom_mesh: dict = dataclasses.field(default_factory=dict)
+  # height fields, geom id -> (elevation grid (nrow, ncol) in [0, 1], size
+  # (4,) = (radius_x, radius_y, z_top, z_bottom))
+  geom_hfield: dict = dataclasses.field(default_factory=dict)
   # per-condim contact groups of the collision pairs
   # (physics/constraint.py contact_table), built by from_arrays
   contact: tuple = ()
@@ -345,8 +355,10 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
 
   arrays: ARRAY_FIELDS plus 'opt.<OPTION_ARRAYS>' -> numpy arrays (the
   JAX Model's leaves), for each hull geom g 'geom_mesh/<g>/verts',
-  '.../normals' and '.../offsets' (HULL_ARRAYS), and FRICTION_ARRAYS
-  where friction_dof is not empty; static: STATIC_FIELDS
+  '.../normals' and '.../offsets' (HULL_ARRAYS), for each height field g
+  'geom_hfield/<g>/grid' and '.../size' (HFIELD_ARRAYS), and
+  FRICTION_ARRAYS where friction_dof is not empty; static: STATIC_FIELDS
+  (and 'actuator_refid' where a site transmission has a reference site)
   plus 'opt.<OPTION_STATIC>' -> ints, bools, strings or (nested)
   sequences of them."""
   device = resolve_device(device)
@@ -357,6 +369,9 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
     return v
 
   s = {k: tup(static[k]) for k in STATIC_FIELDS}
+  # a snapshot carries the site transmissions' reference sites only where
+  # one has a reference site; -1 (none) elsewhere
+  s['actuator_refid'] = tup(static.get('actuator_refid', (-1,) * s['nu']))
   from mujoco_mpc_tpu_torch.physics import sensors
   bad = [f'{name!r} (mjtSensor {t})'
          for name, t in zip(s['sensor_names'], s['sensor_type'])
@@ -384,8 +399,14 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
       torch.as_tensor(np.array(arrays[f'geom_mesh/{g}/{part}']),
                       dtype=dtype, device=device) for part in HULL_ARRAYS)
                for g in hulls}
+  fields = sorted({int(k.split('/')[1]) for k in arrays
+                   if k.startswith('geom_hfield/')})
+  geom_hfield = {g: tuple(
+      torch.as_tensor(np.array(arrays[f'geom_hfield/{g}/{part}']),
+                      dtype=dtype, device=device) for part in HFIELD_ARRAYS)
+                 for g in fields}
   m = Model(**s, **t, opt=opt, idx=structure.build_indices(s, device, dtype),
-            geom_mesh=geom_mesh)
+            geom_mesh=geom_mesh, geom_hfield=geom_hfield)
   if m.collision_pairs:
     from mujoco_mpc_tpu_torch.physics import constraint
     m = m.replace(contact=constraint.contact_table(m),

@@ -1,18 +1,23 @@
 """Smooth dynamics: mass matrix, bias, passive, transmission, actuation.
 
 Port of mujoco_mpc_tpu/physics/smooth.py (crb :22, rne :46, tendon :197,
-passive :278, transmission :348, actuation :473, xfrc_accumulate :525),
-batch-first. Dense mass matrix; tree sums are matmuls against the static
-masks in Model.idx.
+passive :278, transmission :348, actuation :473,
+xfrc_accumulate :525), batch-first. Dense mass matrix; tree sums are
+matmuls against the static masks in Model.idx.
+
+Transmissions: joints (a static moment, as JAX's fast path) and sites
+(:430-460: a wrench in the site frame, or the site's pose in a reference
+site's frame), whose moment arms are per sample (B, nu, nv).
 
 Not ported yet, and refused where reached: tendons (ROADMAP A8), gravity
-compensation (A8), and actuator transmissions other than joints (A8).
+compensation (A8), and tendon, slider-crank and body transmissions (A8).
 """
 
 from __future__ import annotations
 
 import torch
 
+from mujoco_mpc_tpu_torch.physics import constraint
 from mujoco_mpc_tpu_torch.physics.model import Data, Model, TrnType
 from mujoco_mpc_tpu_torch.utils import math as tm
 
@@ -68,20 +73,78 @@ def passive(m: Model, d: Data) -> Data:
   return d.replace(qfrc_passive=qfrc)
 
 
+def _site_jac(m: Model, d: Data, s: int):
+  """Translational and rotational Jacobians (B, nv, 3) of site s's world
+  position on its body (JAX's _body_jac :327, the contacts' per-point
+  Jacobian constraint._point_jac)."""
+  body = torch.full((d.qpos.shape[0], 1), m.site_bodyid[s],
+                    device=d.qpos.device)
+  jacp, jacr = constraint._point_jac(m, d, d.site_xpos[:, s, None], body)
+  return jacp[:, 0], jacr[:, 0]
+
+
+def _site_transmission(m: Model, d: Data, u: int):
+  """Length (B,) and moment (B, nv) of actuator u's site transmission.
+  Without a reference site, the gear's wrench in the site frame at zero
+  length; with one, gear . [the site's translation; its rotation vector]
+  in the reference site's frame, the moment with that frame held fixed
+  (mj_transmission's convention)."""
+  gear = m.actuator_gear[u]
+  s = m.actuator_trnid[u]
+  jacp, jacr = _site_jac(m, d, s)
+  smat = d.site_xmat[:, s]
+  refid = m.actuator_refid[u]
+  if refid < 0:
+    force = smat @ gear[:3]
+    torque = smat @ gear[3:]
+    moment = (torch.einsum('bns,bs->bn', jacp, force)
+              + torch.einsum('bns,bs->bn', jacr, torque))
+    return torch.zeros_like(moment[:, 0]), moment
+  rmat = d.site_xmat[:, refid]
+  rjacp, rjacr = _site_jac(m, d, refid)
+  trans = torch.einsum('bji,bj->bi', rmat,
+                       d.site_xpos[:, s] - d.site_xpos[:, refid])
+  rot = tm.quat_sub(tm.mat_to_quat(smat), tm.mat_to_quat(rmat))
+  length = trans @ gear[:3] + rot @ gear[3:]
+  moment = ((jacp - rjacp) @ rmat @ gear[:3]
+            + (jacr - rjacr) @ rmat @ gear[3:])
+  return length, moment
+
+
 def transmission(m: Model, d: Data) -> Data:
-  """Actuator lengths, velocities and moment arms for joint
-  transmissions (mj_transmission)."""
+  """Actuator lengths, velocities and moment arms for joint and site
+  transmissions (mj_transmission). Joint transmissions alone give one
+  static moment (nu, nv), expanded over the batch; a site transmission
+  makes it per sample, its rows stacked (no write into a batched tensor,
+  so that torch.func transforms pass through)."""
   if m.nu == 0:
     return d
-  if any(t != TrnType.JOINT for t in m.actuator_trntype):
+  other = sorted({TrnType(t).name.lower() for t in m.actuator_trntype
+                  if t not in (TrnType.JOINT, TrnType.SITE)})
+  if other:
     raise NotImplementedError(
-        'non-joint actuator transmissions are not ported yet (ROADMAP A8)')
+        f'{", ".join(other)} actuator transmissions are not ported yet '
+        f'(ROADMAP A8)')
+  bsz = d.qpos.shape[0]
   gear = m.actuator_gear                                  # (nu, 6)
   moment = torch.einsum('unk,uk->un', m.idx.act_sel, gear)
   length = d.qpos[:, m.idx.act_qadr] * gear[:, 0] * m.idx.act_scalar
-  velocity = d.qvel @ moment.T
-  return d.replace(actuator_length=length, actuator_velocity=velocity,
-                   actuator_moment=moment.expand(d.qpos.shape[0], -1, -1))
+  if all(t == TrnType.JOINT for t in m.actuator_trntype):
+    velocity = d.qvel @ moment.T
+    return d.replace(actuator_length=length, actuator_velocity=velocity,
+                     actuator_moment=moment.expand(bsz, -1, -1))
+  lengths, moments = [], []
+  for u in range(m.nu):
+    if m.actuator_trntype[u] == TrnType.SITE:
+      length_u, moment_u = _site_transmission(m, d, u)
+    else:
+      length_u, moment_u = length[:, u], moment[u].expand(bsz, -1)
+    lengths.append(length_u)
+    moments.append(moment_u)
+  moment = torch.stack(moments, 1)                        # (B, nu, nv)
+  velocity = (moment @ d.qvel[..., None])[..., 0]
+  return d.replace(actuator_length=torch.stack(lengths, 1),
+                   actuator_velocity=velocity, actuator_moment=moment)
 
 
 def actuation(m: Model, d: Data) -> Data:

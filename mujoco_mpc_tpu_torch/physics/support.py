@@ -8,10 +8,9 @@ state_diff :108, integrate_state :132, _static_geoms :138, _ray_geom
 run over all bodies at once, weighted by the subtree's 0/1 body mask,
 where JAX loops over the static body list; state_diff works on the joint
 coordinate maps of Model.idx where JAX loops over the joints; a ray is
-(B, 3) rays, one a sample.
-
-Not ported yet: ground_height over height fields (ROADMAP A7), which
-raises; a ray misses a height field, as in JAX's raycast.
+(B, 3) rays, one a sample. ground_height takes height fields through
+the colliders' triangulated surface (collision._hfield_surface); a ray
+of raycast misses a height field, as in JAX's raycast.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Tuple
 
 import torch
 
+from mujoco_mpc_tpu_torch.physics import collision
 from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics.model import Data, GeomType, Model
 from mujoco_mpc_tpu_torch.utils import math as tm
@@ -262,8 +262,11 @@ def raycast(m: Model, d: Data, origin: torch.Tensor, dirn: torch.Tensor,
 
 def ground_height(m: Model, d: Data, pos: torch.Tensor) -> torch.Tensor:
   """Terrain height (B, ...) under world positions pos (B, ..., 3): a
-  vertical downward ray against the static group-0 planes, spheres and
-  boxes, from 0.5 above pos; z = 0 where nothing is hit."""
+  vertical downward ray against the static group-0 planes, spheres,
+  boxes and height fields, from 0.5 above pos; z = 0 where nothing is
+  hit. A height field is hit on the triangle under the ray in its frame
+  (an axis-aligned field's exact surface; JAX's z-axis approximation of
+  a tilted one), missed beyond its extent."""
   dtype = pos.dtype
   lead = (pos.shape[0],) + (1,) * (pos.dim() - 2)
   big = 1e9
@@ -273,9 +276,6 @@ def ground_height(m: Model, d: Data, pos: torch.Tensor) -> torch.Tensor:
   dists = []
   for g in _static_geoms(m):
     gtype = m.geom_type[g]
-    if gtype == GeomType.HFIELD:
-      raise NotImplementedError(
-          'ground height over height fields is not ported yet (ROADMAP A7)')
     gpos = d.geom_xpos[:, g].reshape(lead + (3,))
     gmat = d.geom_xmat[:, g].reshape(lead + (3, 3))
     size = m.geom_size[g]
@@ -308,6 +308,11 @@ def ground_height(m: Model, d: Data, pos: torch.Tensor) -> torch.Tensor:
       dist = torch.where((tmax >= tmin) & (tmax > 0),
                          torch.clamp(tmin, min=0.0),
                          torch.full_like(tmin, big))
+    elif gtype == GeomType.HFIELD:
+      lc = (gmat.transpose(-1, -2) @ (origin - gpos)[..., None])[..., 0]
+      z, _, inside = collision._hfield_surface(*m.geom_hfield[g],
+                                               lc[..., 0], lc[..., 1])
+      dist = torch.where(inside, lc[..., 2] - z, torch.full_like(z, big))
     else:
       continue
     dists.append(dist.to(dtype))

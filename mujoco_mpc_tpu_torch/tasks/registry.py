@@ -11,10 +11,15 @@ its procedural clip), FreeFingers (:790-814), Panda and Panda Bring
 on the box-box, capsule-box and capsule-capsule pairs: Walker
 (:201-218), Bimanual Insert (:1191-1218), Allegro Cube (_hand_task with
 3 fingers and a box cube, :998-1000) and Humanoid Interact
-(:1512-1674). The JAX
+(:1512-1674), and the last four: Acrobot (:179-192), Quadrotor
+(:226-250; site transmissions), OP3 Stand (_make_humanoid on op3.xml,
+:1264-1268) and Quadruped Hill (_make_quadruped over a height field,
+:707-713). The JAX
 registry compiles models/*.xml with `mujoco`; the port loads the
 compiled model, the task parameters and the task's own arrays (Track's
-clip, Cube Solving's scramble tables, the manipulation tasks' ids) from
+clip, Cube Solving's scramble tables, the manipulation tasks' ids,
+Quadrotor's hover thrust; Quadruped Hill's terrain is the model's
+height-field grid, made by JAX's _fractal_terrain) from
 mujoco_mpc_tpu_torch/assets/ (written by tools/export_torch_snapshot.py),
 so it runs where neither `mujoco` nor JAX is installed. Residuals are
 batch-first; a transition takes the B = 1 simulation state.
@@ -118,6 +123,54 @@ def _swimmer(spec: base.TaskSpec, task: dict):
 
 
 # ---------------------------------------------------------------------------
+# Acrobot (reference: mjpc/tasks/acrobot/acrobot.cc), registry.py :179-192
+# ---------------------------------------------------------------------------
+
+
+def _acrobot(spec: base.TaskSpec, task: dict):
+  m = spec.model
+  goal, tip = m.site('goal'), m.site('tip')
+
+  def residual(m, d, rp):
+    g, t = d.site_xpos[:, goal], d.site_xpos[:, tip]
+    return torch.stack([g[:, 2] - t[:, 2], g[:, 0] - t[:, 0], d.qvel[:, 0],
+                        d.qvel[:, 1], d.ctrl[:, 0]], -1)
+
+  return residual, None
+
+
+# ---------------------------------------------------------------------------
+# Quadrotor (reference: mjpc/tasks/quadrotor/quadrotor.cc), registry.py
+# :226-250: four rotors on site transmissions; the goal mocap body moves
+# on a circle. The hover thrust (the model's total mass times g over 4,
+# summed in float64 from MuJoCo's masses) travels as task['hover'].
+# ---------------------------------------------------------------------------
+
+
+def _quadrotor(spec: base.TaskSpec, task: dict):
+  m = spec.model
+  center, quad = m.site('center'), m.body('quad')
+  goal_mocap = m.body_mocapid[m.body('goal')]
+  hover = float(task['hover'])
+
+  def residual(m, d, rp):
+    pos = d.site_xpos[:, center] - d.mocap_pos[:, goal_mocap]
+    linvel = support.point_velocity(m, d, quad, d.xipos[:, quad])
+    angvel = d.cvel[:, quad, :3]
+    return torch.cat([pos, linvel, angvel, d.ctrl - hover], -1)
+
+  def transition(m, d, params, generator):
+    """The goal on its circular path at the state's time."""
+    t = d.time
+    goal = torch.stack([0.5 * torch.cos(0.5 * t), 0.5 * torch.sin(0.5 * t),
+                        1.0 + 0.2 * torch.sin(0.25 * t)], -1)
+    return d.replace(mocap_pos=_with_row(d.mocap_pos, goal_mocap,
+                                         goal.to(d.mocap_pos.dtype))), params
+
+  return residual, transition
+
+
+# ---------------------------------------------------------------------------
 # Walker (reference: mjpc/tasks/walker/walker.cc), registry.py :201-218:
 # the planar walker on capsule limbs (plane-capsule and capsule-capsule).
 # ---------------------------------------------------------------------------
@@ -142,7 +195,8 @@ def _walker(spec: base.TaskSpec, task: dict):
 
 # ---------------------------------------------------------------------------
 # Quadruped (reference: mjpc/tasks/quadruped/quadruped.{h,cc}), registry.py
-# :294-303 and :354-699
+# :294-303 and :354-699; Flat and Hill (:702-713), Hill's terrain a height
+# field under which support.ground_height finds the ground
 # ---------------------------------------------------------------------------
 
 _QUAD_GAIT_PHASE = np.array([
@@ -452,8 +506,9 @@ def _quadruped(spec: base.TaskSpec, task: dict):
 
 # ---------------------------------------------------------------------------
 # Humanoid Stand / Walk (reference: mjpc/tasks/humanoid/humanoid.cc),
-# registry.py :722-782. Walk's default speed goal (residual_params[1] = 1)
-# travels in its snapshot's parameters.
+# registry.py :722-782, and OP3 Stand (mjpc/tasks/op3/stand.cc), the same
+# residual on op3.xml (:1264-1268). Walk's default speed goal
+# (residual_params[1] = 1) travels in its snapshot's parameters.
 # ---------------------------------------------------------------------------
 
 
@@ -1035,7 +1090,12 @@ TASKS = {'Cartpole': ('cartpole.npz', _cartpole),
          'Walker': ('walker.npz', _walker),
          'Bimanual Insert': ('bimanual_insert.npz', _bimanual_insert),
          'Allegro Cube': ('allegro_cube.npz', _hand_task),
-         'Humanoid Interact': ('humanoid_interact.npz', _humanoid_interact)}
+         'Humanoid Interact': ('humanoid_interact.npz', _humanoid_interact),
+         'Acrobot': ('acrobot.npz', _acrobot),
+         'Quadrotor': ('quadrotor.npz', _quadrotor),
+         'OP3 Stand': ('op3_stand.npz',
+                       functools.partial(_humanoid, walk=False)),
+         'Quadruped Hill': ('quadruped_hill.npz', _quadruped)}
 
 
 def task_names():

@@ -1,7 +1,7 @@
 """Quaternion and spatial-algebra helpers on batch-first tensors.
 
 Port of mujoco_mpc_tpu/utils/tpu_math.py (quat_mul :28, quat_rot :46,
-quat_to_mat :60, quat_conj :42, quat_normalize :24, quat_integrate :118,
+quat_to_mat :60, mat_to_quat :73, quat_conj :42, quat_normalize :24, quat_integrate :118,
 quat_sub :128, axis_angle_to_quat :94, motion_cross :160, force_cross
 :167, inert_vec :174, inert_from_body_quat :197). Quaternions are (w, x, y, z); spatial
 vectors are 6D with the angular part first. Every function broadcasts over
@@ -66,6 +66,34 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
       torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x),
                    1 - 2 * (x * x + y * y)], dim=-1),
   ], dim=-2)
+
+
+def mat_to_quat(r: torch.Tensor) -> torch.Tensor:
+  """Rotation matrices (..., 3, 3) to unit quaternions (..., 4), JAX's
+  branchless Shepperd: the four candidates computed, the one of the
+  first largest pivot kept, its w made non-negative."""
+  r00, r01, r02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+  r10, r11, r12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+  r20, r21, r22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+  tr = r00 + r11 + r22
+  cand = torch.stack([
+      torch.stack([1.0 + tr, r21 - r12, r02 - r20, r10 - r01], -1),
+      torch.stack([r21 - r12, 1.0 + 2.0 * r00 - tr, r01 + r10, r02 + r20],
+                  -1),
+      torch.stack([r02 - r20, r01 + r10, 1.0 + 2.0 * r11 - tr, r12 + r21],
+                  -1),
+      torch.stack([r10 - r01, r02 + r20, r12 + r21, 1.0 + 2.0 * r22 - tr],
+                  -1)], -2)                                # (..., 4, 4)
+  pivots = torch.stack([1.0 + tr, 1.0 + 2.0 * r00 - tr,
+                        1.0 + 2.0 * r11 - tr, 1.0 + 2.0 * r22 - tr], -1)
+  # the first maximum, as jnp.argmax picks it among equals
+  ar = torch.arange(4, device=r.device)
+  k = torch.amin(torch.where(
+      pivots >= torch.amax(pivots, -1, keepdim=True), ar, 4), -1)
+  q = torch.gather(cand, -2, k[..., None, None].expand(
+      k.shape + (1, 4)))[..., 0, :]
+  q = q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+  return normalize(q)
 
 
 def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:

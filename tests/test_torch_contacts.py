@@ -391,22 +391,30 @@ def test_contact_clusters_match_jax(shadow):
                                                         [15]]
 
 
-@pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('hfield', 'A7'),
-                                       ((7, 4), 'A6'), ('cylinder', 'A6')])
+@pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('ellipsoid', 'A6'),
+                                       ('sphere-cylinder', 'A6'),
+                                       ('cylinder', 'A6')])
 def test_unported_pairs_raise(shadow, pair, item):
   """No pair falls back to nothing: a mesh before a plane (the pair order
-  no collider takes) and height fields raise naming A7, the other
-  primitive pairs A6 (sphere-capsule, and the palm box made a cylinder
-  against itself), in narrowphase, in the point count and when a model
+  no collider takes) raises naming A7, the cylinder and ellipsoid pairs
+  A6 (a fingertip sphere against the goal marker's box made an ellipsoid
+  and against a finger capsule made a cylinder, and the palm box made a
+  cylinder against itself), in narrowphase, in the point count and when a model
   with such a pair builds its contact table. (Mesh-mesh, refused here
   before Cube Solving's slice, is ported: test_mesh_mesh_cluster_raises;
   box-box, this test's fourth case before the box-pair slice, too:
-  test_box_pairs_are_ported.)"""
+  test_box_pairs_are_ported; height fields and sphere-capsule, its
+  second and third cases before the last tasks' slice, too:
+  tests/test_torch_last_tasks.py.)"""
   _, m, d, _, _ = shadow
-  if pair == 'hfield':
-    m = m.replace(geom_type=(int(model_lib.GeomType.HFIELD),)
-                  + m.geom_type[1:])
-    pair = (0, 2)
+  if pair == 'ellipsoid':
+    m = m.replace(geom_type=m.geom_type[:1]
+                  + (int(model_lib.GeomType.ELLIPSOID),) + m.geom_type[2:])
+    pair = (7, 1)
+  if pair == 'sphere-cylinder':
+    m = m.replace(geom_type=m.geom_type[:4]
+                  + (int(model_lib.GeomType.CYLINDER),) + m.geom_type[5:])
+    pair = (7, 4)
   if pair == 'cylinder':
     m = m.replace(geom_type=m.geom_type[:3]
                   + (int(model_lib.GeomType.CYLINDER),) + m.geom_type[4:])

@@ -82,8 +82,8 @@ FORCE_PLANE_XML = """
 """
 
 # RANGE_XML with the head's sphere visual-only: the rays exclude it, and
-# its pairs with the post (sphere-capsule) and the drum (sphere-cylinder)
-# are not ported yet
+# it pairs with nothing (its pair with the drum, sphere-cylinder, is not
+# ported yet)
 RANGE_PORT_XML = RANGE_XML.replace(
     '<geom type="sphere" size="0.05" mass="0.2"/>',
     '<geom type="sphere" size="0.05" mass="0.2" contype="0" '
@@ -275,10 +275,10 @@ def test_rangefinder_matches_jax_and_mujoco(xml):
   (-1), at four yaws as one batch of four: on RANGE_PORT_XML, and on
   RANGE_XML with the head's sphere colliding with the floor, the wall
   (sphere-box) and the ball. RANGE_XML itself still pairs the sphere with
-  the capsule and the cylinder, which the port refuses at load, naming
-  ROADMAP A6."""
+  the capsule and the cylinder: the port takes sphere-capsule, and
+  refuses sphere-cylinder at load, naming ROADMAP A6."""
   if xml == 'sphere colliding':
-    with pytest.raises(NotImplementedError, match='sphere-capsule.*A6'):
+    with pytest.raises(NotImplementedError, match='sphere-cylinder.*A6'):
       _models(RANGE_XML)
   mjm, jm, m = _models(RANGE_PORT_XML if xml == 'sphere visual-only'
                        else RANGE_COLLIDING_XML)

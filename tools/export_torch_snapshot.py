@@ -54,6 +54,16 @@ both branches with what it drew, and a 16-candidate x 6-step plan's
 returns, float64 (~3.5 minutes on a CPU: five JAX step compiles), which
 tests/test_torch_manipulation.py holds the port to.
 
+    python tools/export_torch_snapshot.py --box-pairs-golden
+    python tools/export_torch_snapshot.py --last-tasks-golden
+
+write assets/box_pairs_golden.npz (Walker, Bimanual Insert, Allegro Cube,
+Humanoid Interact) and assets/last_tasks_golden.npz (Acrobot, Quadrotor,
+OP3 Stand, Quadruped Hill: their steps, Quadrotor's site transmissions,
+goal path and derivatives, Hill's mode switches on its height field, and
+a 16 x 6 plan each; ~2 minutes), held by tests/test_torch_box_pairs.py
+and tests/test_torch_last_tasks.py.
+
 The tests of the Humanoid Track, Quadruped Flat and Shadow Reorient
 slices replay their JAX step from assets/*_step_golden.npz instead
 (tests/torch_recorded.py says how those files are recorded).
@@ -103,9 +113,16 @@ def model_snapshot(m):
   for g, hull in (m.geom_mesh or {}).items():
     arrays.update({f'geom_mesh/{int(g)}/{part}': np.asarray(a)
                    for part, a in zip(port_model.HULL_ARRAYS, hull)})
+  for g, field in (m.geom_hfield or {}).items():
+    arrays.update({f'geom_hfield/{int(g)}/{part}': np.asarray(a)
+                   for part, a in zip(port_model.HFIELD_ARRAYS, field)})
   static = {k: _jsonable(getattr(m, k)) for k in port_model.STATIC_FIELDS}
   static.update({'opt.' + k: int(getattr(m.opt, k))
                  for k in port_model.OPTION_STATIC})
+  # carried only where a site transmission has a reference site (-1, none,
+  # is the port's value elsewhere)
+  if any(r >= 0 for r in m.actuator_refid):
+    static['actuator_refid'] = _jsonable(m.actuator_refid)
   return arrays, static
 
 
@@ -154,8 +171,16 @@ MANIPULATION = ('FreeFingers', 'Panda', 'Panda Bring', 'Bimanual Handover',
 BOX_PAIR_TASKS = ('Walker', 'Bimanual Insert', 'Allegro Cube',
                   'Humanoid Interact')
 
+def quadrotor_arrays(spec):
+  """Quadrotor's hover thrust, which JAX keeps in its residual's closure
+  (registry.py :233-235; summed in float64 from MuJoCo's masses)."""
+  env = inspect.getclosurevars(spec.residual_fn).nonlocals
+  return {'hover': np.asarray(env['hover'], np.float64)}
+
+
 # task name -> its arrays beside Model and TaskParams ('task/<name>')
 TASK_ARRAYS = {'Humanoid Track': track_arrays, 'Cube Solving': rubik_arrays,
+               'Quadrotor': quadrotor_arrays,
                **{name: manipulation_arrays
                   for name in MANIPULATION + ('Bimanual Insert',)}}
 
@@ -1146,6 +1171,246 @@ def write_box_pairs_golden(path):
                 'index in BOX_PAIR_TASKS)'})))
 
 
+# ---------------------------------------------------------------------------
+# The last four tasks' golden, held by tests/test_torch_last_tasks.py:
+# Acrobot (no contacts), Quadrotor (site transmissions, a moving mocap
+# goal), OP3 Stand (plane pairs, limit rows) and Quadruped Hill (height-
+# field pairs beside the floor plane).
+# ---------------------------------------------------------------------------
+
+LAST_TASKS = ('Acrobot', 'Quadrotor', 'OP3 Stand', 'Quadruped Hill')
+LAST_TASKS_GOLDEN = 'last_tasks_golden.npz'
+LAST_TASKS_COMMAND = ('python tools/export_torch_snapshot.py '
+                      '--last-tasks-golden')
+# Quadrotor's derivative pass: this many steps of the nominal
+LAST_DERIV_STEPS = 4
+# Quadruped Hill's transition branches: (mode, walk turn); the goal far
+# away (no draw), the state out on the hills
+HILL_BRANCHES = {'quadruped': (0, 0.0), 'walk': (2, 0.4), 'flip': (4, 0.0)}
+# where Hill's states 2 and 3 stand on the rough terrain (x, y)
+HILL_SPOTS = ((2.5, -1.5), (-2.0, 2.25))
+
+
+def terrain_z(grid, size, x, y):
+  """The height (numpy) of a height field at the origin under world (x,
+  y): its triangle's plane, as JAX's _hfield_surface (cell split along
+  (0, 0)-(1, 1))."""
+  nrow, ncol = grid.shape
+  dx, dy = 2.0 * size[0] / (ncol - 1), 2.0 * size[1] / (nrow - 1)
+  fx, fy = (x + size[0]) / dx, (y + size[1]) / dy
+  i = int(np.clip(np.floor(fx), 0, ncol - 2))
+  j = int(np.clip(np.floor(fy), 0, nrow - 2))
+  u, v = np.clip(fx - i, 0.0, 1.0), np.clip(fy - j, 0.0, 1.0)
+  z = grid[j:j + 2, i:i + 2] * size[2]
+  if u >= v:
+    return z[0, 0] + (z[0, 1] - z[0, 0]) * u + (z[1, 1] - z[0, 1]) * v
+  return z[0, 0] + (z[1, 1] - z[1, 0]) * u + (z[1, 0] - z[0, 0]) * v
+
+
+def _hill_feet_on_terrain(mjm, mjd, q, depth):
+  """q with the trunk's z moved so that the lowest foot sphere sits
+  `depth` below the terrain under its centre."""
+  import mujoco
+  g = next(iter(_geoms(mjm, 'terrain')))
+  hid = int(mjm.geom_dataid[g])
+  grid = mjm.hfield_data[:mjm.hfield_nrow[hid] * mjm.hfield_ncol[hid]].reshape(
+      mjm.hfield_nrow[hid], mjm.hfield_ncol[hid])
+  size = mjm.hfield_size[hid]
+  mjd.qpos[:] = q
+  mujoco.mj_kinematics(mjm, mjd)
+  gap = min(_lowest(mjm, mjd, f) - terrain_z(grid, size, *mjd.geom_xpos[f, :2])
+            for f in _geoms(mjm, '_foot'))
+  q = q.copy()
+  q[2] -= gap + depth
+  return q
+
+
+def last_task_states(name, mjm, mjd, rng, pairs):
+  """The golden's four states (qpos) of a task: Acrobot's angles uniform
+  on the circle; Quadrotor at `home`, then moved by up to ~0.3 m and
+  turned at random; OP3 Stand at `home` lowered 1 mm into the floor, then
+  its joints drawn in their ranges, its lowest colliding geom (the second of `pairs`, the
+  collision pairs) 0.5-3 mm into the floor; Quadruped Hill at
+  `home` (its feet on the floor and on the flattened terrain at once),
+  its joints spread by 0.2 rad and its feet 0.5-3 mm into the floor at
+  the centre, and at HILL_SPOTS on the rough terrain, turned about z,
+  its lowest foot 0.5-3 mm into the terrain."""
+  if name == 'Acrobot':
+    return rng.uniform(-np.pi, np.pi, (4, mjm.nq))
+  home = mjm.key_qpos[0].copy() if mjm.nkey else mjm.qpos0.copy()
+  out = [home]
+  if name == 'Quadrotor':
+    for _ in range(3):
+      q = home.copy()
+      q[:3] += rng.normal(scale=0.3, size=3)
+      q[3:7] = _random_quat(rng)
+      out.append(q)
+  elif name == 'OP3 Stand':
+    body = sorted({g for _, g in pairs})
+    out = [_lower_to(mjm, mjd, home, 2, body, -0.001)]
+    for _ in range(3):
+      q = _joints_in_range(mjm, home.copy(), rng, 1)
+      out.append(_lower_to(mjm, mjd, q, 2, body,
+                           -rng.uniform(0.0005, 0.003)))
+  elif name == 'Quadruped Hill':
+    feet = _geoms(mjm, '_foot')
+    q = home.copy()
+    q[7:] += rng.normal(scale=0.2, size=12)
+    out.append(_lower_to(mjm, mjd, q, 2, feet, -rng.uniform(0.0005, 0.003)))
+    for x, y in HILL_SPOTS:
+      q = home.copy()
+      q[:2] = (x, y)
+      q[3:7] = _yaw_quat(rng.uniform(-np.pi, np.pi))
+      q[7:] += rng.normal(scale=0.1, size=12)
+      out.append(_hill_feet_on_terrain(mjm, mjd, q,
+                                       rng.uniform(0.0005, 0.003)))
+  return np.stack(out)
+
+
+def last_task_inputs(name, seed):
+  """One task's golden inputs (numpy, default_rng(seed)): the four states
+  of last_task_states, velocities normal (scale 0.1; Acrobot's 1.0) and
+  controls uniform in their ranges; Quadrotor's goal mocap positions per
+  state (the model's at state 0, moved by up to ~0.3 m) and its
+  transition's times; Quadruped Hill's transition branches (the state 3
+  on the hills, HILL_BRANCHES' modes with the gait switch on, the goal
+  far away, _last_t 0.3 at time 1.7); the plan's knots (the middle of the
+  control range) and noise."""
+  import mujoco
+  from mujoco_mpc_tpu.tasks import registry
+  jspec = registry.get_task(name)
+  mjm = jspec.mj_model
+  mjd = mujoco.MjData(mjm)
+  rng = np.random.default_rng(seed)
+  q = last_task_states(name, mjm, mjd, rng, jspec.model.collision_pairs)
+  clo, chi = mjm.actuator_ctrlrange.T
+  out = {'qpos': q,
+         'qvel': rng.normal(scale=1.0 if name == 'Acrobot' else 0.1,
+                            size=(4, mjm.nv)),
+         'ctrl': clo + (chi - clo) * rng.uniform(size=(4, mjm.nu))}
+  mp = np.broadcast_to(mjd.mocap_pos, (4,) + mjd.mocap_pos.shape).copy()
+  if name == 'Quadrotor':
+    mp[1:] += rng.normal(scale=0.3, size=mp[1:].shape)
+    out['transition/time'] = np.array([0.0, 0.37, 2.5, 11.9])
+  out['mocap_pos'] = mp
+  if name == 'Quadruped Hill':
+    names = list(jspec.residual_param_names)
+    rp = np.asarray(jspec.default_params.residual_params, np.float64)
+    for branch, (mode, turn) in HILL_BRANCHES.items():
+      p = rp.copy()
+      p[names.index('select_Mode')] = mode
+      p[names.index('select_Gait switch')] = 1.0
+      p[names.index('Walk turn')] = turn
+      p[names.index('_last_t')] = 0.3
+      out[f'transition/{branch}/residual_params'] = p
+    goal = mp[3].copy()
+    goal[0, :2] = (-3.0, -3.0)
+    out['transition/mocap_pos'] = goal
+    out['transition/time'] = np.asarray(1.7)
+  knots = int(jspec.config['sampling_spline_points'])
+  out['plan/values'] = clo + (chi - clo) * rng.uniform(0.3, 0.7,
+                                                        (knots, mjm.nu))
+  out['plan/eps'] = rng.normal(size=(MANIPULATION_CANDIDATES - 1, knots,
+                                     mjm.nu))
+  out['plan/use2'] = rng.uniform(size=MANIPULATION_CANDIDATES - 1) < 0.2
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def jax_last_task_golden(name, inputs):
+  """One task's golden outputs from the JAX package in float64, from its
+  inputs: at each state (and its goal) qacc, qfrc_constraint, the
+  residual, the next qpos and qvel (jax_step), OP3's and Hill's condim-3
+  contact points; Quadrotor's actuator length, moment and qfrc_actuator,
+  its transition's goal at each time, and its exact derivatives
+  (derivatives.compute over a LAST_DERIV_STEPS-step nominal from state 1);
+  Hill's transition in each branch (parameters, weights, goal) after
+  JAX's kinematics and com velocities; the plan's returns and winner from
+  state 1."""
+  import jax
+  import jax.numpy as jnp
+  import torch
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics import kinematics as jkin
+  from mujoco_mpc_tpu.physics.model import make_data as jmake_data
+  from mujoco_mpc_tpu.planners import derivatives as jder
+  from mujoco_mpc_tpu.tasks import registry
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  jax.config.update('jax_enable_x64', True)
+  jspec = registry.get_task(name)
+  jm, jp = _f64(jspec.model), _f64(jspec.default_params)
+  points = bool(jm.collision_pairs)
+  run = jax_step(jspec, jm, jp, points=points)
+  q, v, u, mp = (inputs[k] for k in ('qpos', 'qvel', 'ctrl', 'mocap_pos'))
+  mq = np.broadcast_to(np.asarray(jm.body_quat)[[
+      b for b in range(jm.nbody) if jm.body_mocapid[b] >= 0]],
+                       mp.shape[:1] + (jm.nmocap, 4))
+  res = run(q, v, u, mp, np.ascontiguousarray(mq))
+  keys = ('qacc', 'qfrc_constraint', 'residual', 'cost', 'next_qpos',
+          'next_qvel') + (('dist', 'pos', 'normal') if points else ())
+  out = {k: x for k, x in zip(keys, res) if k != 'cost'}
+  jd0 = jmake_data(jm, dtype=jnp.float64)
+  if name == 'Quadrotor':
+    act = jax.jit(lambda qq, vv, uu, pp: (lambda d: (
+        d.actuator_length, d.actuator_moment, d.qfrc_actuator))(
+            jfwd.forward(jm, jd0.replace(qpos=qq, qvel=vv, ctrl=uu,
+                                         mocap_pos=pp))))
+    got = [act(*(jnp.asarray(x[i]) for x in (q, v, u, mp)))
+           for i in range(len(q))]
+    for k, key in enumerate(('actuator_length', 'actuator_moment',
+                             'qfrc_actuator')):
+      out[key] = np.stack([np.asarray(g[k]) for g in got])
+    out['transition/mocap_pos'] = np.stack([np.asarray(jspec.transition_fn(
+        jm, jd0.replace(time=jnp.asarray(t)), jp, jax.random.key(0))[0]
+        .mocap_pos) for t in inputs['transition/time']])
+    acts = np.random.default_rng(3).uniform(
+        np.asarray(jm.actuator_ctrlrange)[:, 0],
+        np.asarray(jm.actuator_ctrlrange)[:, 1], (LAST_DERIV_STEPS, jm.nu))
+    out['derivatives/actions'] = acts
+    d1 = jd0.replace(qpos=jnp.asarray(q[1]), qvel=jnp.asarray(v[1]))
+    traj = jder.nominal_trajectory(jspec, d1, jnp.asarray(acts), jp)
+    der = jax.jit(lambda tr: jder.compute(jspec, d1, tr, jp))(traj)
+    for k in ('a', 'b', 'cx', 'cu', 'cxx', 'cxu', 'cuu'):
+      out['derivatives/' + k] = np.asarray(getattr(der, k))
+  if name == 'Quadruped Hill':
+    kin = jax.jit(lambda d: jkin.com_vel(jm, jkin.com_pos(
+        jm, jkin.kinematics(jm, d))))
+    jd = kin(jd0.replace(
+        time=jnp.asarray(inputs['transition/time']), qpos=jnp.asarray(q[3]),
+        qvel=jnp.asarray(v[3]),
+        mocap_pos=jnp.asarray(inputs['transition/mocap_pos'])))
+    for branch in HILL_BRANCHES:
+      p = jp.replace(residual_params=jnp.asarray(
+          inputs[f'transition/{branch}/residual_params']))
+      jd2, p2 = jspec.transition_fn(jm, jd, p, jax.random.key(0))
+      out[f'transition/{branch}/next_residual_params'] = np.asarray(
+          p2.residual_params)
+      out[f'transition/{branch}/next_weights'] = np.asarray(p2.weights)
+      out[f'transition/{branch}/next_mocap_pos'] = np.asarray(jd2.mocap_pos)
+  port = port_registry.get_task(name, device='cpu', dtype=torch.float64)
+  d0 = make_data(port.model).replace(qpos=torch.from_numpy(q[1:2]),
+                                     qvel=torch.from_numpy(v[1:2]))
+  plan = port_plan(port, d0, inputs, MANIPULATION_STEPS, candidates=True)
+  out['plan/returns'], out['plan/winner'] = jax_plan(run, plan, q[1], v[1],
+                                                     MANIPULATION_STEPS)
+  return {f'{name}/{k}': val for k, val in out.items()}
+
+
+def write_last_tasks_golden(path):
+  """Write the last four tasks' golden (inputs, JAX outputs,
+  provenance)."""
+  import jax
+  arrays = {}
+  for seed, name in enumerate(LAST_TASKS):
+    inputs = last_task_inputs(name, 51 + seed)
+    arrays.update(inputs)
+    arrays.update(jax_last_task_golden(name, task_inputs(inputs, name)))
+  np.savez(path, **arrays, provenance=np.asarray(json.dumps({
+      'jax': jax.__version__, 'dtype': 'float64',
+      'command': LAST_TASKS_COMMAND,
+      'inputs': 'last_task_inputs: numpy default_rng(51 + the task\'s '
+                'index in LAST_TASKS)'})))
+
+
 SENSOR_MODELS = 'sensor_models.npz'
 SENSOR_MODEL_STATES = 64
 
@@ -1220,7 +1485,9 @@ def main():
              '--manipulation-golden': (MANIPULATION_GOLDEN,
                                        write_manipulation_golden),
              '--box-pairs-golden': (BOX_PAIRS_GOLDEN,
-                                    write_box_pairs_golden)}
+                                    write_box_pairs_golden),
+             '--last-tasks-golden': (LAST_TASKS_GOLDEN,
+                                     write_last_tasks_golden)}
   flag = next((a for a in sys.argv[1:] if a in goldens), None)
   if flag:
     fname, writer = goldens[flag]

@@ -1,0 +1,69 @@
+"""Run the last four tasks' phases of chip_smoke.py alone on the card.
+
+Run from the repository root on a machine with an NVIDIA GPU:
+
+    python3 tools/last_tasks_check.py
+
+It builds both kernels (csrc/chol_solve.cu and csrc/newton.cu, at once),
+prints ptxas's registers, stack and spills of every bucket instance (a
+spill fails it after the checks), then runs chip_smoke's phase 3p (both
+kernels on the step inputs of Acrobot, Quadrotor, OP3 Stand and
+Quadruped Hill, B 4096 each, B2 where the model has rows; their contact
+points card vs CPU under the height-field tie rule; Quadrotor's site
+transmissions card vs CPU), phase 4's rows of those paths (kernel, plain
+version, B1's library call, bounds, at each task's rollout batch and at
+Quadruped Hill's B 4097) and phases 44-49 (each task's plans at its own
+settings and its card-vs-CPU golden, Quadruped Hill's 4096-candidate
+plan, Quadrotor's plan-act hover), beside the card's name and power
+limit. A failed check exits non-zero.
+"""
+
+import concurrent.futures
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+from mujoco_mpc_tpu_torch.ops import cuda_build  # noqa: E402
+from mujoco_mpc_tpu_torch.tasks import registry  # noqa: E402
+
+
+def main():
+  if not torch.cuda.is_available():
+    raise SystemExit('last_tasks_check: no CUDA device')
+  print(cs.smi_line(), f'(torch {torch.__version__})')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  start = time.perf_counter()
+
+  def elapsed(phases):
+    print(f'elapsed after {phases}: {time.perf_counter() - start:.1f} s')
+
+  kernels = ('chol_solve', 'newton')
+  with concurrent.futures.ThreadPoolExecutor(2) as pool:
+    libs = dict(zip(kernels, pool.map(cuda_build.build, kernels)))
+  elapsed('the build')
+  spilled = 0
+  for name in kernels:
+    lines, spill = cs.ptxas_lines(name, libs[name])
+    spilled += spill
+    for line in lines:
+      print(line)
+  gen = torch.Generator(device=cs.DEV).manual_seed(0)
+  specs = {n: registry.get_task(n, device=cs.DEV) for n in cs.LAST_TASKS}
+  cpu = {n: registry.get_task(n, device='cpu') for n in cs.LAST_TASKS}
+  states = {n: cs.check_last_kernels(specs[n], cpu[n], gen)
+            for n in cs.LAST_TASKS}
+  elapsed('the checks')
+  cs.check(spilled == 0, f'an instance spills ({spilled} bytes)')
+  cs.last_timing(specs, states, {})
+  elapsed('the timing')
+  cs.last_phases(specs, cpu, gen, elapsed)
+
+
+if __name__ == '__main__':
+  main()

@@ -10,7 +10,8 @@ measurement. Run from the repository root (a few minutes):
     python tools/rehearse_chip_smoke.py [candidates] [ilqg | planners | cube |
                                                       estimators |
                                                       manipulation |
-                                                      box_pairs]
+                                                      box_pairs |
+                                                      last_tasks]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
@@ -25,6 +26,9 @@ states, phase 4's rows at the tasks' own batches and Handover's at
 with `box_pairs` tools/box_pairs_check.py (phase 3o at `candidates`
 states, phase 4's rows at the tasks' own batches and Allegro Cube's at
 `candidates`, phases 38-43 with Allegro Cube's wide plan at
+`candidates`), with `last_tasks` tools/last_tasks_check.py (phase 3p at
+`candidates` states, phase 4's rows at the tasks' own batches and
+Quadruped Hill's at `candidates`, phases 44-49 with Hill's wide plan at
 `candidates`).
 """
 
@@ -88,7 +92,7 @@ def _fake_build(name):
 
 def main():
   modes = ('ilqg', 'planners', 'cube', 'estimators', 'manipulation',
-           'box_pairs')
+           'box_pairs', 'last_tasks')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -114,6 +118,8 @@ def main():
   chip_smoke.MANIP_FLOOR = samples // 4
   chip_smoke.BOX_STATES = chip_smoke.BOX_WIDE = samples
   chip_smoke.BOX_QPOS0 = samples // 4
+  chip_smoke.LAST_STATES = chip_smoke.LAST_WIDE = samples
+  chip_smoke.LAST_HOME = samples // 4
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -153,6 +159,9 @@ def main():
   elif mode == 'box_pairs':
     from tools import box_pairs_check
     box_pairs_check.main()
+  elif mode == 'last_tasks':
+    from tools import last_tasks_check
+    last_tasks_check.main()
   else:
     chip_smoke.main()
 
