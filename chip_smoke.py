@@ -162,7 +162,21 @@ Phases, one line each (any failure exits non-zero):
      one timed plan, checked and profiled as in phase 5, no golden;
   49. Quadrotor plan-act: synchronous MPC from qpos0, 63 candidates, 100
      steps, 5 steps a plan, the goal moving on its circle (JAX's
-     test_quadrotor_hovers_with_planning): every cost finite, z > 0.4.
+     test_quadrotor_hovers_with_planning): every cost finite, z > 0.4;
+  50-54. the physics slice's families (assets/physics_models.npz): the
+     cylinder and ellipsoid pairs (50), tendons (51), equality constraints
+     (52), RK4 (53) and gravity compensation (54), each model stepped
+     through forward.step as 4096 perturbed states for 100 steps of random
+     controls (CUDA events), launches a step against the prediction (2 B1
+     and, with rows, 1 B2; RK4 4 and 4), one profiled 5-step rollout
+     (device ops a step, busy share), 256 of the samples card vs the CPU
+     plain path for 20 steps (a sample beyond 1e-3 of max(1, |x|) must be
+     chaotic: its float64 trajectory moves beyond that when its state
+     moves by 1e-7; at most 2 % of them), the golden's 4 states against
+     JAX's float64 trajectory (assets/physics_features_golden.npz) for
+     20 steps within 2e-4 under the same rule (at most 1 of the 4
+     exempt), the samples beyond 1e-4, 1e-3 and 1e-2 printed with those
+     not chaotic there, every state finite.
 Beside phase 3: 3j B1's block instance (n 33-96) on random systems; 3k
 B2's block instance on random dense, one-hot and frictionloss rows at nv
 33 and 96, held to 3d's rule for dense problems; 3l both on the inputs the
@@ -186,14 +200,24 @@ at rest at `home`, the rest moved; Quadruped Hill's out on the rough
 terrain; B2 only where the model has rows) with the height-field tie
 rule (hfield_ties: a point within 1e-5 cell units of a cell's edge or
 diagonal, a box whose 4th and 5th corners lie within 1e-5 m), and
-Quadrotor's site transmissions card vs CPU (1e-5 relative).
+Quadrotor's site transmissions card vs CPU (1e-5 relative); 3q both on
+the inputs the physics slice's models give them (B 4096 each, after 10
+steps of rollouts from perturbed states: B1 on qM and the Euler system
+within 1e-4 relative, B2 on the equality, tendon-limit, joint-limit and
+contact rows by 3e's rule) and the cylinder and ellipsoid pairs' contact
+points card vs CPU under a conditioning tie rule (physics_ties: a point
+the float64 colliders move by more than the tolerance when the CPU's
+geom poses move by 1e-6, or place apart on the card's and the CPU's
+poses, is exempt; samples with one in contact at most 8 %: the scenes
+rest on ties by construction).
 Beside phase 4: both at Cube Solving's shapes, B1 at n 48 and 96 (random
 systems, B 512), both at the estimators' shapes (3m's operands), and both
 at the manipulation paths' (B 65 and 97 at nv 12, 15 and 18, and B 4097 at
 nv 18) and the box-pair paths' (B 129, 97, 129, 129 at nv 9, 18, 18, 23,
 and B 8193 at Allegro Cube's nv 18, P 59), and the last four paths' (B1
 alone at Acrobot's B 129 n 2 and Quadrotor's B 129 n 6; both at OP3
-Stand's B 97, P 29, and Quadruped Hill's B 61 and B 4097, P 36).
+Stand's B 97, P 29, and Quadruped Hill's B 61 and B 4097, P 36), and
+both at each physics family's largest row set (3q's inputs, B 4096).
 Then one JSON line with the kernels' launches, errors, times and bounds
 (top-level keys: the Quadruped path; "paths": all thirty, the iLQG
 ones at the line search's shapes with B1's derivative tangent under
@@ -347,6 +371,38 @@ ACROBOT_HANG = 3.14159     # 44: Acrobot's shoulder angle, hanging down
 HOVER_SAMPLES = 63
 HOVER_STEPS = 100
 HOVER_STEPS_PER_PLAN = 5
+# phases 3q and 50-54: the physics slice's families
+PHYS_FAMILIES = ('convex', 'tendons', 'equality', 'rk4', 'gravcomp')
+PHYS_SAMPLES = 4096        # perturbed states a model
+PHYS_SEED = 16             # 3q and 50-54 draw from a generator of their own,
+                           # so the earlier phases keep their inputs
+PHYS_STEPS = 100           # timed rollout steps
+PHYS_STATE_STEPS = 10      # 3q: rollout steps before the kernels' inputs
+PHYS_PROFILE_STEPS = 5     # the profiled rollout
+PHYS_CPU_SAMPLES = 256     # card vs CPU: samples and steps
+PHYS_CPU_STEPS = 20
+# 50-54's tolerances, |d| / max(1, |x|) over qpos and qvel, about 10x the
+# readings (H100): card vs CPU (f32 both) at most 1.09e-4 (plane-cylinder,
+# a sample chaotic at 1e-4), 1.29e-5 elsewhere; card f32 vs JAX's f64
+# golden 1.61e-5 (2.52e-5 on the CPU in f32) outside plane-cylinder's
+# first sample (7.94e-4; its trajectory moves 1.86e-2 when its state
+# moves 1e-7, so it is exempt)
+PHYS_CPU_TOL = 1e-3
+PHYS_GOLDEN_TOL = 2e-4
+PHYS_TIE = 1e-6            # physics_ties: the geom poses' move
+# 3q: samples with a tied point in contact, at most this share. The scenes
+# rest on ties by construction (a cylinder standing on its disc, whose
+# deepest rim point turns with rounding, a lying one on two rims, a
+# tessellated hull on a face): 5.0 % measured at plane-cylinder.
+PHYS_TIE_CAP = 0.08
+# 50-54: card vs CPU, chaotic samples at most this share of
+# PHYS_CPU_SAMPLES (none measured beyond 1e-3); the golden, at most this
+# many of its 4 samples.
+PHYS_CHAOS_CAP = 0.02
+PHYS_GOLDEN_EXEMPT = 1
+# 50-54: errors reported at these levels (samples beyond each, and of
+# them those not chaotic at it); the sensitivity is probed beyond the first
+PHYS_LEVELS = (1e-4, 1e-3, 1e-2)
 DEV = 'cuda'
 # NVIDIA H100 SXM: 3.35 TB/s of HBM, 67 TFLOP/s float32 outside the
 # tensor cores (data sheet, 700 W)
@@ -973,6 +1029,36 @@ def ptxas_lines(name, lib):
   return out, spilled
 
 
+def tool_start(tool):
+  """The start of a tools/*_check.py run: refuses without a card, prints
+  the card's line and torch's version, builds both kernels at once and
+  prints ptxas's lines of every instance. Returns (elapsed(phases), which
+  prints the seconds since the start, and the bytes the instances spill,
+  which the tool checks after its own checks)."""
+  import torch
+  if not torch.cuda.is_available():
+    raise SystemExit(f'{tool}: no CUDA device')
+  from mujoco_mpc_tpu_torch.ops import cuda_build
+  print(smi_line(), f'(torch {torch.__version__})')
+  torch.backends.cuda.matmul.allow_tf32 = False
+  start = time.perf_counter()
+
+  def elapsed(phases):
+    print(f'elapsed after {phases}: {time.perf_counter() - start:.1f} s')
+
+  kernels = ('chol_solve', 'newton')
+  with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+    libs = dict(zip(kernels, pool.map(cuda_build.build, kernels)))
+  elapsed('the build')
+  spilled = 0
+  for name in kernels:
+    lines, spill = ptxas_lines(name, libs[name])
+    spilled += spill
+    for line in lines:
+      print(line)
+  return elapsed, spilled
+
+
 def errors(got, want):
   """(max abs error, max abs error / max(1, max |want|))."""
   import torch
@@ -1279,8 +1365,10 @@ def main_path(spec, d0, samples, reps, gen, points=SPLINE_POINTS):
 
 def has_rows(m):
   """Whether a step of model m has constraint rows (contacts, joint
-  limits, frictionloss), so that it launches B2."""
-  return bool(m.collision_pairs or any(m.jnt_limited) or m.friction_dof)
+  limits, frictionloss, equality constraints, tendon limits), so that it
+  launches B2."""
+  return bool(m.collision_pairs or any(m.jnt_limited) or m.friction_dof
+              or any(m.eq_active0) or any(m.tendon_limited))
 
 
 def print_main_path(phase, name, samples, reps, r):
@@ -3354,6 +3442,7 @@ def box_box_margin(p1, m1, s1, p2, m2, s2):
   or the edge axis's sign and its supporting edges (an edge)."""
   import torch
   from mujoco_mpc_tpu_torch.physics import collision as col
+  from mujoco_mpc_tpu_torch.utils import math as tm
   inf = torch.full(p1.shape[:-1], float('inf'), dtype=p1.dtype)
   face, edge, axis_n = col._sat_axes(p1, m1, s1.expand(p1.shape), p2, m2,
                                      s2.expand(p2.shape))
@@ -3367,7 +3456,7 @@ def box_box_margin(p1, m1, s1, p2, m2, s2):
   mata, matb = torch.where(a1m, m1, m2), torch.where(a1m, m2, m1)
   ca, cb = torch.where(a1v, p1, p2), torch.where(a1v, p2, p1)
   axis_a = col._column(mata, torch.where(a_is_1, best_face, best_face - 3))
-  along = col._dot(cb - ca, axis_a)
+  along = tm.dot(cb - ca, axis_a)
   dots = torch.abs(col._mtv(matb, axis_a))
   face_m = torch.minimum(torch.minimum(_gap2(face), torch.abs(along)),
                          _gap2(dots))
@@ -3375,7 +3464,7 @@ def box_box_margin(p1, m1, s1, p2, m2, s2):
   axis_w = col._mv(m1, torch.gather(axis_n, -2, best_edge[..., None, None]
                                     .expand(best_edge.shape + (1, 3)))[..., 0,
                                                                        :])
-  sign_w = col._dot(p2 - p1, axis_w)
+  sign_w = tm.dot(p2 - p1, axis_w)
   i_e, j_e = best_edge // 3, best_edge % 3
   ar = torch.arange(3)
   sup1 = torch.where(ar == i_e[..., None], inf[..., None], torch.abs(
@@ -3416,6 +3505,7 @@ def box_pair_ties(m, d):
   import torch
   from mujoco_mpc_tpu_torch.physics import collision as col
   from mujoco_mpc_tpu_torch.physics.model import GeomType as G
+  from mujoco_mpc_tpu_torch.utils import math as tm
   (group,) = m.contact
   check(all(src.kind == 'pair' for src in group.sources),
         'a box-pair task with a hull cluster')
@@ -3433,9 +3523,9 @@ def box_pair_ties(m, d):
       tie[:] = (box_box_margin(p1, m1, s1, p2, m2, s2) < TIE_MARGIN)[:, None]
     elif (t1, t2) == (G.CAPSULE, G.CAPSULE):
       a1, a2 = m1[..., 2], m2[..., 2]
-      b = col._dot(a1, a2)
+      b = tm.dot(a1, a2)
       denom = torch.clamp(1.0 - b * b, min=1e-12)
-      bf, c = b * col._dot(a2, p1 - p2), col._dot(a1, p1 - p2)
+      bf, c = b * tm.dot(a2, p1 - p2), tm.dot(a1, p1 - p2)
       s = (bf - c) / denom
       err = F32_ULPS * (torch.linalg.vector_norm(p1, dim=-1)
                         + torch.linalg.vector_norm(p2, dim=-1)
@@ -3448,7 +3538,7 @@ def box_pair_ties(m, d):
       for _ in range(8):
         q = p2 + col._mv(m2, torch.clamp(
             col._mtv(m2, p1 + t[:, None] * axis - p2), -s2, s2))
-        t = torch.clamp(col._dot(q - p1, axis), -half, half)
+        t = torch.clamp(tm.dot(q - p1, axis), -half, half)
       for j, c in enumerate((p1 + t[:, None] * axis, p1 - half * axis,
                              p1 + half * axis)):
         tie[:, j] = sphere_box_margin(c, p2, m2, s2) < TIE_MARGIN
@@ -3987,6 +4077,429 @@ def last_phases(specs, cpu_specs, gen, elapsed):
   return main, rel_err
 
 
+def load_physics_models(device, dtype=None):
+  """{name: (family, Model, (qpos, qvel, ctrl) its test's state)} from
+  assets/physics_models.npz (tools/export_torch_snapshot.py
+  --physics-models), float32 unless `dtype`, in the families' order."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch import convert
+  from mujoco_mpc_tpu_torch.physics import model as model_lib
+  from mujoco_mpc_tpu_torch.tasks import registry
+  dtype = dtype or torch.float32
+  out = {}
+  with np.load(os.path.join(registry.ASSETS, 'physics_models.npz'),
+               allow_pickle=False) as z:
+    arrays = {k: z[k] for k in z.files}
+  for key in arrays:
+    if not key.endswith('/family'):
+      continue
+    name = key.split('/')[0]
+    m = model_lib.from_arrays(convert.group(arrays, f'{name}/model/'),
+                              json.loads(str(arrays[f'{name}/static'])),
+                              device=device, dtype=dtype)
+    out[name] = (str(arrays[key]), m, tuple(
+        torch.tensor(arrays[f'{name}/{k}'], dtype=dtype, device=device)
+        for k in ('qpos', 'qvel', 'ctrl')))
+  return dict(sorted(out.items(), key=lambda kv: PHYS_FAMILIES.index(
+      kv[1][0])))
+
+
+def physics_states(m, init, gen, bsz):
+  """bsz states of a physics model from its test's state: the first as
+  it is, the rest moved by 0.01 in qpos (quaternions renormalised) and
+  0.1 in qvel."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  qpos, qvel, ctrl = (x[None].repeat(bsz, 1) for x in init)
+  noise = torch.randn(qpos.shape, generator=gen, device=qpos.device)
+  qpos = qpos + 0.01 * torch.cat([torch.zeros_like(noise[:1]), noise[1:]])
+  noise = torch.randn(qvel.shape, generator=gen, device=qpos.device)
+  qvel = qvel + 0.1 * torch.cat([torch.zeros_like(noise[:1]), noise[1:]])
+  for t, adr in zip(m.jnt_type, m.jnt_qposadr):
+    quat = {0: adr + 3, 1: adr}.get(t)
+    if quat is not None:
+      q = qpos[:, quat:quat + 4]
+      qpos = torch.cat([qpos[:, :quat], q / torch.linalg.vector_norm(
+          q, dim=1, keepdim=True), qpos[:, quat + 4:]], 1)
+  return make_data(m, bsz).replace(qpos=qpos, qvel=qvel, ctrl=ctrl)
+
+
+def physics_controls(m, gen, steps, bsz):
+  """Controls (steps, bsz, nu) uniform in the actuators' ctrlrange where
+  limited, in [-1, 1] elsewhere."""
+  import torch
+  lim = torch.tensor(m.actuator_ctrllimited, dtype=torch.bool,
+                     device=m.device)
+  lo = torch.where(lim, m.actuator_ctrlrange[:, 0], -1.0)
+  hi = torch.where(lim, m.actuator_ctrlrange[:, 1], 1.0)
+  u = torch.rand((steps, bsz, m.nu), generator=gen, device=m.device)
+  return lo + (hi - lo) * u
+
+
+def physics_rollout(m, d, ctrl):
+  """d after len(ctrl) steps of forward.step under ctrl (T, B, nu)."""
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  for u in ctrl:
+    d = fwd.step(m, d.replace(ctrl=u))
+  return d
+
+
+def physics_launches(m):
+  """(B1, B2) launches a step: a forward's qM solve, then Euler's damping
+  system, or RK4's three more forward passes; B2 once a forward pass
+  where the model has rows."""
+  from mujoco_mpc_tpu_torch.physics.model import IntegratorType
+  forwards = 4 if m.opt.integrator == IntegratorType.RK4 else 1
+  return (forwards + (forwards == 1), forwards * int(has_rows(m)))
+
+
+def physics_points(m, d):
+  """(dist, pos, normal) of every condim group's stacked candidates of a
+  model from states d after kinematics."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import constraint
+  groups = constraint._contact_groups(m, d).values()
+  return tuple(torch.cat([getattr(s, k) for s in groups], 1)
+               for k in ('dist', 'pos3', 'normal'))
+
+
+def _points_apart(a, b):
+  """(B, P) bool: points of two stackings apart beyond the tolerances
+  (POINT_ATOL in depth, and where a's depth is a point's, in position;
+  NORMAL_ATOL in normal)."""
+  import torch
+  near = a[0] < 1e5
+  return ((torch.abs(a[0] - b[0]) > POINT_ATOL)
+          | (near & (torch.amax(torch.abs(a[1] - b[1]), -1) > POINT_ATOL))
+          | (near & (torch.amax(torch.abs(a[2] - b[2]), -1) > NORMAL_ATOL)))
+
+
+def physics_ties(m64, card_d, cpu_d, gen):
+  """(B, P) bool, the conditioning tie rule of 3q's contact points: the
+  float64 colliders on the CPU's geom poses against the same poses moved
+  by PHYS_TIE (m, rad) twice at random, and against the card's poses. A
+  point they move beyond the tolerances sits at a decision (a tied
+  argmax face, a k-deepest boundary, a flat or upright cylinder's rim
+  choice, a sphere on a cylinder's axis or edge)."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.utils import math as tm
+  bsz = cpu_d.qpos.shape[0]
+
+  def at(xpos, xmat):
+    return physics_points(m64, make_data(m64, bsz).replace(
+        geom_xpos=xpos.double().cpu(), geom_xmat=xmat.double().cpu()))
+  xpos, xmat = cpu_d.geom_xpos.double(), cpu_d.geom_xmat.double()
+  ref = at(xpos, xmat)
+  tied = _points_apart(ref, at(card_d.geom_xpos, card_d.geom_xmat))
+  cpu_gen = torch.Generator().manual_seed(int(torch.randint(
+      1 << 30, (1,), generator=gen, device=DEV)))
+  for _ in range(2):
+    dp = PHYS_TIE * torch.randn(xpos.shape, generator=cpu_gen,
+                                dtype=torch.float64)
+    w = PHYS_TIE * torch.randn(xpos.shape, generator=cpu_gen,
+                               dtype=torch.float64)
+    rot = tm.quat_to_mat(tm.quat_exp(w))
+    tied |= _points_apart(ref, at(xpos + dp, xmat @ rot))
+  return tied
+
+
+def check_physics_points(name, m, m_cpu, m64, d, gen):
+  """3q's contact points of a physics model: the card's stacking from
+  states d after kinematics against the CPU plain path's, float32 both;
+  outside physics_ties every point within POINT_ATOL in depth (and where
+  it is a point, in position) and NORMAL_ATOL in normal; samples with a
+  tied point in contact at most PHYS_TIE_CAP. Returns the line's text."""
+  import torch
+  from mujoco_mpc_tpu_torch.physics import forward as fwd
+  card_d = fwd.fwd_position(m, d)
+  card = [x.cpu() for x in physics_points(m, card_d)]
+  cpu_d = fwd.fwd_position(m_cpu, to_cpu(d))
+  cpu = physics_points(m_cpu, cpu_d)
+  tied = physics_ties(m64, card_d, cpu_d, gen)
+  bad = _points_apart(cpu, card) & ~tied
+  for b, k in torch.nonzero(bad)[:4].tolist():
+    print(f'phase 3q {name} point off: sample {b} point {k} card '
+          f'{[round(float(x), 7) for x in (card[0][b, k], *card[1][b, k])]}'
+          f' CPU {[round(float(x), 7) for x in (cpu[0][b, k], *cpu[1][b, k])]}')
+  check(not bool(bad.any()), f'{name}: {int(bad.sum())} contact points '
+        f'card vs CPU beyond the tolerances outside the ties')
+  free = ~tied
+  errs = [float(torch.where(free & mask, torch.abs(x), 0.0).max())
+          for x, mask in ((card[0] - cpu[0], free),
+                          (torch.amax(torch.abs(card[1] - cpu[1]), -1),
+                           cpu[0] < 1e5),
+                          (torch.amax(torch.abs(card[2] - cpu[2]), -1),
+                           cpu[0] < 1e5))]
+  tied_contact = (tied & (cpu[0] < 0)).any(-1)
+  cap = int(PHYS_TIE_CAP * tied.shape[0])
+  check(int(tied_contact.sum()) <= cap, f'{name}: '
+        f'{int(tied_contact.sum())} samples with a tied point in contact, '
+        f'more than {cap}')
+  return (f'{cpu[0].shape[1]} points a sample, {int((cpu[0] < 0).sum())} in '
+          f'contact; outside the ties depths, positions and normals max abs '
+          f'err {errs[0]:.3g}, {errs[1]:.3g}, {errs[2]:.3g} (tol '
+          f'{POINT_ATOL:g}, {POINT_ATOL:g}, {NORMAL_ATOL:g}); tied points '
+          f'{int(tied.sum())} of {tied.numel()}, samples with one in contact '
+          f'{int(tied_contact.sum())} (cap {cap})')
+
+
+def row_count(args, gargs, condims):
+  """Dense, one-hot and facet rows a sample of B2's operands."""
+  from mujoco_mpc_tpu_torch.ops import newton
+  return args[2].shape[1] + args[6].shape[1] + sum(
+      len(newton.PYRAMID_FACETS[c]) * g.shape[1]
+      for c, g in zip(condims, gargs[1::4]))
+
+
+def check_physics_kernels(name, m, m_cpu, m64, init, gen):
+  """Phase 3q for one physics model: both kernels on the inputs its step
+  gives them at PHYS_SAMPLES states (PHYS_STATE_STEPS steps of rollouts
+  from physics_states): B1 on qM and the Euler system within 1e-4
+  relative, B2 (where the model has rows) by 3e's rule, and the contact
+  points card vs CPU (check_physics_points). Returns (the states, the
+  (B1, B2) solver inputs, the (B1, B2) max abs errors)."""
+  import types
+  spec = types.SimpleNamespace(model=m, name=name)
+  d = physics_rollout(m, physics_states(m, init, gen, PHYS_SAMPLES),
+                      physics_controls(m, gen, PHYS_STATE_STEPS,
+                                       PHYS_SAMPLES))
+  spd_in, n_in = solver_inputs(spec, d)
+  spd_abs, spd_err = check_spd_inputs(spd_in, 1e-4, name)
+  _, euler_err = check_spd_inputs(euler_inputs(spec, d), 1e-4,
+                                  name + ' Euler')
+  line = (f'phase 3q {name} step inputs (B {PHYS_SAMPLES}, after '
+          f'{PHYS_STATE_STEPS} steps): chol_solve n {m.nv} rel err qM '
+          f'{spd_err:.3g}, Euler system {euler_err:.3g} (tol 1e-4)')
+  n_abs = None
+  if has_rows(m):
+    args, gargs, condims, dmasks = n_in
+    nbad, gap, n_abs, bad_gap = compare_newton(
+        args, gargs, cap=m.opt.iterations, tol=1e-5, condims=condims,
+        dmasks=dmasks)
+    newton_ok(f'{name} inputs', PHYS_SAMPLES, nbad, gap, bad_gap)
+    n_eq = int((args[5] > 0.5).sum()) // PHYS_SAMPLES
+    line += (f'; newton: {args[2].shape[1]} dense rows ({n_eq} '
+             f'equality), {args[6].shape[1]} one-hot, condims {condims} P '
+             f'{[g.shape[1] for g in gargs[1::4]]}, cap {m.opt.iterations}: '
+             + newton_line(nbad, PHYS_SAMPLES, gap, bad_gap))
+  else:
+    line += '; no constraint rows, no newton'
+  print(line)
+  if m.collision_pairs:
+    print(f'phase 3q {name} contact points, card vs the CPU plain path: '
+          + check_physics_points(name, m, m_cpu, m64, d, gen))
+  return d, (spd_in, n_in), (spd_abs, n_abs)
+
+
+def check_physics(gen):
+  """Phase 3q over every physics model. Returns ({name: (family, card
+  model, CPU model, test state)}, {name: check_physics_kernels' result})."""
+  import torch
+  card, cpu = load_physics_models(DEV), load_physics_models('cpu')
+  cpu64 = load_physics_models('cpu', torch.float64)
+  models = {n: (f, m, cpu[n][1], init) for n, (f, m, init) in card.items()}
+  out = {name: check_physics_kernels(name, m, m_cpu, cpu64[name][1], init,
+                                     gen)
+         for name, (_, m, m_cpu, init) in models.items()}
+  torch.cuda.synchronize()
+  return models, out
+
+
+def physics_timing(models, checked, kern):
+  """Phase 4's rows of the physics families: both kernels at each
+  family's largest row set (3q's inputs of its model with the most rows a
+  sample), checked against their plain versions and timed with their
+  bounds. Fills kern['physics_<family>'] and returns their (B1, B2) max
+  abs errors and the models timed."""
+  errs, timed = {}, {}
+  for fam in PHYS_FAMILIES:
+    rows = {n: row_count(*checked[n][1][1][:2], checked[n][1][1][2])
+            for n, (f, m, _, _) in models.items()
+            if f == fam and has_rows(m)}
+    name = max(rows, key=rows.get)
+    m = models[name][1]
+    spd_in, (args, gargs, condims, dmasks) = checked[name][1]
+    path = 'physics_' + fam
+    kern[path], e = path_kernels(
+        f'4 {path} ({name}, B {PHYS_SAMPLES}, {rows[name]} rows a sample)',
+        spd_in, args, gargs, dict(cap=m.opt.iterations, tol=1e-5,
+                                  condims=condims, dmasks=dmasks), 1e-4)
+    errs[path], timed[path] = e[:2], name
+  return errs, timed
+
+
+def physics_golden(name, m):
+  """The golden's PHYSICS_GOLDEN_BATCH states of a model stepped on the
+  card under its controls against JAX's float64 trajectory: each sample's
+  largest |card - JAX| / max(1, |JAX|) over qpos and qvel and the steps,
+  and its sensitivity (physics_sensitivity)."""
+  import numpy as np
+  import torch
+  from mujoco_mpc_tpu_torch.physics.model import make_data
+  from mujoco_mpc_tpu_torch.tasks import registry
+  with np.load(os.path.join(registry.ASSETS, 'physics_features_golden.npz'),
+               allow_pickle=False) as z:
+    g = {k: z[k] for k in z.files if k.startswith(name + '/')}
+
+  def t(x):
+    return torch.tensor(x, dtype=torch.float32, device=DEV)
+  ctrl = g[f'{name}/ctrl']
+  d0 = make_data(m, ctrl.shape[1]).replace(qpos=t(g[f'{name}/in_qpos']),
+                                           qvel=t(g[f'{name}/in_qvel']))
+  d, err = d0, torch.zeros(ctrl.shape[1], dtype=torch.float64)
+  for k in range(ctrl.shape[0]):
+    d = physics_rollout(m, d, t(ctrl[k:k + 1]))
+    want = d.replace(**{f: torch.tensor(g[f'{name}/{f}'][k])
+                        for f in ('qpos', 'qvel')})
+    err = torch.maximum(err, _state_err(d, want))
+  return err, physics_sensitivity(name, to_cpu(d0), torch.tensor(ctrl),
+                                  err > PHYS_LEVELS[0])
+
+
+def _state_err(a, b):
+  """Per sample, max |a - b| / max(1, |b|) over qpos and qvel (b on the
+  CPU)."""
+  import torch
+  return torch.stack([torch.amax(
+      torch.abs(getattr(a, f).cpu().double() - getattr(b, f).double())
+      / torch.clamp(torch.abs(getattr(b, f).double()), min=1.0), -1)
+                      for f in ('qpos', 'qvel')]).amax(0)
+
+
+def physics_sensitivity(name, d, ctrl, which):
+  """(B,) float64: for the samples `which` of CPU states d under controls
+  ctrl, how far their float64 trajectory moves (_state_err, the larger of
+  two draws) when qpos and qvel move by 1e-7; 0 elsewhere. A sample is
+  chaotic at a level its sensitivity exceeds: a rocking contact at a tie
+  (a cylinder on its disc's rim: its deepest rim point turns with
+  rounding) makes two float32 programs part there."""
+  import dataclasses
+  import torch
+  out = torch.zeros(which.shape, dtype=torch.float64)
+  if not bool(which.any()):
+    return out
+  m64 = load_physics_models('cpu', torch.float64)[name][1]
+  idx = torch.nonzero(which)[:, 0]
+  d = d.replace(**{f.name: getattr(d, f.name)[idx].double()
+                   for f in dataclasses.fields(d)
+                   if getattr(d, f.name) is not None})
+  u = ctrl[:, idx].double()
+  base = physics_rollout(m64, d, u)
+  gen = torch.Generator().manual_seed(1)
+  for _ in range(2):
+    moved = d.replace(
+        qpos=d.qpos + 1e-7 * torch.randn(d.qpos.shape, generator=gen,
+                                          dtype=torch.float64),
+        qvel=d.qvel + 1e-7 * torch.randn(d.qvel.shape, generator=gen,
+                                          dtype=torch.float64))
+    out[idx] = torch.maximum(out[idx],
+                             _state_err(physics_rollout(m64, moved, u), base))
+  return out
+
+
+def exempt_check(name, what, err, sens, tol, cap):
+  """Holds per-sample errors to tol, exempting a sample beyond it only if
+  it is chaotic at tol, at most cap of them. Returns (the largest error of
+  the samples not exempt, the number exempt, the levels' text: at each of
+  PHYS_LEVELS the samples beyond it and of them those not chaotic at
+  it)."""
+  import torch
+  ill = (err > tol) & (sens > tol)
+  bad = (err > tol) & ~ill
+  check(not bool(bad.any()), f'{name}: {what} '
+        f'{float(err[bad].max()) if bad.any() else 0:.3g} > {tol:g} at '
+        f'{int(bad.sum())} samples that are not chaotic')
+  check(int(ill.sum()) <= cap, f'{name}: {what}: {int(ill.sum())} chaotic '
+        f'samples exempt, more than {cap}')
+  levels = ', '.join(f'{lv:g} {int((err > lv).sum())}/'
+                     f'{int(((err > lv) & (sens <= lv)).sum())}'
+                     for lv in PHYS_LEVELS)
+  return (float(torch.where(ill, 0.0, err).max()), int(ill.sum()),
+          f'max {float(err.max()):.3g}, beyond/not chaotic at {levels}')
+
+
+def physics_model_phase(phase, name, m, m_cpu, init, gen):
+  """Phase 50-54's run of one physics model: the timed PHYS_SAMPLES x
+  PHYS_STEPS rollout with the launch counts, the profiled rollout, card
+  vs CPU and the golden. Returns (launches, the rollout's ms, ops a step,
+  busy share, card-vs-CPU error, golden error)."""
+  import torch
+  d0 = physics_states(m, init, gen, PHYS_SAMPLES)
+  ctrl = physics_controls(m, gen, PHYS_STEPS, PHYS_SAMPLES)
+  physics_rollout(m, d0, ctrl[:2])                   # warm-up
+  torch.cuda.synchronize()
+  _reset_counts()
+  start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+  start.record()
+  d = physics_rollout(m, d0, ctrl)
+  end.record()
+  end.synchronize()
+  ms = start.elapsed_time(end)
+  launches = _launch_counts()
+  b1, b2 = physics_launches(m)
+  check(launches == {'chol_solve': b1 * PHYS_STEPS,
+                     'newton': b2 * PHYS_STEPS},
+        f'{name}: launches {launches}, predicted {b1} and {b2} a step')
+  check(bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()),
+        f'{name}: a state not finite after {PHYS_STEPS} steps')
+  short = ctrl[:PHYS_PROFILE_STEPS]
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  physics_rollout(m, d0, short)
+  torch.cuda.synchronize()
+  wall = time.perf_counter() - t0
+  dev_us, ops, _ = device_us(lambda: physics_rollout(m, d0, short), reps=1,
+                             top=1, warm=False, host=False)
+  busy = dev_us / 1e6 / wall
+  # card vs CPU on the first PHYS_CPU_SAMPLES samples
+  dc = batch_of(d0, PHYS_CPU_SAMPLES)
+  cc = ctrl[:PHYS_CPU_STEPS, :PHYS_CPU_SAMPLES]
+  got = physics_rollout(m, dc, cc)
+  want = physics_rollout(m_cpu, to_cpu(dc), cc.cpu())
+  err = _state_err(got, want)                       # (PHYS_CPU_SAMPLES,)
+  cpu_err, cpu_ill, cpu_lv = exempt_check(
+      name, 'card vs CPU', err, physics_sensitivity(
+          name, to_cpu(dc), cc.cpu(), err > PHYS_LEVELS[0]),
+      PHYS_CPU_TOL, int(PHYS_CHAOS_CAP * PHYS_CPU_SAMPLES))
+  gold, gold_ill, gold_lv = exempt_check(
+      name, 'card vs JAX golden', *physics_golden(name, m), PHYS_GOLDEN_TOL,
+      PHYS_GOLDEN_EXEMPT)
+  print(f'phase {phase} {name}: {PHYS_SAMPLES} x {PHYS_STEPS} steps in '
+        f'{ms:.1f} ms ({ms / PHYS_STEPS:.3f} ms a step); launches chol_solve '
+        f'{launches["chol_solve"]}, newton {launches["newton"]} (predicted '
+        f'{b1} and {b2} a step); profiled {PHYS_PROFILE_STEPS} steps: '
+        f'{ops / PHYS_PROFILE_STEPS:.0f} device ops a step, device busy '
+        f'{100 * busy:.1f}% of {wall * 1e3:.1f} ms; card vs CPU '
+        f'({PHYS_CPU_SAMPLES} x {PHYS_CPU_STEPS}) max err / max(1, |CPU|) '
+        f'{cpu_err:.3g} (tol {PHYS_CPU_TOL:g}) outside {cpu_ill} exempt '
+        f'chaotic samples ({cpu_lv}); golden vs JAX float64 (4 x 20) '
+        f'{gold:.3g} (tol {PHYS_GOLDEN_TOL:g}) outside {gold_ill} exempt '
+        f'({gold_lv}); states finite')
+  return launches, ms, ops / PHYS_PROFILE_STEPS, busy, cpu_err, gold
+
+
+def physics_phases(models, gen, elapsed):
+  """Phases 50-54: every model of each family (physics_model_phase).
+  Returns ({path: {'launches': summed over the family}}, {path: the
+  family's worst golden error})."""
+  main, gold = {}, {}
+  for phase, fam in enumerate(PHYS_FAMILIES, 50):
+    path = 'physics_' + fam
+    total = {'chol_solve': 0, 'newton': 0}
+    worst = 0.0
+    for name, (f, m, m_cpu, init) in models.items():
+      if f != fam:
+        continue
+      launches, *_, g = physics_model_phase(phase, name, m, m_cpu, init, gen)
+      total = {k: total[k] + launches[k] for k in total}
+      worst = max(worst, g)
+    main[path], gold[path] = {'launches': total}, worst
+    elapsed(str(phase))
+  return main, gold
+
+
 def main():
   import torch
   if not torch.cuda.is_available():
@@ -4142,6 +4655,9 @@ def main():
   lasts_cpu = {n: registry.get_task(n, device='cpu') for n in LAST_TASKS}
   lasts_in = {n: check_last_kernels(lasts[n], lasts_cpu[n], gen)
               for n in LAST_TASKS}
+  # the physics slice's models' step inputs and contact points (3q)
+  phys_gen = torch.Generator(device=DEV).manual_seed(PHYS_SEED)
+  phys, phys_in = check_physics(phys_gen)
 
   elapsed('1-3')
 
@@ -4183,6 +4699,7 @@ def main():
   manip_errs = manipulation_timing(manip, manip_in, kern)
   box_errs = box_timing(boxes, boxes_in, kern)
   last_errs = last_timing(lasts, lasts_in, kern)
+  phys_errs, _ = physics_timing(phys, phys_in, kern)
 
   elapsed('4')
 
@@ -4325,6 +4842,9 @@ def main():
   # 44-49. the last four tasks
   last_main, last_rel = last_phases(lasts, lasts_cpu, gen, elapsed)
 
+  # 50-54. the physics slice's families
+  phys_main, phys_gold = physics_phases(phys, phys_gen, elapsed)
+
   def entry(name, path, launches, err, k=None):
     k = k or kern[path]
     short = 'chol' if name == 'chol_solve' else 'newton'
@@ -4422,12 +4942,15 @@ def main():
       paths[p] = est_entry(name, p)
     for main_, errs_, rel_ in ((manip_main, manip_errs, manip_rel),
                                (box_main, box_errs, box_rel),
-                               (last_main, last_errs, last_rel)):
+                               (last_main, last_errs, last_rel),
+                               (phys_main, phys_errs, {})):
       for p, r in main_.items():
         paths[p] = entry(name, p, r['launches'],
                          errs_[p][0 if name == 'chol_solve' else 1])
         if p in rel_:
           paths[p]['golden_rel_err'] = rel_[p]
+        if p in phys_gold:
+          paths[p]['golden_jax_err'] = phys_gold[p]
     out.append({'name': name, 'route': 'cuda', 'source': source,
                 'replaces': replaces, **paths['quadruped'], 'paths': paths})
   print(json.dumps({'kernels': out}))

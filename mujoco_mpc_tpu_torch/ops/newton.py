@@ -146,7 +146,8 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
   with per-sample done masks and frozen finished samples, which is what
   the vmapped while_loop computes, and never reads a tensor value on the
   host, so on the card it queues without a sync. On the CPU it stops once
-  every sample is done: the iterations left would change nothing."""
+  every sample is done, or once an iteration leaves its whole state
+  unchanged: the iterations left would change nothing."""
   bsz, nv = qs.shape
   n_dense = j.shape[1]
   j, aref, dvec, eqf, gsizes = expand_groups(j, aref, dvec, eqf, gargs,
@@ -236,6 +237,7 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
     small = (torch.linalg.vector_norm(step, dim=-1)
              <= tol * (1.0 + torch.linalg.vector_norm(qacc_new, dim=-1)))
     live = ~done
+    state = (qacc, jar_d, jar_s, jar_f, done, prev_exact)
     qacc = torch.where(live[:, None], qacc_new, qacc)
     jar_d = torch.where(live[:, None], jar_d_new, jar_d)
     jar_s = torch.where(live[:, None], jar_s_new, jar_s)
@@ -244,7 +246,11 @@ def newton_reference(qm, qs, j, aref, dvec, eqf, s_aref, s_dvec, dof, sign,
     prev_exact_new = torch.where(live, exact, prev_exact)
     done = done | ((exact & prev_exact) | small)
     prev_exact = prev_exact_new
-    if not qs.is_cuda and bool(torch.all(done)):
+    if not qs.is_cuda and (bool(torch.all(done)) or all(
+        a is b or torch.equal(a, b) for a, b in zip(
+            state, (qacc, jar_d, jar_s, jar_f, done, prev_exact)))):
+      # every sample done, or an iteration that changed nothing: the
+      # iterations left would repeat it exactly
       break
   jar_groups = []
   off = n_dense

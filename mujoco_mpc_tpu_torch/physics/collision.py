@@ -4,14 +4,20 @@ Port of mujoco_mpc_tpu/physics/collision.py: ContactPoint :32,
 _make_frame :44, _make_frames :59, _plane_sphere :81, _plane_capsule :87,
 _plane_box :103, _sphere_sphere :116, _closest_on_segment :125,
 _segment_closest :130, _sphere_box :145, _box_box_sat :170,
-_capsule_box :376, the convex-hull colliders
+_capsule_box :376, the cylinder and ellipsoid colliders (_plane_cylinder
+:289, _plane_ellipsoid :322, _sphere_cylinder :336,
+_cylinder_axis_contact :472), the convex-hull colliders
 (_points_vs_halfspaces :395, _hull_world :416, _plane_mesh :426,
 _sphere_mesh :439, _box_mesh :452, _mesh_mesh :504), the height-field
 colliders (_hfield_surface :515, _hfield_point :552, _hfield_collide
-:568), narrowphase :604 (plane against sphere, capsule, box and mesh;
-height field against sphere, capsule, cylinder, ellipsoid and box;
-sphere against sphere, capsule, box and mesh; box against box and mesh;
-capsule against capsule, box and mesh; mesh against mesh), the batched
+:568), narrowphase :604 (plane against sphere, capsule, cylinder,
+ellipsoid, box and mesh; height field against sphere, capsule, cylinder,
+ellipsoid and box; sphere against sphere, capsule, ellipsoid, cylinder,
+box and mesh; capsule against capsule, ellipsoid, cylinder, box and
+mesh; ellipsoid and cylinder against box through _box_mesh with the
+roles swapped, and against ellipsoids, cylinders and meshes through
+_mesh_mesh on their tessellated hulls, plus the axis contact for two
+cylinders; box against box and mesh; mesh against mesh), the batched
 hull clusters
 (_hull_sig :712, contact_clusters :717, _hulls_local :762,
 plane_mesh_batched :783, box_mesh_batched :809, mesh_mesh_batched :874
@@ -20,8 +26,9 @@ with its broadphase, capsule_mesh_batched :949, sphere_mesh_batched
 pair emits a fixed number of candidate points (inactive ones are masked
 by distance later), so every shape is static; here each field carries a
 leading batch dimension B. The segment, capsule and box-box colliders
-take any leading dimensions (...), so that the pairs of one kind can be
-stacked; narrowphase calls them a pair at a time, as JAX does.
+take any leading dimensions (...), and so do the cylinder and ellipsoid
+colliders, so that the pairs of one kind can be stacked; narrowphase
+calls them a pair at a time, as JAX does.
 
 Two selection rules are mirrored exactly, not unified: the unrolled
 colliders take the normal of the first face at the maximum (argmax), the
@@ -37,9 +44,8 @@ triangle under it, each cell split along its (0, 0)-(1, 1) diagonal, and
 a point beyond the grid's extent (by more than a cell) gets depth _BIG.
 The cell indices are per sample, so the grid is gathered per point.
 
-Not ported yet, and refused where reached: the cylinder and ellipsoid
-pairs (ROADMAP A6) and a height field against a mesh (A7; JAX emits no
-point there).
+Not ported yet, and refused where reached: a height field against a
+mesh (ROADMAP A7; JAX emits no point there).
 """
 
 from __future__ import annotations
@@ -89,12 +95,8 @@ def _make_frame(n: torch.Tensor):
   return _make_frames(n)
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  return torch.sum(a * b, -1)
-
-
 def _plane_sphere(pp, pn, c, r):
-  dist = _dot(pn, c - pp) - r
+  dist = tm.dot(pn, c - pp) - r
   pos = c - pn * (r + 0.5 * dist)[..., None]
   return [ContactPoint(dist, pos, pn)]
 
@@ -102,7 +104,7 @@ def _plane_sphere(pp, pn, c, r):
 def _plane_capsule(pp, pn, c, axis, half, r):
   # t1 along the capsule axis projected onto the plane; makeFrame's t1
   # where the capsule stands normal to the plane
-  t = axis - pn * _dot(pn, axis)[..., None]
+  t = axis - pn * tm.dot(pn, axis)[..., None]
   tn = torch.linalg.vector_norm(t, dim=-1, keepdim=True)
   t1_mf, _ = _make_frame(pn)
   t1 = torch.where(tn > 1e-8, t / torch.clamp(tn, min=1e-12), t1_mf)
@@ -117,7 +119,7 @@ def _plane_box(pp, pn, c, mat, size, signs):
   """The 8 box corners as candidates; `signs` (8, 3) in JAX's corner
   order (x outermost, z innermost)."""
   corners = c[:, None, :] + (signs * size) @ mat.transpose(-1, -2)  # (B, 8, 3)
-  dist = _dot(pn[:, None, :], corners - pp[:, None, :])             # (B, 8)
+  dist = tm.dot(pn[:, None, :], corners - pp[:, None, :])             # (B, 8)
   pos = corners - (0.5 * dist)[..., None] * pn[:, None, :]
   return [ContactPoint(dist[:, k], pos[:, k], pn) for k in range(8)]
 
@@ -133,7 +135,7 @@ def _sphere_sphere(c1, r1, c2, r2):
 
 def _closest_on_segment(p, c, axis, half):
   """The point of the segment c +- half axis closest to p (..., 3)."""
-  t = torch.clamp(_dot(p - c, axis), -half, half)
+  t = torch.clamp(tm.dot(p - c, axis), -half, half)
   return c + t[..., None] * axis
 
 
@@ -143,9 +145,9 @@ def _segment_closest(c1, a1, h1, c2, a2, h2):
   the denominator 1 - (a1.a2)^2 floored at 1e-12 (parallel axes: s 0
   before its re-clamp)."""
   r = c1 - c2
-  b = _dot(a1, a2)
-  cdot = _dot(a1, r)
-  f = _dot(a2, r)
+  b = tm.dot(a1, a2)
+  cdot = tm.dot(a1, r)
+  f = tm.dot(a2, r)
   denom = torch.clamp(1.0 - b * b, min=1e-12)
   s = torch.clamp((b * f - cdot) / denom, -h1, h1)
   t = torch.clamp(f + s * b, -h2, h2)
@@ -188,6 +190,115 @@ def _sphere_box(c, r, bc, bmat, bsize):
   n = torch.einsum('...ij,...j->...i', bmat, n_local)
   surface = bc + torch.einsum('...ij,...j->...i', bmat, surface_local)
   return [ContactPoint(dist, surface + 0.5 * dist[..., None] * n, n)]
+
+
+def _plane_cylinder(pp, pn, c, mat, size):
+  """Plane vs cylinder (centre c (..., 3), frame mat (..., 3, 3), size
+  (radius, half length)): four points, the deepest rim point of each end
+  disc, then the opposite rim point of each disc, masked (dist 1e6)
+  unless the cylinder lies flat (|axis . n| < 0.05). The radial direction
+  is the plane normal's part across the axis, the frame's x where the
+  axis stands along the normal."""
+  r, half = size[0], size[1]
+  axis = mat[..., 2]
+  a_dot = tm.dot(pn, axis)
+  rad = pn - a_dot[..., None] * axis
+  ln = torch.linalg.vector_norm(rad, dim=-1, keepdim=True)
+  rad_n = torch.where(ln > 1e-8, rad / torch.clamp(ln, min=1e-12),
+                      mat[..., 0])
+  pts = []
+  for send in (-1.0, 1.0):
+    deep = c + (send * half) * axis - r * rad_n
+    dist = tm.dot(pn, deep - pp)
+    pts.append(ContactPoint(dist, deep - (0.5 * dist)[..., None] * pn, pn))
+  flat = torch.abs(a_dot) < 0.05
+  for send in (-1.0, 1.0):
+    other = c + (send * half) * axis + r * rad_n
+    dist0 = tm.dot(pn, other - pp)
+    dist = torch.where(flat, dist0, 1e6)
+    pts.append(ContactPoint(dist, other - (0.5 * dist0)[..., None] * pn, pn))
+  return pts
+
+
+def _plane_ellipsoid(pp, pn, c, mat, size):
+  """Plane vs ellipsoid: the support point along -n, c - mat (s^2 nl) /
+  sqrt(nl . s^2 nl) with nl = mat^T n."""
+  nl = _mtv(mat, pn)
+  s2nl = size * size * nl
+  denom = torch.sqrt(torch.clamp(tm.dot(nl, s2nl), min=1e-18))
+  deep = c - _mv(mat, s2nl / denom[..., None])
+  dist = tm.dot(pn, deep - pp)
+  return [ContactPoint(dist, deep - (0.5 * dist)[..., None] * pn, pn)]
+
+
+def _sphere_cylinder(c, r, cc, cmat, csize):
+  """Sphere (centre c (..., 3), radius r) vs cylinder (centre cc, frame
+  cmat, size (radius, half length)) in closed form, in the cylinder's
+  frame: outside, the closest point of the solid cylinder (side, end disc
+  or rim); inside, the exit through the nearer of the side wall and the
+  end disc. One point, the normal from the sphere to the cylinder."""
+  rad_c, half = csize[0], csize[1]
+  local = _mtv(cmat, c - cc)
+  rho = torch.linalg.vector_norm(local[..., :2], dim=-1)
+  e_x = torch.tensor([1.0, 0.0], dtype=c.dtype, device=c.device)
+  radial = torch.where((rho > 1e-9)[..., None],
+                       local[..., :2] / torch.clamp(rho, min=1e-12)[..., None],
+                       e_x)
+  za = local[..., 2]
+  outside = (rho > rad_c) | (torch.abs(za) > half)
+  q_out = torch.cat([torch.minimum(rho, rad_c)[..., None] * radial,
+                     torch.clamp(za, -half, half)[..., None]], -1)
+  delta = local - q_out
+  ln = torch.linalg.vector_norm(delta, dim=-1)
+  n_out = delta / torch.clamp(ln, min=1e-12)[..., None]
+  d_out = ln - r
+  side = (rad_c - rho) < (half - torch.abs(za))
+  zsgn = torch.where(za >= 0, 1.0, -1.0).to(c.dtype)
+  zero = torch.zeros_like(za)[..., None]
+  e_z = torch.tensor([0.0, 0.0, 1.0], dtype=c.dtype, device=c.device)
+  n_in = torch.where(side[..., None], torch.cat([radial, zero], -1),
+                     e_z * zsgn[..., None])
+  q_in = torch.where(side[..., None],
+                     torch.cat([rad_c * radial, za[..., None]], -1),
+                     torch.cat([rho[..., None] * radial,
+                                (zsgn * half)[..., None]], -1))
+  d_in = torch.where(side, rho - rad_c, torch.abs(za) - half) - r
+  n_l = torch.where(outside[..., None], n_out, n_in)
+  q_l = torch.where(outside[..., None], q_out, q_in)
+  dist = torch.where(outside, d_out, d_in)
+  n_w = _mv(cmat, n_l)                                   # cylinder -> sphere
+  pos = cc + _mv(cmat, q_l) + (0.5 * dist)[..., None] * n_w
+  return [ContactPoint(dist, pos, -n_w)]
+
+
+def _cylinder_axis_contact(p1, m1, s1, p2, m2, s2):
+  """Two cylinders' side-side contact from the closest points of their
+  axes (JAX's clamped solve, as _segment_closest): valid where both
+  closest points lie inside 99 % of their half lengths and the common
+  perpendicular is within |cos| 0.3 of orthogonal to both axes, else
+  dist 1e9. The normal points g1 -> g2."""
+  a1, a2 = m1[..., 2], m2[..., 2]
+  h1, h2 = s1[1], s2[1]
+  r = p1 - p2
+  b = tm.dot(a1, a2)
+  cdot = tm.dot(a1, r)
+  f = tm.dot(a2, r)
+  denom = torch.clamp(1.0 - b * b, min=1e-12)
+  s = torch.clamp((b * f - cdot) / denom, -h1, h1)
+  t = torch.clamp(f + s * b, -h2, h2)
+  s = torch.clamp(t * b - cdot, -h1, h1)
+  q1 = p1 + s[..., None] * a1
+  q2 = p2 + t[..., None] * a2
+  diff = q2 - q1
+  ln = torch.linalg.vector_norm(diff, dim=-1)
+  n = diff / torch.clamp(ln, min=1e-12)[..., None]
+  interior = (torch.abs(s) < 0.99 * h1) & (torch.abs(t) < 0.99 * h2)
+  side = (torch.abs(tm.dot(n, a1)) < 0.3) & (torch.abs(tm.dot(n, a2)) < 0.3)
+  valid = interior & side & (ln > 1e-9)
+  gap = ln - s1[0] - s2[0]
+  dist = torch.where(valid, gap, 1e9)
+  pos = q1 + n * (s1[0] + 0.5 * gap)[..., None]
+  return [ContactPoint(dist, pos, n)]
 
 
 def _first_argmax(x: torch.Tensor) -> torch.Tensor:
@@ -279,7 +390,7 @@ def _box_box_sat(p1, m1, s1, p2, m2, s2):
   cb, matb, sb = (torch.where(a1v, p2, p1), torch.where(a1m, m2, m1),
                   torch.where(a1v, s2, s1))
   axis_a = _column(mata, ia)
-  sign_a = torch.sign(_dot(cb - ca, axis_a))
+  sign_a = torch.sign(tm.dot(cb - ca, axis_a))
   n_ref = axis_a * sign_a[..., None]               # A -> B
   dots = _mtv(matb, n_ref)
   jb = _first_argmax(torch.abs(dots))
@@ -314,7 +425,7 @@ def _box_box_sat(p1, m1, s1, p2, m2, s2):
   axis_e = torch.gather(axis_n, -2, best_edge[..., None, None].expand(
       best_edge.shape + (1, 3)))[..., 0, :]
   axis_w = _mv(m1, axis_e)
-  axis_w = axis_w * torch.sign(_dot(p2 - p1, axis_w))[..., None]
+  axis_w = axis_w * torch.sign(tm.dot(p2 - p1, axis_w))[..., None]
   ar3 = torch.arange(3, device=p1.device)
   sup1 = torch.where(ar3 == i_e[..., None], 0.0,
                      torch.sign(_mtv(m1, axis_w)))
@@ -338,7 +449,7 @@ def _capsule_box(c, axis, half, r, bc, bmat, bsize):
     p = c + t[..., None] * axis
     local = torch.clamp(_mtv(bmat, p - bc), -bsize, bsize)
     q = bc + _mv(bmat, local)
-    t = torch.clamp(_dot(q - c, axis), -half, half)
+    t = torch.clamp(tm.dot(q - c, axis), -half, half)
   ha = half[..., None] * axis
   ends = (c + t[..., None] * axis, c - ha, c + ha)
   return [ContactPoint(x.dist, x.pos, -x.normal)
@@ -473,7 +584,7 @@ def _hfield_point(grid, size, p1, m1, c, r):
   lc = _mtv(m1, c - p1)
   z, n, inside = _hfield_surface(grid, size, lc[..., 0], lc[..., 1])
   p_surf = torch.stack([lc[..., 0], lc[..., 1], z], -1)
-  dist = torch.where(inside, _dot(n, lc - p_surf) - r, _BIG)
+  dist = torch.where(inside, tm.dot(n, lc - p_surf) - r, _BIG)
   n_w = _mv(m1, n)
   return ContactPoint(dist, c - n_w * (r + 0.5 * dist)[..., None], n_w)
 
@@ -484,9 +595,12 @@ def _hfield_collide(m: Model, d: Data, g1: int, g2: int):
   the cylinder as spheres of its radius), an ellipsoid's centre with its
   least semi-axis (1), and a box's 4 deepest of its 8 corners (the lower
   corner index first among equal depths: jnp.argsort is stable)."""
+  t2 = m.geom_type[g2]
+  if t2 not in (GeomType.SPHERE, GeomType.CAPSULE, GeomType.CYLINDER,
+                GeomType.ELLIPSOID, GeomType.BOX):
+    raise _unported(int(GeomType.HFIELD), t2)
   grid, size = m.geom_hfield[g1]
   p1, m1 = d.geom_xpos[:, g1], d.geom_xmat[:, g1]
-  t2 = m.geom_type[g2]
   p2, m2, s2 = d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2]
 
   def point(c, r):
@@ -498,23 +612,19 @@ def _hfield_collide(m: Model, d: Data, g1: int, g2: int):
     return [point(p2 + ha, s2[0]), point(p2 - ha, s2[0])]
   if t2 == GeomType.ELLIPSOID:
     return [point(p2, torch.amin(s2))]
-  if t2 == GeomType.BOX:
-    corners = p2[:, None, :] + (m.idx.box_signs * s2) @ m2.transpose(-1, -2)
-    cp = _hfield_point(grid, size, p1[:, None], m1[:, None], corners, 0.0)
-    idx = _deepest(cp.dist, 4)                                # (B, 4)
-    dist = torch.gather(cp.dist, 1, idx)
-    pos, normal = _take(cp.pos, idx), _take(cp.normal, idx)
-    return [ContactPoint(dist[:, k], pos[:, k], normal[:, k])
-            for k in range(4)]
-  raise _unported(int(GeomType.HFIELD), t2)
+  corners = p2[:, None, :] + (m.idx.box_signs * s2) @ m2.transpose(-1, -2)
+  cp = _hfield_point(grid, size, p1[:, None], m1[:, None], corners, 0.0)
+  idx = _deepest(cp.dist, 4)                                  # (B, 4)
+  dist = torch.gather(cp.dist, 1, idx)
+  pos, normal = _take(cp.pos, idx), _take(cp.normal, idx)
+  return [ContactPoint(dist[:, k], pos[:, k], normal[:, k])
+          for k in range(4)]
 
 
 def _unported(t1: int, t2: int) -> NotImplementedError:
-  mesh = {int(GeomType.MESH), int(GeomType.HFIELD)}
-  item = 'A7' if t1 in mesh or t2 in mesh else 'A6'
   return NotImplementedError(
       f'{GeomType(t1).name.lower()}-{GeomType(t2).name.lower()} contacts '
-      f'are not ported yet (ROADMAP {item})')
+      f'are not ported yet (ROADMAP A7)')
 
 
 def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
@@ -531,6 +641,10 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
       return _plane_capsule(p1, pn, p2, m2[..., 2], s2[1], s2[0])
     if t2 == GeomType.BOX:
       return _plane_box(p1, pn, p2, m2, s2, m.idx.box_signs)
+    if t2 == GeomType.CYLINDER:
+      return _plane_cylinder(p1, pn, p2, m2, s2)
+    if t2 == GeomType.ELLIPSOID:
+      return _plane_ellipsoid(p1, pn, p2, m2, s2)
     if t2 == GeomType.MESH:
       return _plane_mesh(m, d, p1, pn, g2)
   elif t1 == GeomType.HFIELD:
@@ -541,6 +655,10 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
     if t2 == GeomType.CAPSULE:
       cp = _closest_on_segment(p1, p2, m2[..., 2], s2[1])
       return _sphere_sphere(p1, s1[0], cp, s2[0])
+    if t2 == GeomType.ELLIPSOID:     # its tessellated hull
+      return _sphere_mesh(m, d, p1, s1[0], g2)
+    if t2 == GeomType.CYLINDER:
+      return _sphere_cylinder(p1, s1[0], p2, m2, s2)
     if t2 == GeomType.BOX:
       # _sphere_box's normal points box -> sphere, g2 -> g1: flipped
       return [cp._replace(normal=-cp.normal)
@@ -554,6 +672,16 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
   elif t1 == GeomType.CAPSULE and t2 == GeomType.CAPSULE:
     return _capsule_capsule(p1, m1[..., 2], s1[1], s1[0], p2, m2[..., 2],
                             s2[1], s2[0])
+  elif t1 == GeomType.CAPSULE and t2 == GeomType.CYLINDER:
+    # the segment point closest to the cylinder's axis, then both ends
+    q1, _ = _segment_closest(p1, m1[..., 2], s1[1], p2, m2[..., 2], s2[1])
+    ends = [p1 + (sgn * s1[1]) * m1[..., 2] for sgn in (-1.0, 1.0)]
+    return [cp for c in [q1] + ends
+            for cp in _sphere_cylinder(c, s1[0], p2, m2, s2)]
+  elif t1 == GeomType.CAPSULE and t2 == GeomType.ELLIPSOID:
+    return [cp for sgn in (-1.0, 0.0, 1.0)
+            for cp in _sphere_mesh(m, d, p1 + (sgn * s1[1]) * m1[..., 2],
+                                   s1[0], g2)]
   elif t1 == GeomType.CAPSULE and t2 == GeomType.BOX:
     return _capsule_box(p1, m1[..., 2], s1[1], s1[0], p2, m2, s2)
   elif t1 == GeomType.CAPSULE and t2 == GeomType.MESH:
@@ -562,6 +690,18 @@ def narrowphase(m: Model, d: Data, g1: int, g2: int) -> List[ContactPoint]:
                                    s1[0], g2)]
   elif t1 == GeomType.MESH and t2 == GeomType.MESH:
     return _mesh_mesh(m, d, g1, g2)
+  elif t1 in (GeomType.ELLIPSOID, GeomType.CYLINDER):
+    # the tessellated hulls: against a box through _box_mesh with the
+    # roles swapped (its normal flipped back to g1 -> g2), against the
+    # other hulls through _mesh_mesh
+    if t2 == GeomType.BOX:
+      return [cp._replace(normal=-cp.normal)
+              for cp in _box_mesh(m, d, g2, g1, m.idx.box_signs)]
+    if t2 in (GeomType.ELLIPSOID, GeomType.CYLINDER, GeomType.MESH):
+      pts = _mesh_mesh(m, d, g1, g2)
+      if t1 == GeomType.CYLINDER and t2 == GeomType.CYLINDER:
+        pts += _cylinder_axis_contact(p1, m1, s1, p2, m2, s2)
+      return pts
   raise _unported(t1, t2)
 
 
@@ -892,6 +1032,8 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
   counts = {(GeomType.PLANE, GeomType.SPHERE): 1,
             (GeomType.PLANE, GeomType.CAPSULE): 2,
             (GeomType.PLANE, GeomType.BOX): 8,
+            (GeomType.PLANE, GeomType.CYLINDER): 4,
+            (GeomType.PLANE, GeomType.ELLIPSOID): 1,
             (GeomType.HFIELD, GeomType.SPHERE): 1,
             (GeomType.HFIELD, GeomType.CAPSULE): 2,
             (GeomType.HFIELD, GeomType.ELLIPSOID): 1,
@@ -899,18 +1041,26 @@ def points_per_pair(m: Model, g1: int, g2: int) -> int:
             (GeomType.HFIELD, GeomType.BOX): 4,
             (GeomType.SPHERE, GeomType.SPHERE): 1,
             (GeomType.SPHERE, GeomType.CAPSULE): 1,
+            (GeomType.SPHERE, GeomType.ELLIPSOID): 1,
+            (GeomType.SPHERE, GeomType.CYLINDER): 1,
             (GeomType.SPHERE, GeomType.BOX): 1,
             (GeomType.SPHERE, GeomType.MESH): 1,
             (GeomType.CAPSULE, GeomType.CAPSULE): 1,
+            (GeomType.CAPSULE, GeomType.ELLIPSOID): 3,
+            (GeomType.CAPSULE, GeomType.CYLINDER): 3,
             (GeomType.CAPSULE, GeomType.BOX): 3,
             (GeomType.CAPSULE, GeomType.MESH): 2,
             (GeomType.BOX, GeomType.BOX): 5,
             (GeomType.BOX, GeomType.MESH): 8}
   if (t1, t2) == (GeomType.PLANE, GeomType.MESH):
     return min(4, m.geom_mesh[g2][0].shape[0])
-  if (t1, t2) == (GeomType.MESH, GeomType.MESH):
+  hulls = (GeomType.ELLIPSOID, GeomType.CYLINDER, GeomType.MESH)
+  if t1 in hulls and t2 == GeomType.BOX:      # box corners, hull vertices
+    return 4 + min(4, m.geom_mesh[g1][0].shape[0])
+  if t1 in hulls and t2 in hulls:
     return (min(4, m.geom_mesh[g1][0].shape[0])
-            + min(4, m.geom_mesh[g2][0].shape[0]))
+            + min(4, m.geom_mesh[g2][0].shape[0])
+            + (t1 == t2 == GeomType.CYLINDER))
   if (t1, t2) not in counts:
     raise _unported(t1, t2)
   return counts[(t1, t2)]

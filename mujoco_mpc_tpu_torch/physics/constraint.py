@@ -2,7 +2,9 @@
 
 Port of mujoco_mpc_tpu/physics/constraint.py: impedance :77, kbi :97,
 ScalarRows :37, FrictionRows :53, Rows :66, _limit_rows_scalar :115,
-_friction_rows :143, the pyramidal contacts (ContactBlock :452, PointRows
+_friction_rows :143, _tendon_limit_rows :194, _equality_rows :229
+(connect, weld with its torquescale, joint and fixed-tendon couplings),
+the pyramidal contacts (ContactBlock :452, PointRows
 :465, _contact_capacity :485, _pair_param_arrays :496, _contact_groups
 :516 with the batched hull clusters and the mesh-mesh clusters' top-k
 selection :575-594, _Stacked :631, contact_blocks :648, _dyn_contact_rows
@@ -22,8 +24,13 @@ the mesh-mesh clusters' pair parameters) the port computes once per
 model, in `contact_table` and `dyn_table`, which physics/model.py
 from_arrays stores as Model.contact and Model.contact_dyn.
 
-Not ported yet, and refused where a model needs them: equality rows,
-tendon limits and elliptic cones (ROADMAP A8).
+The equality rows and the tendon-limit rows are dense rows, in JAX's
+order (equality, tendon limits, then the dynamically selected contact
+rows); the equality rows carry `equality`, which reaches B2 as eqf = 1
+(two-sided, and always active in its tangent).
+
+Not ported yet, and refused where a model needs them: elliptic cones
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import numpy as np
 import torch
 
 from mujoco_mpc_tpu_torch.ops import newton as newton_op
-from mujoco_mpc_tpu_torch.physics import collision
+from mujoco_mpc_tpu_torch.physics import collision, smooth
 from mujoco_mpc_tpu_torch.physics.model import Data, Model
 from mujoco_mpc_tpu_torch.utils import math as tm
 
@@ -140,6 +147,172 @@ def _friction_rows(m: Model, d: Data) -> Optional[FrictionRows]:
   iw = m.dof_invweight0[dofs]
   dd = imp / (1.0 - imp) / torch.clamp(iw, min=1e-12)
   return FrictionRows(dofs, -b * v, dd, m.dof_frictionloss)
+
+
+def _tendon_limit_rows(m: Model, d: Data) -> Optional[Rows]:
+  """Tendon-limit rows, 2 per limited tendon (lower side, then upper),
+  as joint limits on ten_length with the rows +-ten_J."""
+  limited = [ti for ti in range(m.ntendon) if m.tendon_limited[ti]]
+  if not limited:
+    return None
+  kw = dict(dtype=d.qpos.dtype, device=d.qpos.device)
+  tix = torch.tensor([ti for ti in limited for _ in (0, 1)],
+                     device=d.qpos.device)
+  lower = torch.tensor([side == 0 for _ in limited for side in (0, 1)],
+                       device=d.qpos.device)
+  length = d.ten_length[:, tix]
+  rng = m.tendon_range[tix]
+  margin = m.tendon_margin[tix]
+  pos = torch.where(lower, length - rng[:, 0], rng[:, 1] - length) - margin
+  sign = torch.where(lower, 1.0, -1.0).to(**kw)
+  jac = sign[:, None] * d.ten_J[:, tix]
+  vel = sign * d.ten_velocity[:, tix]
+  k, b, imp = kbi(m.tendon_solref_lim[tix], m.tendon_solimp_lim[tix], pos)
+  dd = imp / (1.0 - imp) / torch.clamp(m.tendon_invweight0[tix], min=1e-12)
+  return Rows(jac, pos, margin.expand_as(pos), -b * vel - k * imp * pos, dd,
+              pos < 0.0, torch.zeros_like(pos, dtype=torch.bool))
+
+
+def _poly(poly, dif):
+  """The coupling polynomial and its derivative at dif."""
+  p = (poly[0] + poly[1] * dif + poly[2] * dif ** 2 + poly[3] * dif ** 3
+       + poly[4] * dif ** 4)
+  dp = (poly[1] + 2 * poly[2] * dif + 3 * poly[3] * dif ** 2
+        + 4 * poly[4] * dif ** 3)
+  return p, dp
+
+
+def _point_acc(m: Model, d: Data, cacc, body: int, point):
+  """The classical acceleration at zero qacc (B, 3) of world points (B, 3)
+  fixed on a body, from com_vel's cvel and the velocity-product spatial
+  accelerations cacc (B, nbody, 6) (the accelerometer's formula,
+  sensors.py)."""
+  rel = point - d.subtree_com[:, m.body_rootid[body]]
+  w = d.cvel[:, body, :3]
+  v = d.cvel[:, body, 3:] + tm.cross(w, rel)
+  return cacc[:, body, 3:] + tm.cross(cacc[:, body, :3], rel) + tm.cross(w, v)
+
+
+def _equality_rows(m: Model, d: Data) -> Optional[Rows]:
+  """Equality rows (mjEQ_CONNECT, WELD, JOINT, TENDON) of the active
+  equalities: two-sided soft rows, each equality's impedance from the norm
+  of its whole residual. Connect and weld rows subtract the velocity bias
+  Jdot qvel, the residual's second derivative along the constant-qvel
+  path (JAX takes it by nested jvps through kinematics, :415-437; here
+  in closed form from the bodies' velocities and their accelerations at
+  zero qacc: the anchors' classical accelerations and the error
+  quaternion's second derivative, dq/dt = 0.5 (0, w) q in the world
+  frame); the joint and tendon couplings carry none, as in MuJoCo."""
+  if m.neq == 0:
+    return None
+  kw = dict(dtype=d.qpos.dtype, device=d.qpos.device)
+  eye = torch.eye(m.nv, **kw)
+  js, poss, arefs, ds = [], [], [], []
+  cacc = None
+
+  def add(e, rows):
+    """rows: [(jac (B, nv), pos (B,), invweight, bias (B,) or None)] of
+    equality e."""
+    pos_norm = torch.sqrt(sum(r[1] * r[1] for r in rows))
+    k, b, imp = kbi(m.eq_solref[e], m.eq_solimp[e], pos_norm)
+    for jac, pos, invweight, bias in rows:
+      vel = torch.sum(jac * d.qvel, -1)
+      aref = -b * vel - k * imp * pos
+      js.append(jac)
+      poss.append(pos)
+      arefs.append(aref if bias is None else aref - bias)
+      ds.append(imp / (1.0 - imp) / torch.clamp(invweight, min=1e-12))
+
+  def quat(w):
+    return torch.cat([torch.zeros_like(w[..., :1]), w], -1)
+
+  for e in range(m.neq):
+    if not m.eq_active0[e]:
+      continue
+    etype, data = m.eq_type[e], m.eq_data[e]
+    b1, b2 = m.eq_obj1id[e], m.eq_obj2id[e]
+    if etype in (0, 1):   # connect, weld: body1's anchor against body2's
+      if cacc is None:    # the bodies' spatial accelerations at qacc = 0
+        cacc = m.idx.a_body @ (d.cdof_dot * d.qvel[..., None])
+      a1, a2 = data[0:3], data[3:6]
+      if etype == 1:      # a weld anchors the other way round
+        a1, a2 = a2, a1
+      pos1 = d.xpos[:, b1] + d.xmat[:, b1] @ a1
+      pos2 = d.xpos[:, b2] + d.xmat[:, b2] @ a2
+      jacp1, jacr1 = smooth._body_jac(m, d, b1, pos1)
+      jacp2, jacr2 = smooth._body_jac(m, d, b2, pos2)
+      cpos = pos1 - pos2
+      jac = jacp1 - jacp2                                     # (B, nv, 3)
+      bias = (_point_acc(m, d, cacc, b1, pos1)
+              - _point_acc(m, d, cacc, b2, pos2))
+      iw = m.body_invweight0[b1, 0] + m.body_invweight0[b2, 0]
+      rows = [(jac[..., r], cpos[:, r], iw, bias[:, r]) for r in range(3)]
+      if etype == 1:
+        # orientation: torquescale vec(conj(q2 relpose) q1), its rows the
+        # derivative in the world angular velocities through 0.5 (0, w) q
+        relpose, torquescale = data[6:10], data[10]
+        quat1 = d.xquat[:, b1]
+        quat2 = tm.quat_mul(d.xquat[:, b2], relpose.expand_as(quat1))
+        crot = tm.quat_mul(tm.quat_conj(quat2), quat1)        # error quat
+        cpos_rot = torquescale * crot[:, 1:]
+        dv1, dv2 = [], []
+        for k in range(3):
+          w = torch.eye(4, **kw)[k + 1].expand_as(quat1)
+          dq1 = 0.5 * tm.quat_mul(w, quat1)
+          dv1.append(tm.quat_mul(tm.quat_conj(quat2), dq1)[:, 1:])
+          dq2 = 0.5 * tm.quat_mul(w, quat2)
+          dv2.append(tm.quat_mul(tm.quat_conj(dq2), quat1)[:, 1:])
+        jrot = torquescale * (jacr1 @ torch.stack(dv1, 1)
+                              + jacr2 @ torch.stack(dv2, 1))  # (B, nv, 3)
+        # the error quaternion's second derivative
+        w1, w2 = d.cvel[:, b1, :3], d.cvel[:, b2, :3]
+        dq1 = 0.5 * tm.quat_mul(quat(w1), quat1)
+        dq2 = 0.5 * tm.quat_mul(quat(w2), quat2)
+        ddq1 = 0.5 * (tm.quat_mul(quat(cacc[:, b1, :3]), quat1)
+                      + tm.quat_mul(quat(w1), dq1))
+        ddq2 = 0.5 * (tm.quat_mul(quat(cacc[:, b2, :3]), quat2)
+                      + tm.quat_mul(quat(w2), dq2))
+        ddcrot = (tm.quat_mul(tm.quat_conj(ddq2), quat1)
+                  + 2.0 * tm.quat_mul(tm.quat_conj(dq2), dq1)
+                  + tm.quat_mul(tm.quat_conj(quat2), ddq1))
+        bias_rot = torquescale * ddcrot[:, 1:]
+        iwr = m.body_invweight0[b1, 1] + m.body_invweight0[b2, 1]
+        rows += [(jrot[..., r], cpos_rot[:, r], iwr, bias_rot[:, r])
+                 for r in range(3)]
+      add(e, rows)
+    elif etype in (2, 3):   # joint or fixed-tendon coupling:
+      poly = data[0:5]      # x1 - x1_0 = poly(x2 - x2_0)
+      if etype == 2:
+        def coord(j):
+          return d.qpos[:, m.jnt_qposadr[j]] - m.qpos0[m.jnt_qposadr[j]]
+        x1, row1 = coord(b1), eye[m.jnt_dofadr[b1]].expand_as(d.qvel)
+        iw = m.dof_invweight0[m.jnt_dofadr[b1]]
+      else:
+        x1 = d.ten_length[:, b1] - m.ten_length0[b1]
+        row1, iw = d.ten_J[:, b1], m.tendon_invweight0[b1]
+      if b2 >= 0:
+        if etype == 2:
+          x2, row2 = coord(b2), eye[m.jnt_dofadr[b2]]
+          iw = iw + m.dof_invweight0[m.jnt_dofadr[b2]]
+        else:
+          x2 = d.ten_length[:, b2] - m.ten_length0[b2]
+          row2 = d.ten_J[:, b2]
+          iw = iw + m.tendon_invweight0[b2]
+        p, dp = _poly(poly, x2)
+        add(e, [(row1 - dp[:, None] * row2, x1 - p, iw, None)])
+      else:
+        add(e, [(row1, x1 - poly[0], iw, None)])
+    else:
+      raise NotImplementedError(f'equality type {etype}')
+
+  if not js:
+    return None
+  n = len(js)
+  ones = torch.ones((d.qpos.shape[0], n), dtype=torch.bool,
+                    device=d.qpos.device)
+  pos = torch.stack(poss, 1)
+  return Rows(torch.stack(js, 1), pos, torch.zeros_like(pos),
+              torch.stack(arefs, 1), torch.stack(ds, 1), ones, ones)
 
 
 class ContactBlock(NamedTuple):
@@ -374,20 +547,6 @@ def _dyn_contacts(m: Model, d: Data):
   return out
 
 
-def _point_jac(m: Model, d: Data, pos3, bodies):
-  """Translational and rotational Jacobians (B, P, nv, 3) of points pos3
-  (B, P, 3) on per-sample bodies (B, P) (the traced-index batch_jac of
-  _dyn_contact_rows and _capped_point_rows): the ancestor masks are
-  gathered per sample."""
-  off = pos3 - torch.gather(
-      d.subtree_com, 1,
-      m.idx.body_rootid[bodies][..., None].expand(-1, -1, 3))
-  mask = m.idx.a_body[bodies][..., None]                       # (B, P, nv, 1)
-  jp = (d.cdof[:, None, :, 3:]
-        + tm.cross(d.cdof[:, None, :, :3], off[:, :, None, :]))
-  return jp * mask, d.cdof[:, None, :, :3] * mask
-
-
 def _dyn_contact_rows(m: Model, d: Data) -> Optional[Rows]:
   """Dense condim-1 normal rows of the mesh-mesh clusters' selected
   contacts, `_contact_capacity` of them a cluster (_dyn_contact_rows
@@ -398,8 +557,8 @@ def _dyn_contact_rows(m: Model, d: Data) -> Optional[Rows]:
   for g in _dyn_contacts(m, d):
     pos = g['dist'] - g['margin']
     k, b, imp = kbi(g['solref'], g['solimp'], pos)
-    jp2, _ = _point_jac(m, d, g['pos3'], g['b2'])
-    jp1, _ = _point_jac(m, d, g['pos3'], g['b1'])
+    jp2, _ = smooth.point_jac(m, d, g['pos3'], g['b2'])
+    jp1, _ = smooth.point_jac(m, d, g['pos3'], g['b1'])
     jn = torch.einsum('bpns,bps->bpn', jp2 - jp1, g['normal'])
     vel = (jn @ d.qvel[..., None])[..., 0]
     parts.append(Rows(
@@ -427,8 +586,8 @@ def _capped_point_rows(m: Model, d: Data, s: _Stacked, condim: int,
     dapprox = invw
   else:
     dapprox = invw * 2.0 * mu[..., 0] ** 2 * (1.0 + mu[..., 0] ** 2)
-  jp2, jr2 = _point_jac(m, d, pos3, s.bodies[1][sel])
-  jp1, jr1 = _point_jac(m, d, pos3, s.bodies[0][sel])
+  jp2, jr2 = smooth.point_jac(m, d, pos3, s.bodies[1][sel])
+  jp1, jr1 = smooth.point_jac(m, d, pos3, s.bodies[0][sel])
   jp = jp2 - jp1
   proj = lambda jac, v: torch.einsum('bpns,bps->bpn', jac, v)  # noqa: E731
   jn = proj(jp, normal)
@@ -659,21 +818,18 @@ def _concat_rows(blocks) -> Optional[Rows]:
 
 def make_rows_split(m: Model, d: Data):
   """(dense Rows | None, ScalarRows | None, list[PointRows],
-  FrictionRows | None): the dense rows are the mesh-mesh clusters'
-  selected rows, then the capped groups' facet rows; joint limits and
-  frictionloss rows one-hot; the other pyramidal contacts in
-  point-direction form (JAX also returns the elliptic-cone block, which
-  the port refuses)."""
-  if m.neq:
-    raise NotImplementedError('equality rows are not ported yet (ROADMAP A8)')
-  if any(m.tendon_limited):
-    raise NotImplementedError('tendon limits are not ported yet (ROADMAP A8)')
+  FrictionRows | None): the dense rows are the equality rows, the tendon
+  limits' rows, the mesh-mesh clusters' selected rows, then the capped
+  groups' facet rows; joint limits and frictionloss rows one-hot; the
+  other pyramidal contacts in point-direction form (JAX also returns the
+  elliptic-cone block, which the port refuses)."""
   if m.collision_pairs and m.opt.cone == 1:
     raise NotImplementedError(
         'elliptic friction cones are not ported yet (ROADMAP A8)')
   dyn = _dyn_contact_rows(m, d)
   points, capped = contact_point_groups(m, d)
-  return (_concat_rows([dyn, capped]), _limit_rows_scalar(m, d), points,
+  return (_concat_rows([_equality_rows(m, d), _tendon_limit_rows(m, d),
+                        dyn, capped]), _limit_rows_scalar(m, d), points,
           _friction_rows(m, d))
 
 

@@ -1,21 +1,24 @@
-"""Forward dynamics pipeline and the Euler integrator, batch-first.
+"""Forward dynamics pipeline and the integrators, batch-first.
 
 Port of mujoco_mpc_tpu/physics/forward.py (_solve_m :25, fwd_position
 :39, fwd_velocity :47, fwd_actuation :55, fwd_acceleration :59, forward
-:69, integrate_pos :86, _euler :107, _implicit :157, integrate :187, step
-:196). Both mass-matrix solves (qacc_smooth and the implicit-damping Euler
-system) go through ops/spd_solve.SpdSolve: the kernel B1 on the card, and
-its implicit-function tangent (custom_linear_solve) under torch.func. The
+:69, integrate_pos :86, _euler :107, _rk4 :126, _implicit :157, integrate
+:187, step :196). Both mass-matrix solves (qacc_smooth and the
+implicit-damping Euler system) go through ops/spd_solve.SpdSolve: the
+kernel B1 on the card, and its implicit-function tangent
+(custom_linear_solve) under torch.func. The
 constraint solve goes through ops/newton.NewtonSolve: the kernel B2 on the
 card, and its frozen-active-set tangent.
 
-Ported integrators: Euler (with implicit joint damping) and the implicit
-and implicitfast integrators (2 and 3), whose system M - h dF/dqvel is
-not symmetric and is solved by torch.linalg.solve, as JAX solves it by
-jnp.linalg.solve outside any kernel. Forces: passive springs and dampers,
-actuation, and the inertia-box fluid drag (physics/fluid.py). Not ported
-yet, and refused: the noslip post-pass and the RK4 integrator (ROADMAP
-A8).
+Ported integrators: Euler (with implicit joint damping), RK4 (four
+forward passes a step, each with its B1 solve and, where there are rows,
+its B2 solve) and the implicit and implicitfast integrators (2 and 3),
+whose system M - h dF/dqvel is not symmetric and is solved by
+torch.linalg.solve, as JAX solves it by jnp.linalg.solve outside any
+kernel. Forces: passive springs and dampers (joints and tendons), gravity
+compensation, actuation, and the inertia-box fluid drag
+(physics/fluid.py). Not ported yet, and refused: the noslip post-pass
+(ROADMAP A8).
 """
 
 from __future__ import annotations
@@ -108,6 +111,32 @@ def _euler(m: Model, d: Data) -> Data:
   return d.replace(qpos=qpos, qvel=qvel, act=act, time=d.time + h)
 
 
+def _rk4(m: Model, d: Data) -> Data:
+  """Explicit Runge-Kutta 4 (mj_RungeKutta with its default tableau) from
+  post-forward Data: three more forward passes at the midpoints and the
+  end, then the weighted velocity and acceleration."""
+  h = m.opt.timestep
+  coefs = (0.5, 0.5, 1.0)
+  weights = (1.0 / 6, 1.0 / 3, 1.0 / 3, 1.0 / 6)
+  qpos0, qvel0, act0 = d.qpos, d.qvel, d.act
+  kq, kv, ka = [d.qacc], [d.qvel], [d.act_dot]
+  for c in coefs:
+    di = forward(m, d.replace(
+        qpos=integrate_pos(m, qpos0, kv[-1], c * h),
+        qvel=qvel0 + c * h * kq[-1],
+        act=act0 + c * h * ka[-1] if m.na else act0))
+    kq.append(di.qacc)
+    kv.append(di.qvel)
+    ka.append(di.act_dot)
+  qvel_avg = sum(w * v for w, v in zip(weights, kv))
+  qacc_avg = sum(w * a for w, a in zip(weights, kq))
+  act_avg = sum(w * a for w, a in zip(weights, ka))
+  qpos = integrate_pos(m, qpos0, qvel_avg, h)
+  qvel = qvel0 + h * qacc_avg
+  act = _clamp_act(m, act0 + h * act_avg) if m.na else act0
+  return d.replace(qpos=qpos, qvel=qvel, act=act, time=d.time + h)
+
+
 def _implicit(m: Model, d: Data) -> Data:
   """Implicit-in-velocity integration (mj_implicit / implicitfast).
 
@@ -144,8 +173,7 @@ def integrate(m: Model, d: Data) -> Data:
   """Advance post-forward Data by one timestep with the model's
   integrator."""
   if m.opt.integrator == IntegratorType.RK4:
-    raise NotImplementedError('the RK4 integrator is not ported yet '
-                              '(ROADMAP A8)')
+    return _rk4(m, d)
   if m.opt.integrator in (2, 3):   # implicit / implicitfast
     return _implicit(m, d)
   return _euler(m, d)

@@ -26,18 +26,22 @@ built by put_model at :569-620 and kept as JAX keeps them, float32
 values, promoted to the model's dtype), the height fields (geom_hfield,
 :258, built at :622-632: each hfield geom's elevation grid and size, the
 same float32 values promoted), the site transmissions' reference sites
-(actuator_refid) and the frictionloss
+(actuator_refid), the frictionloss
 rows' constants (dof_frictionloss, dof_friction_solref/solimp, :225-228,
-one entry per dof of friction_dof). Model fields not carried yet (their
-consumers are still to be ported; ROADMAP A8): equality data (eq_*) and
-tendons (ten_*, tendon_*). As JAX's put_model does (:397-421), from_arrays refuses a
-sensor type outside sensors.SUPPORTED_SENSORS; a supported sensor whose
-physics the port lacks (tendon sensors, force sensors over elliptic
-cones) raises where it is evaluated.
-Data fields not carried yet: sensordata (physics/sensors.py sensordata
-returns it) and the tendon quantities. A model
-that needs any of them is refused where it would be used
-(NotImplementedError), never silently computed without them.
+one entry per dof of friction_dof), the tendons (ten_moment, ten_qmat,
+ten_length0, the static wrap plan ten_spatial, tendon_*; :276-291), the
+equality constraints (eq_type, eq_obj1id/obj2id, eq_active0, eq_data,
+eq_solref/solimp; :161-165, :272-274) and gravity compensation
+(body_gravcomp, any_gravcomp). A snapshot carries the tendon and equality
+fields only where the model has them; from_arrays fills them in empty
+elsewhere. JAX's put_model refuses tendon frictionloss (:439-443) before
+a model is exported; from_arrays refuses, as put_model does (:546-553),
+a tendon equality on a spatial tendon, and (:397-421) a sensor type outside
+sensors.SUPPORTED_SENSORS; a supported sensor whose physics the port
+lacks (force sensors over elliptic cones) raises where it is evaluated.
+Data fields not carried: sensordata (physics/sensors.py sensordata
+returns it). A model that needs what the port lacks is refused where it
+would be used (NotImplementedError), never silently computed without it.
 
 Entry points build on the card: `device` defaults to 'cuda' and raises
 when there is none (`resolve_device`); the tests ask for 'cpu'.
@@ -107,10 +111,18 @@ class BiasType(enum.IntEnum):
 
 
 class _Replace:
-  """`replace(**changes)` for frozen dataclasses."""
+  """`replace(**changes)` for frozen dataclasses: dataclasses.replace's
+  result (the fields copied, `changes` set), without its per-field
+  __init__ (a step replaces Data fields some hundred times)."""
 
   def replace(self, **changes):
-    return dataclasses.replace(self, **changes)
+    unknown = changes.keys() - self.__dataclass_fields__.keys()
+    if unknown:
+      raise TypeError(f'{type(self).__name__} has no fields '
+                      f'{sorted(unknown)}')
+    new = object.__new__(type(self))
+    new.__dict__.update(self.__dict__, **changes)
+    return new
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +173,23 @@ HULL_ARRAYS = ('verts', 'normals', 'offsets')
 # (nrow, ncol) in [0, 1] and the size (4,) = (radius_x, radius_y, z_top,
 # z_bottom).
 HFIELD_ARRAYS = ('grid', 'size')
+# Static fields of the tendons and the equality constraints, in `static`
+# only where ntendon > 0 or neq > 0 (empty tuples otherwise).
+# ten_spatial is JAX's static wrap plan: per tendon () for a fixed one, or
+# ((divisor, elements), ...) branches, each element ('s', site) or ('g',
+# geom, kind 0 sphere / 1 cylinder, side site or -1).
+TENDON_STATIC = ('tendon_names', 'ten_spatial')
+EQ_STATIC = ('eq_type', 'eq_obj1id', 'eq_obj2id', 'eq_active0')
+# Tensor fields of the tendons, (ntendon, ...), and of the equality
+# constraints, (neq, ...), with their trailing shapes ('nv' and 'nq' stand
+# for the model's sizes): in `arrays` only where ntendon > 0 or neq > 0.
+TENDON_ARRAYS = {'ten_moment': ('nv',), 'ten_qmat': ('nq',),
+                 'ten_length0': (), 'tendon_stiffness': (),
+                 'tendon_damping': (), 'tendon_lengthspring': (2,),
+                 'tendon_range': (2,), 'tendon_margin': (),
+                 'tendon_solref_lim': (2,), 'tendon_solimp_lim': (5,),
+                 'tendon_invweight0': ()}
+EQ_ARRAYS = {'eq_data': (11,), 'eq_solref': (2,), 'eq_solimp': (5,)}
 # The frictionloss rows' constants, (F,), (F, 2) and (F, 5) for the F dofs
 # of friction_dof: in a snapshot only where F > 0, empty otherwise.
 FRICTION_ARRAYS = {'dof_frictionloss': (), 'dof_friction_solref': (2,),
@@ -234,6 +263,12 @@ class Model(_Replace):
   actuator_actnum: Tuple[int, ...]
   actuator_ctrllimited: Tuple[int, ...]
   actuator_forcelimited: Tuple[int, ...]
+  tendon_names: Tuple[str, ...]
+  ten_spatial: tuple                   # the spatial tendons' wrap plan
+  eq_type: Tuple[int, ...]             # mjtEq: 0 connect, 1 weld, 2 joint,
+  eq_obj1id: Tuple[int, ...]           # 3 tendon
+  eq_obj2id: Tuple[int, ...]
+  eq_active0: Tuple[int, ...]
   has_fluid: bool
   any_gravcomp: bool
   site_type: Tuple[int, ...]           # mjtGeom: the touch sensors' zones
@@ -299,6 +334,20 @@ class Model(_Replace):
   dof_frictionloss: torch.Tensor
   dof_friction_solref: torch.Tensor
   dof_friction_solimp: torch.Tensor
+  ten_moment: torch.Tensor            # (ntendon, nv) fixed-tendon rows
+  ten_qmat: torch.Tensor              # (ntendon, nq)
+  ten_length0: torch.Tensor           # (ntendon,) lengths at qpos0
+  tendon_stiffness: torch.Tensor
+  tendon_damping: torch.Tensor
+  tendon_lengthspring: torch.Tensor   # (ntendon, 2) deadband [lo, hi]
+  tendon_range: torch.Tensor
+  tendon_margin: torch.Tensor
+  tendon_solref_lim: torch.Tensor
+  tendon_solimp_lim: torch.Tensor
+  tendon_invweight0: torch.Tensor
+  eq_data: torch.Tensor               # (neq, 11)
+  eq_solref: torch.Tensor             # (neq, 2)
+  eq_solimp: torch.Tensor             # (neq, 5)
   opt: Option
   idx: structure.Indices
   # convex hulls, geom id -> (verts (V, 3), face normals (F, 3), face
@@ -357,8 +406,10 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
   JAX Model's leaves), for each hull geom g 'geom_mesh/<g>/verts',
   '.../normals' and '.../offsets' (HULL_ARRAYS), for each height field g
   'geom_hfield/<g>/grid' and '.../size' (HFIELD_ARRAYS), and
-  FRICTION_ARRAYS where friction_dof is not empty; static: STATIC_FIELDS
-  (and 'actuator_refid' where a site transmission has a reference site)
+  FRICTION_ARRAYS where friction_dof is not empty, TENDON_ARRAYS where
+  ntendon > 0 and EQ_ARRAYS where neq > 0; static: STATIC_FIELDS (and
+  'actuator_refid' where a site transmission has a reference site,
+  TENDON_STATIC where ntendon > 0, EQ_STATIC where neq > 0)
   plus 'opt.<OPTION_STATIC>' -> ints, bools, strings or (nested)
   sequences of them."""
   device = resolve_device(device)
@@ -372,6 +423,19 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
   # a snapshot carries the site transmissions' reference sites only where
   # one has a reference site; -1 (none) elsewhere
   s['actuator_refid'] = tup(static.get('actuator_refid', (-1,) * s['nu']))
+  # the tendon and equality statics only where the model has them
+  for k in TENDON_STATIC:
+    s[k] = tup(static.get(k, ((),) * s['ntendon'] if k == 'ten_spatial'
+                          else ('',) * s['ntendon']))
+  for k in EQ_STATIC:
+    s[k] = tup(static.get(k, (0,) * s['neq']))
+  for e in range(s['neq']):
+    spatial = [t for t in (s['eq_obj1id'][e], s['eq_obj2id'][e])
+               if s['eq_type'][e] == 3 and t >= 0 and s['ten_spatial'][t]]
+    if spatial:
+      raise NotImplementedError(
+          f'equality {e} couples spatial tendon {spatial[0]}; tendon '
+          'equality constraints support fixed tendons only')
   from mujoco_mpc_tpu_torch.physics import sensors
   bad = [f'{name!r} (mjtSensor {t})'
          for name, t in zip(s['sensor_names'], s['sensor_type'])
@@ -389,6 +453,12 @@ def from_arrays(arrays: dict, static: dict, device='cuda',
     a = (np.array(arrays[k]) if k in arrays
          else np.zeros((len(s['friction_dof']),) + shape))
     t[k] = torch.as_tensor(a, device=device, dtype=dtype)
+  sizes = {'nv': s['nv'], 'nq': s['nq']}
+  for fields, n in ((TENDON_ARRAYS, s['ntendon']), (EQ_ARRAYS, s['neq'])):
+    for k, shape in fields.items():
+      a = (np.array(arrays[k]) if k in arrays else
+           np.zeros((n,) + tuple(sizes.get(x, x) for x in shape)))
+      t[k] = torch.as_tensor(a, device=device, dtype=dtype)
   opt = Option(
       **{k: torch.as_tensor(np.array(arrays['opt.' + k]), dtype=dtype,
                             device=device) for k in OPTION_ARRAYS},
@@ -462,6 +532,10 @@ class Data(_Replace):
   qfrc_smooth: Optional[torch.Tensor] = None
   qacc: Optional[torch.Tensor] = None
   act_dot: Optional[torch.Tensor] = None
+  # tendons (smooth.tendon)
+  ten_length: Optional[torch.Tensor] = None     # (B, ntendon)
+  ten_velocity: Optional[torch.Tensor] = None   # (B, ntendon)
+  ten_J: Optional[torch.Tensor] = None          # (B, ntendon, nv)
 
   @property
   def batch(self) -> int:
@@ -513,7 +587,8 @@ def zero_filled(m: Model, d: Data) -> Data:
       qfrc_constraint=(nv,), actuator_length=(nu,),
       actuator_velocity=(nu,), actuator_force=(nu,),
       actuator_moment=(nu, nv), qfrc_actuator=(nv,), qfrc_smooth=(nv,),
-      qacc=(nv,), act_dot=(m.na,))
+      qacc=(nv,), act_dot=(m.na,), ten_length=(m.ntendon,),
+      ten_velocity=(m.ntendon,), ten_J=(m.ntendon, nv))
   return d.replace(**{
       k: torch.zeros((d.batch,) + s, device=m.device, dtype=m.dtype)
       for k, s in shapes.items() if getattr(d, k) is None})

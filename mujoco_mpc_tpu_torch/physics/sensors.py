@@ -9,9 +9,9 @@ the output is one gather of their columns. The sensor plan (which
 sensors, their frames, bodies and columns) is built once per model
 structure and device (`_plan`).
 
-Raised where evaluated: the tendon sensors (the port carries no tendons,
-ROADMAP A8) and the force, torque and touch sensors over elliptic cones
-(constraint.contact_forces). USER sensors read zero, as in JAX: the task
+The tendon sensors read smooth.tendon's ten_length and ten_velocity.
+Raised where evaluated: the force, torque and touch sensors over
+elliptic cones (constraint.contact_forces, ROADMAP A8). USER sensors read zero, as in JAX: the task
 layer computes them.
 """
 
@@ -327,10 +327,10 @@ def _values(m: Model, d: Data, t: int, g: _Group, ctx) -> torch.Tensor:
     return q / torch.linalg.vector_norm(q, dim=-1, keepdim=True)
   if t == BALLANGVEL:
     return d.qvel[:, g.adr[:, None] + torch.arange(3, device=m.device)]
-  if t in (TENDONPOS, TENDONVEL):
-    raise NotImplementedError(
-        'tendon sensors are not ported yet: the port carries no tendons '
-        '(ROADMAP A8)')
+  if t == TENDONPOS:
+    return d.ten_length[:, g.objid][..., None]
+  if t == TENDONVEL:
+    return d.ten_velocity[:, g.objid][..., None]
   if t == RANGEFINDER:
     # a ray from the site along its +z axis, the site's own body excluded
     return torch.stack([support.raycast(

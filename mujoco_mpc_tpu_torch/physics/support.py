@@ -150,10 +150,6 @@ def _quadratic(b: torch.Tensor, c: torch.Tensor, big: float) -> torch.Tensor:
   return torch.where(disc >= 0, t, torch.full_like(t, big))
 
 
-def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  return torch.sum(a * b, -1)
-
-
 def _ray_geom(m: Model, d: Data, g: int, origin: torch.Tensor,
               dirn: torch.Tensor) -> torch.Tensor:
   """Distance (B,) along unit rays (B, 3) to geom g (mj_rayGeom), `big`
@@ -168,24 +164,24 @@ def _ray_geom(m: Model, d: Data, g: int, origin: torch.Tensor,
 
   if gtype == GeomType.PLANE:
     n = gmat[..., 2]
-    denom = _dot(n, dirn)
+    denom = tm.dot(n, dirn)
     # a ray parallel to the plane misses (JAX's guard, 1e-12). In float32
     # a level ray's n.dir is rounding noise of ~1e-7, whose sign would put
     # a hit millions of metres away on one device and a miss on another:
     # below 64 eps of the dtype the ray counts as parallel
     tol = max(1e-12, 64 * torch.finfo(denom.dtype).eps)
     parallel = torch.abs(denom) < tol
-    t = _dot(n, gpos - origin) / torch.where(
+    t = tm.dot(n, gpos - origin) / torch.where(
         parallel, torch.full_like(denom, tol), denom)
     return torch.where((t > 0) & ~parallel, t, bigs)
   if gtype == GeomType.SPHERE:
     oc = origin - gpos
-    return _quadratic(_dot(oc, dirn), _dot(oc, oc) - size[0] ** 2, big)
+    return _quadratic(tm.dot(oc, dirn), tm.dot(oc, oc) - size[0] ** 2, big)
   if gtype == GeomType.ELLIPSOID:      # scaled to the unit sphere
     o = local(origin - gpos) / size
     v = local(dirn) / size
-    vv = _dot(v, v)
-    return _quadratic(_dot(o, v) / vv, (_dot(o, o) - 1.0) / vv, big)
+    vv = tm.dot(v, v)
+    return _quadratic(tm.dot(o, v) / vv, (tm.dot(o, o) - 1.0) / vv, big)
   if gtype in (GeomType.CAPSULE, GeomType.CYLINDER):
     o = local(origin - gpos)
     v = local(dirn)
@@ -201,7 +197,7 @@ def _ray_geom(m: Model, d: Data, g: int, origin: torch.Tensor,
       for zc in (-1.0, 1.0):
         oc = o - torch.stack([torch.zeros_like(h), torch.zeros_like(h),
                               zc * h])
-        t_cap = _quadratic(_dot(oc, v), _dot(oc, oc) - r * r, big)
+        t_cap = _quadratic(tm.dot(oc, v), tm.dot(oc, oc) - r * r, big)
         zrel = o[:, 2] + t_cap * v[:, 2] - zc * h
         ts.append(torch.where(zc * zrel >= 0, t_cap, bigs))
     else:                              # flat end discs

@@ -15,6 +15,16 @@ import torch
 _EPS = 1e-12
 
 
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Inner product along the last axis."""
+  return torch.sum(a * b, -1)
+
+
+def norm(x: torch.Tensor) -> torch.Tensor:
+  """Euclidean norm along the last axis."""
+  return torch.linalg.vector_norm(x, dim=-1)
+
+
 def normalize(v: torch.Tensor) -> torch.Tensor:
   """Normalize along the last axis, guarding against zero norm."""
   n = torch.linalg.vector_norm(v, dim=-1, keepdim=True)

@@ -11,13 +11,20 @@ block-pentadiagonal factor fails: both packages read the NaN candidates
 as infinite cost and raise the damping tenfold an iteration, so no
 iteration improves on the start. The port's float32 run must give JAX's
 cost trace (rtol 1e-5) and window; in float64 the same window's cost
-falls by five orders of magnitude, so float32 alone is why. One
-JAX compile (the float32 update, XLA's quick options).
+falls by five orders of magnitude, so float32 alone is why. JAX's float32
+update (jitted with XLA's quick options, ~40 s to compile here) is
+replayed from assets/batch_float32_jax_calls_golden.npz
+(tests/torch_recorded.py RecordedJax; record anew with
+MJPC_TORCH_RECORD=1 in one process); the slow test_jax_calls_golden_is_
+jaxs makes it live.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from mujoco_mpc_tpu.estimators import batch as jbatch
@@ -29,8 +36,11 @@ from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics import sensors
 from mujoco_mpc_tpu_torch.physics.model import make_data
 from mujoco_mpc_tpu_torch.tasks import registry
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
+
+JAX_CALLS = 'batch_float32_jax_calls_golden.npz'
 
 WINDOW = 32
 ITERS = 3
@@ -84,10 +94,10 @@ def _port_update(dtype, win):
                       torch.tensor(float(m.opt.timestep), dtype=dtype))
 
 
-def test_float32_update_fails_as_jaxs_and_float64_converges():
-  win = _window(torch.float32)
-  new, info = _port_update(torch.float32, win)
-
+def _jax_update(qpos, sensor, force, times, next_sensor, next_force,
+                next_time):
+  """JAX's float32 batch update of the window (its new qpos window, cost
+  trace), jitted with XLA's quick options."""
   jm = jax.tree.map(
       lambda x: x.astype(jnp.float32)
       if jnp.issubdtype(getattr(x, 'dtype', np.int32), jnp.floating) else x,
@@ -96,20 +106,41 @@ def test_float32_update_fails_as_jaxs_and_float64_converges():
   js = jdirect.default_settings(jp, dtype=jnp.float32).replace(
       sensor_weight=jnp.full((jp.sensor_dim,), NOISE ** -2, jnp.float32),
       max_iterations=ITERS)
-  a = lambda x: jnp.asarray(x.numpy())  # noqa: E731
   jst = jbatch.init_state(jp, dtype=jnp.float32).replace(
-      qpos_window=a(win['qpos']), sensor_window=a(win['sensor']),
-      force_window=a(win['force']), times=a(win['times']))
-  nxt = [a(x) for x in win['next']]
+      qpos_window=qpos, sensor_window=sensor, force_window=force,
+      times=times)
   dt = jnp.asarray(float(jm.opt.timestep), jnp.float32)
-  jnew, jinfo = jax.jit(lambda st: jbatch.update(jp, st, js, *nxt, dt)).lower(
-      jst).compile(compiler_options=QUICK)(jst)
+  jnew, jinfo = jax.jit(lambda st: jbatch.update(
+      jp, st, js, next_sensor, next_force, next_time, dt)).lower(
+          jst).compile(compiler_options=QUICK)(jst)
+  return jnew.qpos_window, jinfo['cost_trace']
+
+
+@pytest.fixture(scope='module')
+def jax_calls():
+  rec = RecordedJax(os.path.join(registry.ASSETS, JAX_CALLS),
+                    lambda: {'update': _jax_update})
+  yield rec
+  if rec.recording:
+    rec.save()
+
+
+def _jax_args(win):
+  a = lambda x: jnp.asarray(x.numpy())  # noqa: E731
+  return ([a(win[k]) for k in ('qpos', 'sensor', 'force', 'times')]
+          + [a(x) for x in win['next']])
+
+
+def test_float32_update_fails_as_jaxs_and_float64_converges(jax_calls):
+  win = _window(torch.float32)
+  new, info = _port_update(torch.float32, win)
+  jnew_qpos, jtrace = jax_calls('update', *_jax_args(win))
 
   trace = info['cost_trace'].numpy()
-  jtrace = np.asarray(jinfo['cost_trace'])
+  jtrace = np.asarray(jtrace)
   np.testing.assert_allclose(trace, jtrace, rtol=1e-5)
-  np.testing.assert_allclose(new.qpos_window.numpy(),
-                             np.asarray(jnew.qpos_window), atol=1e-6)
+  np.testing.assert_allclose(new.qpos_window.numpy(), np.asarray(jnew_qpos),
+                             atol=1e-6)
   # the same failure: no iteration improved on the start
   assert np.all(trace == trace[0]) and np.all(jtrace == jtrace[0])
 
@@ -117,3 +148,9 @@ def test_float32_update_fails_as_jaxs_and_float64_converges():
   trace64 = info64['cost_trace'].numpy()
   assert np.all(np.isfinite(trace64))
   assert trace64[-1] < 1e-5 * float(trace[0]), (trace64, trace)
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(jax_calls):
+  """The recorded JAX call is what the JAX package computes now."""
+  jax_calls.check_live()

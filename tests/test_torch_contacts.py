@@ -15,9 +15,10 @@
   own pairs, in float64: random poses and the resting pose at qpos0, where
   8 hull vertices tie for the lowest; the tied choice takes the same
   vertex indices as lax.top_k. Sphere-box, box-box, capsule-box and
-  capsule-capsule build (the last three against JAX's points); height
-  fields and the other primitive pairs still raise, naming their ROADMAP
-  item.
+  capsule-capsule build (the last three against JAX's points), and so do
+  sphere-ellipsoid and sphere-cylinder (against JAX's points); a height
+  field against a mesh and a mesh before a plane still raise, naming
+  ROADMAP A7.
 """
 
 import os
@@ -42,8 +43,10 @@ from mujoco_mpc_tpu_torch.physics import constraint
 from mujoco_mpc_tpu_torch.physics import forward as fwd
 from mujoco_mpc_tpu_torch.physics import kinematics as kin
 from mujoco_mpc_tpu_torch.physics import model as model_lib
+from mujoco_mpc_tpu_torch.tasks.registry import ASSETS
 from tools import export_torch_snapshot as export
 from tests.test_torch_cube import QUICK_COMPILE
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
 
@@ -51,6 +54,7 @@ XML = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'mujoco_mpc_tpu', 'models', 'quadruped.xml')
 NPOSE = 16
 NSTATE = 4
+JAX_CALLS = 'contacts_jax_calls_golden.npz'
 
 
 def _close(got, want, name, atol=1e-10):
@@ -166,31 +170,43 @@ def test_pair_params(quadruped, case):
 
 @pytest.fixture(scope='module')
 def rows(quadruped):
-  """The port's and JAX's contact rows at the module's states."""
+  """The port's and JAX's contact rows at the module's states, JAX's
+  (vmapped and jitted, and the groups' dmasks) replayed from
+  assets/contacts_jax_calls_golden.npz (tests/torch_recorded.py
+  RecordedJax; record anew with MJPC_TORCH_RECORD=1 in one process)."""
   jm, _, m, (qpos, qvel, ctrl) = quadruped
   jd0 = jmake_data(jm, dtype=jnp.float64)
 
-  @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
-  @jax.vmap
-  def jax_rows(q, v):
-    d = jkin.com_pos(jm, jkin.kinematics(jm, jd0.replace(qpos=q, qvel=v)))
-    groups, _ = jconstraint.contact_point_groups(jm, d)
-    blocks = jconstraint.contact_blocks(jm, d)
-    return ([(p.g, p.cdofc, p.aref, p.dvec, p.mu) for p in groups],
-            [(b.rows, b.frame, b.pos) for b in blocks])
+  def live():
+    @functools.partial(jax.jit, compiler_options=QUICK_COMPILE)
+    @jax.vmap
+    def jax_rows(q, v):
+      d = jkin.com_pos(jm, jkin.kinematics(jm, jd0.replace(qpos=q, qvel=v)))
+      groups, _ = jconstraint.contact_point_groups(jm, d)
+      blocks = jconstraint.contact_blocks(jm, d)
+      return ([(p.g, p.cdofc, p.aref, p.dvec, p.mu) for p in groups],
+              [(b.rows, b.frame, b.pos) for b in blocks])
 
+    def dmasks(q):
+      jd = jkin.kinematics(jm, jd0.replace(qpos=q))
+      return [jnp.asarray(p.dmask) for p in jconstraint.contact_point_groups(
+          jm, jkin.com_pos(jm, jd))[0]]
+    return {'rows': jax_rows, 'dmasks': dmasks}
+
+  rec = RecordedJax(os.path.join(ASSETS, JAX_CALLS), live)
   d = model_lib.make_data(m, NSTATE).replace(qpos=torch.from_numpy(qpos),
                                              qvel=torch.from_numpy(qvel))
   d = kin.com_pos(m, kin.kinematics(m, d))
-  jd = jkin.kinematics(jm, jd0.replace(qpos=jnp.asarray(qpos[0])))
-  dmasks = [p.dmask for p in jconstraint.contact_point_groups(
-      jm, jkin.com_pos(jm, jd))[0]]
-  return (constraint.contact_point_groups(m, d)[0],
-          constraint.contact_blocks(m, d), jax_rows(qpos, qvel), dmasks)
+  yield (constraint.contact_point_groups(m, d)[0],
+         constraint.contact_blocks(m, d),
+         rec('rows', jnp.asarray(qpos), jnp.asarray(qvel)),
+         [np.asarray(x) for x in rec('dmasks', jnp.asarray(qpos[0]))], rec)
+  if rec.recording:
+    rec.save()
 
 
 def test_contact_point_groups(rows):
-  groups, _, (want, _), dmasks = rows
+  groups, _, (want, _), dmasks, _ = rows
   assert [p.condim for p in groups] == [3]
   assert groups[0].g.shape[1] == want[0][0].shape[1]     # P from JAX: 20
   assert bool((groups[0].dvec > 0).any()), 'no contact active'
@@ -203,7 +219,7 @@ def test_contact_point_groups(rows):
 
 
 def test_contact_blocks(rows):
-  _, blocks, (_, want), _ = rows
+  _, blocks, (_, want), _, _ = rows
   assert len(blocks) == len(want) == 1
   for b, (wrows, wframe, wpos) in zip(blocks, want):
     for name in ('j', 'pos', 'margin', 'aref', 'd'):
@@ -215,13 +231,19 @@ def test_contact_blocks(rows):
 
 
 def test_expand_point_rows_equals_contact_blocks(rows):
-  groups, blocks, _, _ = rows
+  groups, blocks, _, _, _ = rows
   for p, b in zip(groups, blocks):
     j, aref, dvec = constraint.expand_point_rows(p)
     _close(j.numpy(), b.rows.j.numpy(), 'j')
     _close(aref.numpy(), b.rows.aref.numpy(), 'aref', atol=1e-8)
     want_d = torch.where(b.rows.active, b.rows.d, torch.zeros_like(b.rows.d))
     _close(dvec.numpy(), want_d.numpy(), 'dvec', atol=1e-8)
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(rows):
+  """The recorded JAX calls are what the JAX package computes now."""
+  rows[-1].check_live()
 
 
 def test_qacc_matches_mujoco(quadruped):
@@ -391,34 +413,59 @@ def test_contact_clusters_match_jax(shadow):
                                                         [15]]
 
 
-@pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('ellipsoid', 'A6'),
-                                       ('sphere-cylinder', 'A6'),
-                                       ('cylinder', 'A6')])
+def _ellipsoid_hull(size):
+  """JAX's tessellated hull (verts, normals, offsets) of an ellipsoid of
+  half sizes `size`, from put_model on a one-geom model."""
+  from mujoco_mpc_tpu.physics.model import put_model
+  mj = mujoco.MjModel.from_xml_string(
+      '<mujoco><worldbody><geom type="ellipsoid" size="%g %g %g"/>'
+      '</worldbody></mujoco>' % tuple(size))
+  return put_model(mj, dtype=jnp.float64).geom_mesh[0]
+
+
+@pytest.mark.parametrize('pair,item', [((2, 0), 'A7'), ('ellipsoid', 'ported'),
+                                       ('sphere-cylinder', 'ported'),
+                                       ('hfield-mesh', 'A7')])
 def test_unported_pairs_raise(shadow, pair, item):
   """No pair falls back to nothing: a mesh before a plane (the pair order
-  no collider takes) raises naming A7, the cylinder and ellipsoid pairs
-  A6 (a fingertip sphere against the goal marker's box made an ellipsoid
-  and against a finger capsule made a cylinder, and the palm box made a
-  cylinder against itself), in narrowphase, in the point count and when a model
-  with such a pair builds its contact table. (Mesh-mesh, refused here
-  before Cube Solving's slice, is ported: test_mesh_mesh_cluster_raises;
-  box-box, this test's fourth case before the box-pair slice, too:
-  test_box_pairs_are_ported; height fields and sphere-capsule, its
-  second and third cases before the last tasks' slice, too:
+  no collider takes) and a height field against a mesh (the cube's hull
+  against the floor made a height field) raise naming A7, in narrowphase,
+  in the point count and when a model with such a pair builds its contact
+  table. The cylinder and ellipsoid pairs, refused before the physics
+  slice, are ported: a fingertip sphere against the goal marker's box made
+  an ellipsoid (with JAX's tessellated hull) and against a finger capsule
+  made a cylinder emit JAX's points at the fixture's random poses
+  (tests/test_torch_convex_pairs.py holds every such pair). (Mesh-mesh,
+  box-box, height fields and sphere-capsule were cases here before their
+  slices too: test_mesh_mesh_cluster_raises, test_box_pairs_are_ported,
   tests/test_torch_last_tasks.py.)"""
-  _, m, d, _, _ = shadow
-  if pair == 'ellipsoid':
-    m = m.replace(geom_type=m.geom_type[:1]
-                  + (int(model_lib.GeomType.ELLIPSOID),) + m.geom_type[2:])
-    pair = (7, 1)
-  if pair == 'sphere-cylinder':
-    m = m.replace(geom_type=m.geom_type[:4]
-                  + (int(model_lib.GeomType.CYLINDER),) + m.geom_type[5:])
-    pair = (7, 4)
-  if pair == 'cylinder':
-    m = m.replace(geom_type=m.geom_type[:3]
-                  + (int(model_lib.GeomType.CYLINDER),) + m.geom_type[4:])
-    pair = (3, 3)
+  jm, m, d, jd, (xpos, xmat) = shadow
+  if item == 'ported':
+    g, t = ((1, model_lib.GeomType.ELLIPSOID) if pair == 'ellipsoid'
+            else (4, model_lib.GeomType.CYLINDER))
+    types = m.geom_type[:g] + (int(t),) + m.geom_type[g + 1:]
+    m, jm = m.replace(geom_type=types), jm.replace(geom_type=types)
+    if pair == 'ellipsoid':
+      hull = _ellipsoid_hull(np.asarray(jm.geom_size[g]))
+      jm = jm.replace(geom_mesh={**jm.geom_mesh, g: hull})
+      m = m.replace(geom_mesh={**m.geom_mesh, g: tuple(
+          torch.from_numpy(np.array(a, np.float64)) for a in hull)})
+    pair = (7, g)
+    got = collision.narrowphase(m, d, *pair)
+    assert len(got) == 1 == collision.points_per_pair(m, *pair)
+    want = _jax_vmap(jd, lambda x: [tuple(p[:3]) for p in
+                                    jcollision.narrowphase(jm, x, *pair)],
+                     xpos, xmat)
+    for gp, w in zip(got, want):
+      for name, a, b in zip(('dist', 'pos', 'normal'), gp[:3], w):
+        _close(a.numpy(), b, f'{pair} {name}')
+    (group,) = constraint.contact_table(m.replace(collision_pairs=(pair,)))
+    assert group.margin.shape == (1,)
+    return
+  if pair == 'hfield-mesh':
+    m = m.replace(geom_type=(int(model_lib.GeomType.HFIELD),)
+                  + m.geom_type[1:])
+    pair = (0, 2)
   for call in (lambda: collision.narrowphase(m, d, *pair),
                lambda: collision.points_per_pair(m, *pair),
                lambda: constraint.contact_table(

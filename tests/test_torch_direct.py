@@ -19,8 +19,14 @@ and test_estimators.py:111-177:
   tests/test_torch_tracking.py.
 JAX's optimize, optimize_joint and the batch update (with the recursive
 prior) are jitted once each (no contact model here), with XLA's quick
-compile options.
+compile options, and replayed from assets/direct_jax_calls_golden.npz
+(tests/torch_recorded.py RecordedJax; record anew with
+MJPC_TORCH_RECORD=1 in one process; the slow
+test_jax_calls_golden_is_jaxs makes them live).
 """
+
+import os
+
 
 import jax
 import jax.numpy as jnp
@@ -43,9 +49,13 @@ from mujoco_mpc_tpu_torch.physics import sensors
 from tests.test_banded import _dense_from_blocks, _random_block_tridiag
 from tests.test_direct import XML as PENDULUM_XML
 from tests.test_direct_parameters import _XML as DAMPED_XML
+from mujoco_mpc_tpu_torch.tasks.registry import ASSETS
+from tests.torch_recorded import RecordedJax
 from tools import export_torch_snapshot as export
 
 torch.set_num_threads(1)
+
+JAX_CALLS = 'direct_jax_calls_golden.npz'
 
 F64 = torch.float64
 QUICK = {'xla_backend_optimization_level': 0,
@@ -137,6 +147,60 @@ def _window(m, horizon, noise, rng):
   return tuple(np.asarray(a) for a in (qpos, meas, forces, times))
 
 
+PENDULUM_WEIGHTS = dict(sensor_weight=[1e4, 1e2], force_weight=[1e2])
+BATCH_WEIGHTS = dict(sensor_weight=[1e4, 1e2], force_weight=[1e2],
+                     prior_weight=0.1)
+
+
+def _jax_problem(xml, horizon, weights, iterations):
+  """JAX's float64 problem and settings of a model's window."""
+  jm = put_model(mujoco.MjModel.from_xml_string(xml), dtype=jnp.float64)
+  jp = jdirect.make_problem(jm, jmake_data(jm, dtype=jnp.float64), horizon)
+  js = jdirect.default_settings(jp, dtype=jnp.float64).replace(
+      **{k: jnp.asarray(v, jnp.float64) for k, v in weights.items()},
+      max_iterations=iterations)
+  return jm, jp, js
+
+
+def _jax_optimize(jdata):
+  """JAX's optimize of the pendulum's 10-step window."""
+  _, jp, js = _jax_problem(PENDULUM_XML, 10, PENDULUM_WEIGHTS, 4)
+  return _jit(lambda d: jdirect.optimize(jp, d, js), jdata)(jdata)
+
+
+def _jax_optimize_joint(jdata):
+  """JAX's optimize_joint of the damped model's 12-step window."""
+  jm, jp, js = _jax_problem(DAMPED_XML, 12, {}, 12)
+  return _jit(lambda d: jdirect.optimize_joint(
+      jp, d, js, jdirect.damping_parameter_model(jm.nv), jnp.zeros(1)),
+              jdata)(jdata)
+
+
+def _jax_batch_update(jstate, *new):
+  """JAX's batch update with the recursive prior of the pendulum's
+  4-window."""
+  _, jp, js = _jax_problem(PENDULUM_XML, 4, BATCH_WEIGHTS, 3)
+  return _jit(lambda st: jbatch.update(jp, st, js, *new, jnp.asarray(0.01),
+                                       recursive_prior=True),
+              jstate)(jstate)
+
+
+@pytest.fixture(scope='module')
+def jax_calls():
+  rec = RecordedJax(os.path.join(ASSETS, JAX_CALLS), lambda: {
+      'optimize': _jax_optimize, 'optimize_joint': _jax_optimize_joint,
+      'batch_update': _jax_batch_update})
+  yield rec
+  if rec.recording:
+    rec.save()
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(jax_calls):
+  """The recorded JAX calls are what the JAX package computes now."""
+  jax_calls.check_live()
+
+
 @pytest.fixture(scope='module')
 def pendulum():
   """(JAX model, the port's model, JAX's and the port's problems and
@@ -146,12 +210,11 @@ def pendulum():
                                       np.random.default_rng(3))
   jp = jdirect.make_problem(jm, jmake_data(jm, dtype=jnp.float64), 10)
   p = direct.make_problem(m, model_lib.make_data(m), 10)
-  weights = dict(sensor_weight=[1e4, 1e2], force_weight=[1e2])
   js = jdirect.default_settings(jp, dtype=jnp.float64).replace(
-      **{k: jnp.asarray(v, jnp.float64) for k, v in weights.items()},
-      max_iterations=4)
+      **{k: jnp.asarray(v, jnp.float64)
+         for k, v in PENDULUM_WEIGHTS.items()}, max_iterations=4)
   s = direct.default_settings(p).replace(
-      **{k: t64(v) for k, v in weights.items()}, max_iterations=4)
+      **{k: t64(v) for k, v in PENDULUM_WEIGHTS.items()}, max_iterations=4)
   arrays = dict(qpos_ref=meas[:, :1], sensor_meas=meas, force_meas=forces,
                 times=times)
   jdata = jdirect.DirectData(**{k: jnp.asarray(v) for k, v in arrays.items()})
@@ -178,11 +241,11 @@ def test_banded_normal_equations_match_dense_and_jax(pendulum):
     np.testing.assert_allclose(off2[t].numpy(), blk(t + 2, t), atol=1e-8)
 
 
-def test_optimize_matches_jax_and_smooths(pendulum):
+def test_optimize_matches_jax_and_smooths(pendulum, jax_calls):
   """Four damped Gauss-Newton iterations: JAX's cost trace and iterate,
   and a window closer to the truth than the measurements."""
   _, _, jp, p, jdata, data, js, s, qpos_true = pendulum
-  jz, jinfo = _jit(lambda: jdirect.optimize(jp, jdata, js))()
+  jz, jinfo = jax_calls('optimize', jdata)
   z, info = direct.optimize(p, data, s)
   np.testing.assert_allclose(info['cost_trace'].numpy(),
                              np.asarray(jinfo['cost_trace']), rtol=1e-9)
@@ -196,7 +259,7 @@ def test_optimize_matches_jax_and_smooths(pendulum):
   assert float(info['cost_trace'][-1]) < float(info['cost_trace'][0])
 
 
-def test_optimize_joint_recovers_damping_as_jax():
+def test_optimize_joint_recovers_damping_as_jax(jax_calls):
   """test_direct_parameters.py: a window simulated with damping x 1.6;
   theta (ln of the damping scale) from 0 over 12 iterations."""
   jm, m = _models(DAMPED_XML)
@@ -220,13 +283,8 @@ def test_optimize_joint_recovers_damping_as_jax():
   assert np.isfinite(float(info['final_cost']))
   np.testing.assert_allclose(float(torch.exp(theta[0])), 1.6, rtol=0.15)
 
-  jp = jdirect.make_problem(jm, jmake_data(jm, dtype=jnp.float64), T)
-  js = jdirect.default_settings(jp, dtype=jnp.float64).replace(
-      max_iterations=12)
   jdata = jdirect.DirectData(**{k: jnp.asarray(v) for k, v in arrays.items()})
-  jz, jtheta, jinfo = _jit(lambda: jdirect.optimize_joint(
-      jp, jdata, js, jdirect.damping_parameter_model(jm.nv),
-      jnp.zeros(1)))()
+  jz, jtheta, jinfo = jax_calls('optimize_joint', jdata)
   np.testing.assert_allclose(theta.numpy(), np.asarray(jtheta), rtol=1e-6)
   np.testing.assert_allclose(info['cost_trace'].numpy(),
                              np.asarray(jinfo['cost_trace']), rtol=1e-6,
@@ -273,20 +331,15 @@ def test_marginalize_prior_matches_dense_oracle_and_jax():
   np.testing.assert_allclose(p_off1.numpy(), np.asarray(jo), atol=1e-12)
 
 
-def test_batch_updates_match_jax(pendulum):
+def test_batch_updates_match_jax(pendulum, jax_calls):
   """One update of a 4-window, with and without the recursive prior, from
   the same BatchState (a filled window of the pendulum's measurements)."""
   jm, m, _, _, _, data, _, _, _ = pendulum
   T = 4
   jp = jdirect.make_problem(jm, jmake_data(jm, dtype=jnp.float64), T)
   p = direct.make_problem(m, model_lib.make_data(m), T)
-  weights = dict(sensor_weight=[1e4, 1e2], force_weight=[1e2],
-                 prior_weight=0.1)
-  js = jdirect.default_settings(jp, dtype=jnp.float64).replace(
-      **{k: jnp.asarray(v, jnp.float64) for k, v in weights.items()},
-      max_iterations=3)
   s = direct.default_settings(p).replace(
-      **{k: t64(v) for k, v in weights.items()}, max_iterations=3)
+      **{k: t64(v) for k, v in BATCH_WEIGHTS.items()}, max_iterations=3)
   jstate = jbatch.init_state(jp, dtype=jnp.float64, scale_prior=0.1)
   jstate = jstate.replace(
       qpos_window=jnp.asarray(data.sensor_meas.numpy()[:T, :1]),
@@ -295,11 +348,9 @@ def test_batch_updates_match_jax(pendulum):
       times=jnp.asarray(data.times.numpy()[:T]), filled=jnp.asarray(T))
   new = [data.sensor_meas[T], data.force_meas[T], data.times[T]]
   jnew = [jnp.asarray(x.numpy()) for x in new]
-  dt = jnp.asarray(0.01)
-  # one JAX compile: the update without the recursive prior differs from
-  # the one with it only in keeping the state's prior
-  jst, jinfo = _jit(lambda st: jbatch.update(
-      jp, st, js, *jnew, dt, recursive_prior=True), jstate)(jstate)
+  # one JAX call: the update without the recursive prior differs from the
+  # one with it only in keeping the state's prior
+  jst, jinfo = jax_calls('batch_update', jstate, *jnew)
   state = convert.batch_state_from_arrays(
       {f: np.asarray(getattr(jstate, f)) for f in (
           'qpos_window', 'sensor_window', 'force_window', 'times', 'filled',

@@ -9,7 +9,10 @@ float64 on the CPU.
   (ops/newton.NewtonSolve) runs inside the Jacobians (atol 1e-8: both
   Newton solves stop at tolerance 1e-8). JAX's updates are jitted as one
   function a model, with XLA's quick compile options (its EKF on the
-  contact model alone compiles for ~24 s here).
+  contact model alone compiles for ~24 s here), and replayed from
+  assets/estimators_jax_calls_golden.npz (tests/torch_recorded.py
+  RecordedJax; record anew with MJPC_TORCH_RECORD=1 in one process; the
+  slow test_jax_calls_golden_is_jaxs makes them live).
 * Batch-first: two filters in one call equal each filter alone.
 * Quadruped Flat: one EKF and one UKF update held to
   assets/quadruped_flat_estimators_golden.npz, written by the JAX package
@@ -38,11 +41,13 @@ from mujoco_mpc_tpu_torch.estimators import base, kalman, unscented
 from mujoco_mpc_tpu_torch.physics import model as model_lib
 from mujoco_mpc_tpu_torch.tasks import registry
 from tests.test_estimators import XML as ARM_XML
+from tests.torch_recorded import RecordedJax
 from tools import export_torch_snapshot as export
 
 torch.set_num_threads(1)
 
 F64 = torch.float64
+JAX_CALLS = 'estimators_jax_calls_golden.npz'
 QUICK = {'xla_backend_optimization_level': 0,
          'xla_llvm_disable_expensive_passes': True}
 
@@ -87,16 +92,34 @@ def _jax_updates(jm, jt, contact):
 
 
 @pytest.fixture(scope='module')
-def models():
-  """name -> (JAX model, JAX template, the port's model, JAX's updates)."""
+def raw_models():
+  """name -> (JAX model, JAX template, the port's model)."""
   out = {}
   for name, xml in (('arm', ARM_XML), ('ball', BALL_XML)):
     jm = put_model(mujoco.MjModel.from_xml_string(xml), dtype=jnp.float64)
     jt = jmake_data(jm, dtype=jnp.float64)
-    m = model_lib.from_arrays(*export.model_snapshot(jm), device='cpu',
-                              dtype=F64)
-    out[name] = (jm, jt, m, _jax_updates(jm, jt, name == 'ball'))
+    out[name] = (jm, jt, model_lib.from_arrays(*export.model_snapshot(jm),
+                                               device='cpu', dtype=F64))
   return out
+
+
+@pytest.fixture(scope='module')
+def jax_calls(raw_models):
+  """JAX's updates of each model (_jax_updates), replayed from
+  JAX_CALLS."""
+  rec = RecordedJax(os.path.join(registry.ASSETS, JAX_CALLS), lambda: {
+      name: _jax_updates(jm, jt, name == 'ball')
+      for name, (jm, jt, _) in raw_models.items()})
+  yield rec
+  if rec.recording:
+    rec.save()
+
+
+@pytest.fixture(scope='module')
+def models(raw_models, jax_calls):
+  """name -> (JAX model, JAX template, the port's model, JAX's updates)."""
+  return {name: v + (lambda s, u, y, name=name: jax_calls(name, s, u, y),)
+          for name, v in raw_models.items()}
 
 
 def _fields(state):
@@ -218,6 +241,12 @@ def test_quadruped_updates_match_the_golden():
       np.testing.assert_allclose(getattr(new, f).numpy()[0],
                                  g[f'{name}/{f}'], atol=atol,
                                  err_msg=f'{name} {f}')
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(jax_calls):
+  """The recorded JAX updates are what the JAX package computes now."""
+  jax_calls.check_live()
 
 
 @pytest.mark.slow

@@ -15,7 +15,11 @@ test_golden_is_jaxs recomputes it live (slow). Tolerances are those of
 tests/test_torch_manipulation.py:
 
 * _hfield_point and _hfield_collide against JAX's under one jitted vmap
-  each, 256 configurations each for a sphere, a capsule, a box, a
+  each (replayed from assets/last_tasks_jax_calls_golden.npz,
+  tests/torch_recorded.py RecordedJax: record anew with
+  MJPC_TORCH_RECORD=1 in one process; the slow
+  test_jax_calls_golden_is_jaxs makes them live), 256 configurations
+  each for a sphere, a capsule, a box, a
   cylinder and an ellipsoid from a
   numpy seed over Quadruped Hill's terrain (atol 1e-10; positions beyond
   the extent, ~5e9 m out, to 1e-14 relative): points on cell
@@ -77,12 +81,16 @@ import tests.test_actuators as jactuators
 import tests.test_hfield as jhfield
 from tests.test_torch_box_pairs import _rotations, _signed_perms
 from tests.test_torch_package import BLOCK, _check_snapshot, _run
+from tests.torch_recorded import RecordedJax
 from tools import export_torch_snapshot as export
 
 torch.set_num_threads(1)
 
 TASKS = export.LAST_TASKS
 N = 256
+JAX_CALLS = 'last_tasks_jax_calls_golden.npz'
+# the shank's half sizes where a test makes it a cylinder or an ellipsoid
+RETYPED_SIZE = (2.0 ** -4, 2.0 ** -3, 2.0 ** -5)
 HILL = 'Quadruped Hill'
 # Hill's geoms the collider tests place: the terrain, a shank capsule, a
 # foot sphere and the trunk box, with dyadic sizes so that axis-aligned
@@ -177,14 +185,69 @@ def _poses(m, n, p1, m1, g2, c, m2):
   return xpos, xmat
 
 
-def _jax_collide(jm, g1, g2, xpos, xmat):
-  jd = jmake_data(jm, dtype=jnp.float64)
-  out = jax.jit(jax.vmap(lambda p, r: [tuple(cp[:3]) for cp in
-                                       jcollision.narrowphase(
-                                           jm, jd.replace(geom_xpos=p,
-                                                          geom_xmat=r),
-                                           g1, g2)]))(
-      jnp.asarray(xpos), jnp.asarray(xmat))
+# the JAX models of the recorded calls, by key, set by each test before
+# its call (the live functions read them)
+_JAX_MODELS = {}
+
+
+class _LiveCalls(dict):
+  """The JAX functions JAX_CALLS replays, by name: 'collide/<model
+  key>/<g1>/<g2>' (narrowphase on the pair at the two geoms' poses, the
+  others at the origin, vmapped) and 'point/<model key>' (_hfield_point
+  on the terrain), jitted once each."""
+
+  def __missing__(self, name):
+    kind, key, *geoms = name.split('/')
+    jm = _JAX_MODELS[key]
+    jd = jmake_data(jm, dtype=jnp.float64)
+
+    def at(p, r, gs):
+      xpos = jnp.zeros((jm.ngeom, 3), p.dtype).at[jnp.asarray(gs)].set(p)
+      xmat = jnp.broadcast_to(jnp.eye(3, dtype=r.dtype), (jm.ngeom, 3, 3))
+      return jd.replace(geom_xpos=xpos,
+                        geom_xmat=xmat.at[jnp.asarray(gs)].set(r))
+    if kind == 'collide':
+      g1, g2 = map(int, geoms)
+      fn = jax.jit(jax.vmap(lambda p, r: [tuple(cp[:3]) for cp in
+                                          jcollision.narrowphase(
+                                              jm, at(p, r, (g1, g2)),
+                                              g1, g2)]))
+    else:
+      fn = jax.jit(jax.vmap(lambda p, mat, cc, rr: tuple(
+          jcollision._hfield_point(jm, at(p[None], mat[None], (TERRAIN,)),
+                                   TERRAIN, cc, rr)[:3])))
+    self[name] = fn
+    return fn
+
+
+_REC = RecordedJax(os.path.join(registry.ASSETS, JAX_CALLS), _LiveCalls)
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _record():
+  yield
+  if _REC.recording:
+    _REC.save()
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs(hill_models):
+  """The recorded JAX calls are what the JAX package computes now."""
+  jm, m = hill_models
+  _JAX_MODELS['hill'] = jm
+  for geom in ('cylinder', 'ellipsoid'):
+    _JAX_MODELS[geom] = _retyped(jm, m, CAPSULE, getattr(
+        model_lib.GeomType, geom.upper()), RETYPED_SIZE)[0]
+  _REC.check_live()
+
+
+def _jax_collide(key, jm, g1, g2, xpos, xmat):
+  """JAX's narrowphase on the pair (g1, g2) of model jm (its key in
+  _JAX_MODELS) at the two geoms' poses (the rest at the origin, as
+  _poses places them), replayed."""
+  _JAX_MODELS[key] = jm
+  out = _REC(f'collide/{key}/{g1}/{g2}', jnp.asarray(xpos[:, [g1, g2]]),
+             jnp.asarray(xmat[:, [g1, g2]]))
   return [[np.asarray(x) for x in p] for p in out]
 
 
@@ -220,8 +283,7 @@ def test_hfield_collide_matches_jax(hill_models, geom):
   jm, m = hill_models
   if geom in ('cylinder', 'ellipsoid'):
     jm, m = _retyped(jm, m, CAPSULE, getattr(model_lib.GeomType,
-                                             geom.upper()),
-                     (2.0 ** -4, 2.0 ** -3, 2.0 ** -5))
+                                             geom.upper()), RETYPED_SIZE)
   g2 = {'sphere': SPHERE, 'box': BOX}.get(geom, CAPSULE)
   rng = np.random.default_rng({'sphere': 61, 'capsule': 62, 'box': 63,
                                'cylinder': 67, 'ellipsoid': 68}[geom])
@@ -232,7 +294,9 @@ def test_hfield_collide_matches_jax(hill_models, geom):
   assert len(got) == collision.points_per_pair(m, TERRAIN, g2) == {
       'sphere': 1, 'capsule': 2, 'box': 4, 'cylinder': 2,
       'ellipsoid': 1}[geom]
-  _same(got, _jax_collide(jm, TERRAIN, g2, xpos, xmat), f'hfield-{geom}')
+  key = geom if geom in ('cylinder', 'ellipsoid') else 'hill'
+  _same(got, _jax_collide(key, jm, TERRAIN, g2, xpos, xmat),
+        f'hfield-{geom}')
   kind = np.arange(N) % 8
   dist = np.stack([p.dist.numpy() for p in got], -1)
   assert (dist[kind == 5] == 1e10).all()
@@ -253,12 +317,8 @@ def test_hfield_point_matches_jax(hill_models):
   p1, m1, c, _ = _hfield_cases(m, rng)
   r = rng.uniform(0.0, 0.1, N)
   r[::3] = 0.0
-  xpos, xmat = _poses(m, N, p1, m1, SPHERE, c, np.eye(3))
-  jd = jmake_data(jm, dtype=jnp.float64)
-  want = jax.jit(jax.vmap(lambda p, mat, cc, rr: tuple(
-      jcollision._hfield_point(jm, jd.replace(geom_xpos=p, geom_xmat=mat),
-                               TERRAIN, cc, rr)[:3])))(
-      *(jnp.asarray(x) for x in (xpos, xmat, c, r)))
+  _JAX_MODELS['hill'] = jm
+  want = _REC('point/hill', *(jnp.asarray(x) for x in (p1, m1, c, r)))
   got = collision._hfield_point(*m.geom_hfield[TERRAIN], _f64(p1),
                                 _f64(m1), _f64(c), _f64(r))
   _same([got], [[np.asarray(x) for x in want]], 'hfield point')
@@ -297,7 +357,8 @@ def test_sphere_capsule_matches_jax(hill_models):
   d = make_data(m, N).replace(geom_xpos=_f64(xpos), geom_xmat=_f64(xmat))
   got = collision.narrowphase(m, d, SPHERE, CAPSULE)
   assert collision.points_per_pair(m, SPHERE, CAPSULE) == 1
-  _same(got, _jax_collide(jm, SPHERE, CAPSULE, xpos, xmat), 'sphere-capsule')
+  _same(got, _jax_collide('hill', jm, SPHERE, CAPSULE, xpos, xmat),
+        'sphere-capsule')
   assert (got[0].dist.numpy()[kind == 1] < 0).all()
   assert (got[0].normal.numpy()[on] == 0).all()
 

@@ -4,7 +4,11 @@ mujoco_mpc_tpu_torch/ops/newton.newton_reference is held against the JAX
 reference loop (vmapped pallas_newton._newton_reference) in float64, and
 against the fused Pallas kernel it stands for (newton_batched in interpret
 mode) in float32, on the synthetic problem of tests/test_pallas_newton.py
-regenerated with numpy, and on Cartpole-shaped inputs.
+regenerated with numpy, and on Cartpole-shaped inputs. JAX's solves
+(the interpret-mode kernel takes seconds a call here) are replayed from
+assets/newton_jax_calls_golden.npz (tests/torch_recorded.py RecordedJax;
+record anew with MJPC_TORCH_RECORD=1 in one process; the slow
+test_jax_calls_golden_is_jaxs makes them live).
 """
 
 import functools
@@ -19,8 +23,12 @@ import torch
 
 from mujoco_mpc_tpu.ops import pallas_newton
 from mujoco_mpc_tpu_torch.ops import newton
+from mujoco_mpc_tpu_torch.tasks.registry import ASSETS
+from tests.torch_recorded import RecordedJax
 
 torch.set_num_threads(1)
+
+JAX_CALLS = 'newton_jax_calls_golden.npz'
 
 
 def _synthetic_problem(seed, bsz, nv, n, ns, dtype):
@@ -82,16 +90,74 @@ def _cone_empty(bsz, nv, dtype):
           jnp.zeros((bsz, 0), dtype), jnp.zeros((bsz, 0), dtype))
 
 
+def _reference(case, *args):
+  _, dof, sign, cap, tol = CASES[case]
+  bsz, nv = args[1].shape
+  return jax.vmap(functools.partial(
+      pallas_newton._newton_reference, dof=dof, sign=sign, cap=cap,
+      tol=tol))(*args, *_cone_empty(bsz, nv, jnp.float64))[:3]
+
+
+def _kernel(case, *args):
+  _, dof, sign, cap, tol = CASES[case]
+  return pallas_newton.newton_batched(*args, dof=dof, sign=sign, cap=cap,
+                                      tol=tol, interpret=True)
+
+
+def _group_reference(case, *a):
+  groups, dof, sign = GROUP_CASES[case]
+  _, _, dmasks = _group_problem(6, 8, 6, 3, 2, groups, np.float64)
+  condims = tuple(c for c, _ in groups)
+
+  def one(*a):
+    jd = tuple((pallas_newton.materialize_jd(a[9 + 4 * i], a[8],
+                                             dmasks[i]),)
+               + tuple(a[10 + 4 * i:13 + 4 * i]) for i in range(len(groups)))
+    return pallas_newton._newton_reference(
+        *a[:8], *a[-8:], dof=dof, sign=sign, cap=30, tol=1e-10,
+        condims=condims, groups=jd)
+
+  want = jax.vmap(one)(*a, *_cone_empty(8, 6, jnp.float64))
+  return want[:3] + want[5:]
+
+
+def _group_kernel(case, *a):
+  groups, dof, sign = GROUP_CASES[case]
+  _, _, dmasks = _group_problem(7, 8, 6, 3, 2, groups, np.float32)
+  return pallas_newton.newton_batched(
+      *a, dof=dof, sign=sign, cap=30, tol=1e-6, interpret=True,
+      condims=tuple(c for c, _ in groups),
+      dmasks=tuple(d.tobytes() for d in dmasks))
+
+
+_REC = RecordedJax(os.path.join(ASSETS, JAX_CALLS), lambda: {
+    f'{kind}/{case}': functools.partial(fn, case)
+    for kind, fn, cases in (('reference', _reference, CASES),
+                            ('kernel', _kernel, CASES),
+                            ('group_reference', _group_reference, GROUP_CASES),
+                            ('group_kernel', _group_kernel, GROUP_CASES))
+    for case in cases})
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _record():
+  yield
+  if _REC.recording:
+    _REC.save()
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs():
+  """The recorded JAX calls are what the JAX package computes now."""
+  _REC.check_live()
+
+
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_plain_newton_matches_jax_reference_loop_f64(case):
   build, dof, sign, cap, tol = CASES[case]
   args = build(np.float64)
-  bsz, nv = args[1].shape
   got = _port(args, dof, sign, cap, tol)
-  want = jax.vmap(functools.partial(
-      pallas_newton._newton_reference, dof=dof, sign=sign, cap=cap,
-      tol=tol))(*(jnp.asarray(a) for a in args),
-                *_cone_empty(bsz, nv, jnp.float64))[:3]
+  want = _REC(f'reference/{case}', *(jnp.asarray(a) for a in args))
   # f64, same iteration in the same order: agreement to rounding, with
   # headroom for the different summation order of the matmuls
   for g, w in zip(got, want):
@@ -103,9 +169,7 @@ def test_plain_newton_matches_pallas_kernel_f32(case):
   build, dof, sign, cap, tol = CASES[case]
   args = build(np.float32)
   got = _port(args, dof, sign, cap, tol)
-  want = pallas_newton.newton_batched(
-      *(jnp.asarray(a) for a in args), dof=dof, sign=sign, cap=cap, tol=tol,
-      interpret=True)
+  want = _REC(f'kernel/{case}', *(jnp.asarray(a) for a in args))
   # f32: the kernel and the plain loop sum in different orders, so a jar
   # sitting on an activity boundary can wiggle at ~1e-3 (the tolerance of
   # tests/test_pallas_newton.py for the same comparison)
@@ -187,19 +251,8 @@ def test_plain_newton_groups_match_jax_reference_loop_f64(case):
   groups, dof, sign = GROUP_CASES[case]
   base, gargs, dmasks = _group_problem(6, 8, 6, 3, 2, groups, np.float64)
   got = _port_groups(base, gargs, dmasks, groups, dof, sign, 30, 1e-10)
-  condims = tuple(c for c, _ in groups)
-
-  def one(*a):
-    jd = tuple((pallas_newton.materialize_jd(a[9 + 4 * i], a[8],
-                                             dmasks[i]),)
-               + tuple(a[10 + 4 * i:13 + 4 * i]) for i in range(len(groups)))
-    return pallas_newton._newton_reference(
-        *a[:8], *a[-8:], dof=dof, sign=sign, cap=30, tol=1e-10,
-        condims=condims, groups=jd)
-
-  want = jax.vmap(one)(*(jnp.asarray(x) for x in base + gargs),
-                       *_cone_empty(8, 6, jnp.float64))
-  want = want[:3] + want[5:]
+  want = _REC(f'group_reference/{case}',
+              *(jnp.asarray(x) for x in base + gargs))
   # f64, the same iteration on the facet-expanded rows in the same order
   for g, w in zip(got, want):
     np.testing.assert_allclose(g, np.asarray(w), rtol=1e-9, atol=1e-9)
@@ -210,10 +263,7 @@ def test_plain_newton_groups_match_pallas_kernel_f32(case):
   groups, dof, sign = GROUP_CASES[case]
   base, gargs, dmasks = _group_problem(7, 8, 6, 3, 2, groups, np.float32)
   got = _port_groups(base, gargs, dmasks, groups, dof, sign, 30, 1e-6)
-  want = pallas_newton.newton_batched(
-      *(jnp.asarray(a) for a in base + gargs), dof=dof, sign=sign, cap=30,
-      tol=1e-6, interpret=True, condims=tuple(c for c, _ in groups),
-      dmasks=tuple(d.tobytes() for d in dmasks))
+  want = _REC(f'group_kernel/{case}', *(jnp.asarray(a) for a in base + gargs))
   # f32, tolerance as for the dense rows above
   for g, w in zip(got, want):
     np.testing.assert_allclose(g.astype(np.float64),

@@ -17,15 +17,23 @@ carries a task's model.
 * the rangefinder (support.raycast) against box, sphere, capsule,
   cylinder and plane, and a miss, at four yaws as one batch (atol 1e-9),
   with the head's own sphere, which every ray excludes, visual-only and
-  colliding with the floor, the wall (sphere-box) and the ball (its pairs
-  with the capsule and the cylinder are not ported yet);
+  colliding with the floor, the wall (sphere-box) and the ball, and on
+  RANGE_XML itself (its sphere also against the capsule and the
+  cylinder);
 * inverse dynamics against mj_inverse (atol 1e-9) and JAX's;
-* the refusals: an unsupported sensor type at load, tendon sensors and
-  elliptic cones where they are evaluated;
+* the refusals: an unsupported sensor type at load, elliptic cones where
+  they are evaluated; the tendon sensors, refused before the physics
+  slice, against JAX and MuJoCo;
 * assets/sensor_models.npz (these models and their states, which
   chip_smoke.py runs on the card) matches a fresh export.
+JAX's forward, sensordata, contact forces, inverse dynamics and body
+queries (eager JAX, a few seconds a call here) are replayed from
+assets/sensors_jax_calls_golden.npz (tests/torch_recorded.py
+RecordedJax; record anew with MJPC_TORCH_RECORD=1 in one process; the
+slow test_jax_calls_golden_is_jaxs makes them live).
 """
 
+import functools
 import os
 
 import jax.numpy as jnp
@@ -49,9 +57,12 @@ from mujoco_mpc_tpu_torch.physics import support
 from mujoco_mpc_tpu_torch.tasks import registry as port_registry
 from tests.test_direct import XML as INVERSE_XML
 from tests.test_sensors import RANGE_XML, XML as SENSOR_XML
+from tests.torch_recorded import RecordedJax
 from tools import export_torch_snapshot as export
 
 torch.set_num_threads(1)
+
+JAX_CALLS = 'sensors_jax_calls_golden.npz'
 
 # FORCE_XML's plate and sites, with the plate's collision geom a plane
 # (the box-box pair is not ported) and its mass on a visual-only box
@@ -82,23 +93,12 @@ FORCE_PLANE_XML = """
 """
 
 # RANGE_XML with the head's sphere visual-only: the rays exclude it, and
-# it pairs with nothing (its pair with the drum, sphere-cylinder, is not
-# ported yet)
+# it pairs with nothing (assets/sensor_models.npz carries this model)
 RANGE_PORT_XML = RANGE_XML.replace(
     '<geom type="sphere" size="0.05" mass="0.2"/>',
     '<geom type="sphere" size="0.05" mass="0.2" contype="0" '
     'conaffinity="0"/>')
 assert RANGE_PORT_XML != RANGE_XML
-# RANGE_XML with the head's sphere colliding with the floor, the wall
-# (sphere-box) and the ball: the post and the drum take another collision
-# bit, so that they pair with nothing (the rays still hit them: visual-only
-# geoms, contype and conaffinity 0, are what rays skip)
-RANGE_COLLIDING_XML = RANGE_XML
-for _geom in ('name="post" type="capsule" size="0.08 0.5"',
-              'name="drum" type="cylinder" size="0.25 0.4"'):
-  RANGE_COLLIDING_XML = RANGE_COLLIDING_XML.replace(
-      _geom, _geom + ' contype="2" conaffinity="2"')
-assert RANGE_COLLIDING_XML.count('contype="2"') == 2
 
 # the sensor types the XMLs above leave out: a ball joint, frame axes of
 # a site, a body and a geom, subtree velocities, actuator sensors, clock
@@ -153,11 +153,53 @@ def _batch(m, states):
       qpos=cat(0), qvel=cat(1), ctrl=cat(2))
 
 
-def _jax_sensordata(jm, qpos, qvel, ctrl):
-  jd = jmake_data(jm, dtype=jnp.float64).replace(
-      qpos=jnp.asarray(qpos), qvel=jnp.asarray(qvel), ctrl=jnp.asarray(ctrl))
-  jd = jforward.forward(jm, jd)
-  return jd, np.asarray(jsensors.sensordata(jm, jd))
+# the models whose JAX calls the tests replay, by key
+XMLS = {'sensors': SENSOR_XML, 'more': MORE_XML, 'force': FORCE_PLANE_XML,
+        'range_port': RANGE_PORT_XML, 'range': RANGE_XML,
+        'inverse': INVERSE_XML}
+
+
+def _jax_forward(key, q, v, u, t):
+  """JAX's float64 forward of model XMLS[key] at one state: (sensordata,
+  its contact forces' (pos, frame, force6, b1, b2) or (), its inverse
+  dynamics' (qfrc_smooth, sensordata) at qacc u for key 'inverse', its
+  bodies' angular velocities and subtree masses)."""
+  from mujoco_mpc_tpu.physics import support as jsupport
+  jm = put_model(mujoco.MjModel.from_xml_string(XMLS[key]),
+                 dtype=jnp.float64)
+  jd = jmake_data(jm, dtype=jnp.float64).replace(qpos=q, qvel=v, time=t)
+  if key == 'inverse':
+    jd = jinverse.inverse(jm, jd.replace(qacc=u))
+    return (jd.qfrc_smooth, jsensors.sensordata(jm, jd))
+  jd = jforward.forward(jm, jd.replace(ctrl=u))
+  cf = jconstraint.contact_forces(jm, jd) if key == 'force' else None
+  return (jsensors.sensordata(jm, jd),
+          () if cf is None else (cf.pos, cf.frame, cf.force6,
+                                 jnp.asarray(cf.b1), jnp.asarray(cf.b2)),
+          [jsupport.body_angvel(jm, jd, b) for b in range(jm.nbody)],
+          [jsupport.subtree_mass(jm, b) for b in range(jm.nbody)])
+
+
+_REC = RecordedJax(os.path.join(port_registry.ASSETS, JAX_CALLS),
+                   lambda: {f'forward/{k}': functools.partial(_jax_forward, k)
+                            for k in XMLS})
+
+
+@pytest.fixture(scope='module', autouse=True)
+def _record():
+  yield
+  if _REC.recording:
+    _REC.save()
+
+
+def _jax(key, qpos, qvel, ctrl, time=0.0):
+  """_jax_forward replayed (see JAX_CALLS)."""
+  return _REC(f'forward/{key}', *(jnp.asarray(np.asarray(x, np.float64))
+                                  for x in (qpos, qvel, ctrl, time)))
+
+
+def _jax_sensordata(key, qpos, qvel, ctrl):
+  return np.asarray(_jax(key, qpos, qvel, ctrl)[0])
 
 
 def test_sensordata_matches_jax_and_mujoco():
@@ -179,7 +221,7 @@ def test_sensordata_matches_jax_and_mujoco():
     if np.dot(got[b, fq:fq + 4], mj_sd[fq:fq + 4]) < 0:  # a quat's sign
       mj_sd[fq:fq + 4] *= -1
     np.testing.assert_allclose(got[b], mj_sd, atol=1e-8)
-    _, jax_sd = _jax_sensordata(jm, *state)
+    jax_sd = _jax_sensordata('sensors', *state)
     np.testing.assert_allclose(got[b], jax_sd, atol=1e-10)
 
 
@@ -213,10 +255,7 @@ def test_more_sensor_types_match_jax_and_mujoco():
       if np.dot(got[b, a:a + 4], mj_sd[a:a + 4]) < 0:
         mj_sd[a:a + 4] *= -1
     np.testing.assert_allclose(got[b], mj_sd, atol=1e-8)
-    jd = jmake_data(jm, dtype=jnp.float64).replace(
-        qpos=jnp.asarray(state[0]), qvel=jnp.asarray(state[1]),
-        ctrl=jnp.asarray(state[2]), time=jnp.asarray(state[3]))
-    jax_sd = np.asarray(jsensors.sensordata(jm, jforward.forward(jm, jd)))
+    jax_sd = np.asarray(_jax('more', *state)[0])
     np.testing.assert_allclose(got[b], jax_sd, atol=1e-10)
 
 
@@ -231,36 +270,35 @@ def resting_box():
     mujoco.mj_step(mjm, mjd)
   mujoco.mj_forward(mjm, mjd)
   state = (mjd.qpos.copy(), mjd.qvel.copy(), np.zeros(0))
-  jd, _ = _jax_sensordata(jm, *state)
+  jax_out = _jax('force', *state)
   d = fwd.forward(m, _batch(m, [state]))
-  return mjm, mjd, jm, jd, m, d
+  return mjm, mjd, jm, jax_out, m, d
 
 
 def test_force_torque_touch_match_jax_and_mujoco(resting_box):
   """The plate's interface force carries the plate's and the box's
   weight; touch reads the box's weight on the plate."""
-  mjm, mjd, jm, jd, m, d = resting_box
+  mjm, mjd, jm, jax_out, m, d = resting_box
   got = sensors.sensordata(m, d).numpy()[0]
   want = mjd.sensordata.copy()
   weight = 9.81 * (0.3 + 0.2)
   assert abs(abs(want[2]) - weight) < 0.05, want
   assert abs(want[6] - 9.81 * 0.2) < 0.05, want
   np.testing.assert_allclose(got, want, atol=0.02)
-  np.testing.assert_allclose(got, np.asarray(jsensors.sensordata(jm, jd)),
-                             atol=1e-9)
+  np.testing.assert_allclose(got, np.asarray(jax_out[0]), atol=1e-9)
 
 
 def test_contact_forces_match_jax_and_balance_the_weight(resting_box):
   """contact_forces decodes the facet forces in the port's stacking
   order, which is JAX's: positions, frames, wrenches and bodies agree,
   and the vertical force on the box is its weight."""
-  mjm, _, jm, jd, m, d = resting_box
+  mjm, _, jm, jax_out, m, d = resting_box
   cf = constraint.contact_forces(m, d)
-  jcf = jconstraint.contact_forces(jm, jd)
-  np.testing.assert_array_equal(cf.b1, jcf.b1)
-  np.testing.assert_array_equal(cf.b2, jcf.b2)
-  for got, want in ((cf.pos, jcf.pos), (cf.frame, jcf.frame),
-                    (cf.force6, jcf.force6)):
+  jpos, jframe, jforce6, jb1, jb2 = jax_out[1]
+  np.testing.assert_array_equal(cf.b1, np.asarray(jb1))
+  np.testing.assert_array_equal(cf.b2, np.asarray(jb2))
+  for got, want in ((cf.pos, jpos), (cf.frame, jframe),
+                    (cf.force6, jforce6)):
     np.testing.assert_allclose(got.numpy()[0], np.asarray(want), atol=1e-9)
   fw = np.einsum('prx,pr->px', cf.frame.numpy()[0],
                  cf.force6.numpy()[0, :, :3])
@@ -273,18 +311,15 @@ def test_contact_forces_match_jax_and_balance_the_weight(resting_box):
 def test_rangefinder_matches_jax_and_mujoco(xml):
   """Rays against box, sphere, capsule, cylinder and plane, and a miss
   (-1), at four yaws as one batch of four: on RANGE_PORT_XML, and on
-  RANGE_XML with the head's sphere colliding with the floor, the wall
-  (sphere-box) and the ball. RANGE_XML itself still pairs the sphere with
-  the capsule and the cylinder: the port takes sphere-capsule, and
-  refuses sphere-cylinder at load, naming ROADMAP A6."""
-  if xml == 'sphere colliding':
-    with pytest.raises(NotImplementedError, match='sphere-cylinder.*A6'):
-      _models(RANGE_XML)
+  RANGE_XML itself, whose head sphere collides with the floor, the wall
+  (sphere-box), the ball, the post (sphere-capsule) and the drum
+  (sphere-cylinder, refused at load before the physics slice)."""
   mjm, jm, m = _models(RANGE_PORT_XML if xml == 'sphere visual-only'
-                       else RANGE_COLLIDING_XML)
+                       else RANGE_XML)
   types = {tuple(int(m.geom_type[g]) for g in p) for p in m.collision_pairs}
-  assert ((int(model_lib.GeomType.SPHERE), int(model_lib.GeomType.BOX))
-          in types) == (xml == 'sphere colliding')
+  for pair in ((model_lib.GeomType.SPHERE, model_lib.GeomType.BOX),
+               (model_lib.GeomType.SPHERE, model_lib.GeomType.CYLINDER)):
+    assert (tuple(map(int, pair)) in types) == (xml == 'sphere colliding')
   yaws = (0.0, 0.4, -1.1, 2.5)
   want, jax_sd = [], []
   for yaw in yaws:
@@ -292,8 +327,9 @@ def test_rangefinder_matches_jax_and_mujoco(xml):
     mjd.qpos[0] = yaw
     mujoco.mj_forward(mjm, mjd)
     want.append(mjd.sensordata.copy())
-    jax_sd.append(_jax_sensordata(jm, mjd.qpos.copy(), np.zeros(mjm.nv),
-                                  np.zeros(0))[1])
+    jax_sd.append(_jax_sensordata(
+        'range_port' if xml == 'sphere visual-only' else 'range',
+        mjd.qpos.copy(), np.zeros(mjm.nv), np.zeros(0)))
   d = fwd.forward(m, _batch(m, [(np.array([y]), np.zeros(1), np.zeros(0))
                                 for y in yaws]))
   got = sensors.sensordata(m, d).numpy()
@@ -359,46 +395,53 @@ def test_inverse_matches_jax_and_mujoco():
   got = inverse.inverse(m, d)
   np.testing.assert_allclose(got.qfrc_smooth.numpy(), np.stack(want),
                              atol=1e-9)
-  jd = jinverse.inverse(jm, jmake_data(jm, dtype=jnp.float64).replace(
-      qpos=jnp.asarray(qpos[0]), qvel=jnp.asarray(qvel[0]),
-      qacc=jnp.asarray(qacc[0])))
-  np.testing.assert_allclose(got.qfrc_smooth.numpy()[0],
-                             np.asarray(jd.qfrc_smooth), atol=1e-12)
-  np.testing.assert_allclose(sensors.sensordata(m, got).numpy()[0],
-                             np.asarray(jsensors.sensordata(jm, jd)),
+  jqfrc, jsd = _jax('inverse', qpos[0], qvel[0], qacc[0])
+  np.testing.assert_allclose(got.qfrc_smooth.numpy()[0], np.asarray(jqfrc),
                              atol=1e-12)
+  np.testing.assert_allclose(sensors.sensordata(m, got).numpy()[0],
+                             np.asarray(jsd), atol=1e-12)
 
 
 def test_support_body_queries_match_jax():
   """body_angvel and subtree_mass (the gyro's and subtree sensors'
   helpers) against JAX's."""
-  from mujoco_mpc_tpu.physics import support as jsupport
   mjm, jm, m = _models(SENSOR_XML)
   state = (np.array([0.3, -0.1]), np.array([0.7, 0.2]), np.zeros(1))
-  jd, _ = _jax_sensordata(jm, *state)
+  _, _, angvel, mass = _jax('sensors', *state)
   d = fwd.forward(m, _batch(m, [state]))
   for b in range(m.nbody):
     np.testing.assert_allclose(support.body_angvel(m, d, b).numpy()[0],
-                               np.asarray(jsupport.body_angvel(jm, jd, b)),
-                               atol=1e-12)
+                               np.asarray(angvel[b]), atol=1e-12)
     np.testing.assert_allclose(float(support.subtree_mass(m, b)),
-                               float(jsupport.subtree_mass(jm, b)),
-                               atol=1e-12)
+                               float(mass[b]), atol=1e-12)
 
 
 def test_refusals():
   """An unsupported sensor type is refused when the model loads (JAX's
-  put_model refuses it when it compiles); tendon sensors and contact
-  forces over elliptic cones raise where they are evaluated."""
+  put_model refuses it when it compiles); contact forces over elliptic
+  cones raise where they are evaluated (ROADMAP A8); the tendon sensors,
+  refused here before the physics slice, read JAX's and MuJoCo's
+  values."""
   mjm, jm, m = _models(SENSOR_XML)
   arrays, static = export.model_snapshot(jm)
   static = dict(static, sensor_type=[8] + list(static['sensor_type'][1:]))
   with pytest.raises(NotImplementedError, match='unsupported sensor'):
     model_lib.from_arrays(arrays, static, device='cpu', dtype=torch.float64)
-  d = fwd.forward(m, _batch(m, [(np.zeros(2), np.zeros(2), np.zeros(1))]))
-  tendon = m.replace(sensor_type=(sensors.TENDONPOS,) + m.sensor_type[1:])
-  with pytest.raises(NotImplementedError, match='tendon sensors'):
-    sensors.sensordata(tendon, d)
+  # the tendon sensors, refused before the physics slice, read the
+  # tendons: tests/test_tendons.py's COUPLED against JAX's and MuJoCo's
+  from tests.test_torch_convex_pairs import golden_file, port_model, xmls
+  mjt = mujoco.MjModel.from_xml_string(xmls()['coupled'])
+  mjd = mujoco.MjData(mjt)
+  mjd.qpos[:], mjd.qvel[:], mjd.ctrl[:] = [0.3, -0.2], [0.5, 0.8], [1.0]
+  mujoco.mj_forward(mjt, mjd)
+  mt = port_model('coupled')
+  assert set(mt.sensor_type) == {sensors.TENDONPOS, sensors.TENDONVEL}
+  sd = sensors.sensordata(mt, fwd.forward(mt, _batch(
+      mt, [(mjd.qpos.copy(), mjd.qvel.copy(), mjd.ctrl.copy())])))
+  np.testing.assert_allclose(sd.numpy(),
+                             golden_file()['coupled/fwd/sensordata'],
+                             rtol=1e-8, atol=1e-10)
+  np.testing.assert_allclose(sd[0].numpy(), mjd.sensordata, atol=1e-12)
   _, _, mb = _models(FORCE_PLANE_XML)
   elliptic = mb.replace(opt=mb.opt.replace(cone=1))
   db = model_lib.make_data(mb)
@@ -414,3 +457,9 @@ def test_sensor_models_snapshot_is_current():
     assert sorted(z.files) == sorted(fresh), hint
     for k, v in fresh.items():
       np.testing.assert_array_equal(z[k], v, err_msg=k + hint)
+
+
+@pytest.mark.slow
+def test_jax_calls_golden_is_jaxs():
+  """The recorded JAX calls are what the JAX package computes now."""
+  _REC.check_live()

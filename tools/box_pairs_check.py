@@ -17,10 +17,8 @@ with a mode switch, Allegro Cube's 8192-candidate plan), beside the
 card's name and power limit. A failed check exits non-zero.
 """
 
-import concurrent.futures
 import os
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -28,30 +26,11 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from mujoco_mpc_tpu_torch.ops import cuda_build  # noqa: E402
 from mujoco_mpc_tpu_torch.tasks import registry  # noqa: E402
 
 
 def main():
-  if not torch.cuda.is_available():
-    raise SystemExit('box_pairs_check: no CUDA device')
-  print(cs.smi_line(), f'(torch {torch.__version__})')
-  torch.backends.cuda.matmul.allow_tf32 = False
-  start = time.perf_counter()
-
-  def elapsed(phases):
-    print(f'elapsed after {phases}: {time.perf_counter() - start:.1f} s')
-
-  kernels = ('chol_solve', 'newton')
-  with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    libs = dict(zip(kernels, pool.map(cuda_build.build, kernels)))
-  elapsed('the build')
-  spilled = 0
-  for name in kernels:
-    lines, spill = cs.ptxas_lines(name, libs[name])
-    spilled += spill
-    for line in lines:
-      print(line)
+  elapsed, spilled = cs.tool_start('box_pairs_check')
   gen = torch.Generator(device=cs.DEV).manual_seed(0)
   specs = {n: registry.get_task(n, device=cs.DEV) for n in cs.BOX_TASKS}
   cpu = {n: registry.get_task(n, device='cpu') for n in cs.BOX_TASKS}

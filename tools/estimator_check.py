@@ -15,10 +15,8 @@ and 73), and phases 27 (sensordata card vs CPU), 28 (EKF), 29 (UKF) and
 failed check exits non-zero.
 """
 
-import concurrent.futures
 import os
 import sys
-import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -26,30 +24,11 @@ sys.path.insert(0, ROOT)
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from mujoco_mpc_tpu_torch.ops import cuda_build  # noqa: E402
 from mujoco_mpc_tpu_torch.tasks import registry  # noqa: E402
 
 
 def main():
-  if not torch.cuda.is_available():
-    raise SystemExit('estimator_check: no CUDA device')
-  print(cs.smi_line(), f'(torch {torch.__version__})')
-  torch.backends.cuda.matmul.allow_tf32 = False
-  start = time.perf_counter()
-
-  def elapsed(phases):
-    print(f'elapsed after {phases}: {time.perf_counter() - start:.1f} s')
-
-  kernels = ('chol_solve', 'newton')
-  with concurrent.futures.ThreadPoolExecutor(2) as pool:
-    libs = dict(zip(kernels, pool.map(cuda_build.build, kernels)))
-  elapsed('the build')
-  spilled = 0
-  for name in kernels:
-    lines, spill = cs.ptxas_lines(name, libs[name])
-    spilled += spill
-    for line in lines:
-      print(line)
+  elapsed, spilled = cs.tool_start('estimator_check')
   gen = torch.Generator(device=cs.DEV).manual_seed(0)
   quad = registry.get_task('Quadruped Flat', device=cs.DEV)
   truth = cs.estimator_truth(quad, max(cs.EST_UPDATES, cs.BATCH_WINDOW), 17)

@@ -64,6 +64,19 @@ goal path and derivatives, Hill's mode switches on its height field, and
 a 16 x 6 plan each; ~2 minutes), held by tests/test_torch_box_pairs.py
 and tests/test_torch_last_tasks.py.
 
+    python tools/export_torch_snapshot.py --physics-models
+    python tools/export_torch_snapshot.py --physics-golden
+
+write assets/physics_models.npz (the MJCF scenes of the physics slice:
+the cylinder and ellipsoid pairs, tendons, equality constraints, RK4 and
+gravity compensation, each model's snapshot and its test's initial
+state; seconds; the physics tests re-export it in memory and fail when it
+is stale) and, from it, assets/physics_features_golden.npz (JAX's float64
+trajectories of every model: 4 perturbed states, 20 steps of random
+controls; ~2 minutes), which tests/test_torch_convex_pairs.py,
+tests/test_torch_tendons.py and tests/test_torch_equality.py hold the
+port to on the CPU and chip_smoke.py on the card.
+
 The tests of the Humanoid Track, Quadruped Flat and Shadow Reorient
 slices replay their JAX step from assets/*_step_golden.npz instead
 (tests/torch_recorded.py says how those files are recorded).
@@ -119,6 +132,15 @@ def model_snapshot(m):
   static = {k: _jsonable(getattr(m, k)) for k in port_model.STATIC_FIELDS}
   static.update({'opt.' + k: int(getattr(m.opt, k))
                  for k in port_model.OPTION_STATIC})
+  # the tendon and equality fields only where the model has them, so that
+  # the snapshots of models without them stay as they were
+  for n, fields, statics in ((m.ntendon, port_model.TENDON_ARRAYS,
+                              port_model.TENDON_STATIC),
+                             (m.neq, port_model.EQ_ARRAYS,
+                              port_model.EQ_STATIC)):
+    if n:
+      arrays.update({k: np.asarray(getattr(m, k)) for k in fields})
+      static.update({k: _jsonable(getattr(m, k)) for k in statics})
   # carried only where a site transmission has a reference site (-1, none,
   # is the port's value elsewhere)
   if any(r >= 0 for r in m.actuator_refid):
@@ -1471,6 +1493,437 @@ def sensor_model_arrays():
   return out
 
 
+PHYSICS_MODELS = 'physics_models.npz'
+PHYSICS_GOLDEN = 'physics_features_golden.npz'
+PHYSICS_GOLDEN_COMMAND = ('python tools/export_torch_snapshot.py '
+                          '--physics-golden')
+# the golden's trajectories: this many samples a model, this many steps
+PHYSICS_GOLDEN_BATCH = 4
+PHYSICS_GOLDEN_STEPS = 20
+
+# The gravity-compensation model of the physics slice (the JAX package's
+# tests have none): a floating base fully compensated, a limited hinge
+# link at gravcomp 0.5 (its limit row keeps B2 on the path) and an
+# uncompensated tip link.
+GRAVCOMP_XML = """
+<mujoco>
+  <option timestep="0.005" gravity="0 0 -9.81"/>
+  <worldbody>
+    <body name="base" pos="0 0 1" gravcomp="1">
+      <freejoint/>
+      <geom type="box" size="0.1 0.1 0.05" mass="1" contype="0"
+            conaffinity="0"/>
+      <body name="l1" pos="0.1 0 0" gravcomp="0.5">
+        <joint name="h1" type="hinge" axis="0 1 0" damping="0.05"
+               limited="true" range="-0.5 0.5"/>
+        <geom type="capsule" size="0.03" fromto="0 0 0 0.3 0 0" mass="0.4"
+              contype="0" conaffinity="0"/>
+        <body name="l2" pos="0.3 0 0">
+          <joint name="h2" type="hinge" axis="0 0 1" damping="0.05"/>
+          <geom type="capsule" size="0.03" fromto="0 0 0 0.2 0 0"
+                mass="0.2" contype="0" conaffinity="0"/>
+        </body>
+      </body>
+    </body>
+  </worldbody>
+  <actuator>
+    <motor joint="h1" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
+    <motor joint="h2" gear="1" ctrlrange="-1 1" ctrllimited="true"/>
+  </actuator>
+</mujoco>
+"""
+
+
+# A tendon actuator pulling a spatial cable held at its range, and a box
+# welded to the lifted body: the model of the physics slice's jacfwd test
+# (torch.func.jacfwd of the port's step against jax.jacfwd of JAX's). The
+# lift starts 5 cm low, so the cable's upper limit is engaged.
+CABLE_WELD_XML = """
+<mujoco>
+  <option timestep="0.002" gravity="0 0 -9.81"/>
+  <worldbody>
+    <site name="top" pos="0 0 1.5"/>
+    <body name="lift" pos="0 0 1">
+      <joint name="lift" type="slide" axis="0 0 1" damping="2.0"/>
+      <geom type="box" size="0.05 0.05 0.05" mass="0.5"/>
+      <site name="hook" pos="0 0 0.05"/>
+    </body>
+    <body name="load" pos="0.2 0 1">
+      <freejoint/>
+      <geom type="box" size="0.04 0.04 0.04" mass="0.2" contype="0"
+            conaffinity="0"/>
+    </body>
+  </worldbody>
+  <tendon>
+    <spatial name="cable" limited="true" range="0.1 0.48">
+      <site site="top"/><site site="hook"/>
+    </spatial>
+  </tendon>
+  <equality><weld body1="lift" body2="load"/></equality>
+  <actuator>
+    <motor tendon="cable" gear="-8" ctrlrange="0 1" ctrllimited="true"/>
+  </actuator>
+</mujoco>
+"""
+
+# Every geom type on its own free body over a floor: the physics slice's
+# narrowphase test takes every pair of it at random poses.
+ALL_PAIRS_XML = """
+<mujoco>
+  <asset>
+    <mesh name="tet" vertex="0.05 0 0  -0.03 0.04 0  -0.03 -0.04 0
+                             0 0 0.07"/>
+  </asset>
+  <worldbody>
+    <geom name="floor" type="plane" size="2 2 0.1"/>
+    <body><freejoint/><geom name="sphere" type="sphere" size="0.05"/></body>
+    <body><freejoint/><geom name="capsule" type="capsule" size="0.04 0.08"/>
+    </body>
+    <body><freejoint/><geom name="ellipsoid" type="ellipsoid"
+                            size="0.08 0.05 0.04"/></body>
+    <body><freejoint/><geom name="cylinder" type="cylinder"
+                            size="0.05 0.07"/></body>
+    <body><freejoint/><geom name="cylinder2" type="cylinder"
+                            size="0.04 0.1"/></body>
+    <body><freejoint/><geom name="box" type="box" size="0.06 0.05 0.04"/>
+    </body>
+    <body><freejoint/><geom name="mesh" type="mesh" mesh="tet"/></body>
+  </worldbody>
+</mujoco>
+"""
+ALL_PAIRS_POSES = 64
+
+
+def inline_xml(fn):
+  """The MJCF string a test function assigns to its local `xml`."""
+  import ast
+  import textwrap
+  tree = ast.parse(textwrap.dedent(inspect.getsource(fn)))
+  for node in ast.walk(tree):
+    if (isinstance(node, ast.Assign) and len(node.targets) == 1
+        and getattr(node.targets[0], 'id', None) == 'xml'):
+      return ast.literal_eval(node.value)
+  raise ValueError(f'{fn.__name__} assigns no xml')
+
+
+def physics_families():
+  """{family: {model: (MJCF, its test's initial state {'qpos', 'qvel',
+  'ctrl'} where it sets one)}}: the scenes of tests/test_convex_pairs.py
+  and tests/test_contacts.py::test_plane_cylinder_exact, the tendon
+  models of tests/test_tendons.py, the equality models of
+  tests/test_equality.py, PENDULUM of tests/test_physics_golden.py with
+  integrator RK4 (and with a joint limit, so that B2 runs four times a
+  step), GRAVCOMP_XML and CABLE_WELD_XML."""
+  import tests.test_contacts as tc
+  import tests.test_convex_pairs as cp
+  import tests.test_equality as te
+  import tests.test_physics_golden as tg
+  import tests.test_tendons as tt
+  rk4 = tg.PENDULUM.replace('timestep="0.01"',
+                            'timestep="0.01" integrator="RK4"')
+  _, mjd, _, _ = tg._setup(rk4)      # test_rk4's state
+  rk4_state = dict(qpos=mjd.qpos.copy(), qvel=mjd.qvel.copy(),
+                   ctrl=mjd.ctrl.copy())
+  weld_qvel = np.zeros(12)
+  weld_qvel[0], weld_qvel[4], weld_qvel[9] = 0.3, 0.5, 0.2
+  return {
+      'convex': {
+          'plane_ellipsoid': (inline_xml(cp.test_plane_ellipsoid_settles),
+                              {}),
+          'sphere_cylinder': (inline_xml(
+              cp.test_sphere_cylinder_qacc_and_settle), {}),
+          'sphere_cylinder_disc': (inline_xml(
+              cp.test_sphere_cylinder_end_disc), {}),
+          'capsule_box_edge': (inline_xml(cp.test_capsule_across_box_edge),
+                               {}),
+          'capsule_flat_box': (inline_xml(cp.test_capsule_flat_on_box), {}),
+          'cylinder_box': (inline_xml(cp.test_cylinder_rests_on_box), {}),
+          'cylinder_stack': (inline_xml(cp.test_cylinder_on_cylinder_stack),
+                             {}),
+          'sphere_ellipsoid': (inline_xml(cp.test_sphere_on_ellipsoid), {}),
+          'plane_cylinder': (inline_xml(tc.test_plane_cylinder_exact), {})},
+      'tendons': {
+          'coupled': (tt.COUPLED, dict(qpos=[0.3, -0.2], qvel=[0.5, 0.8],
+                                       ctrl=[1.0])),
+          'split': (tt.TENDON_ACT, dict(ctrl=[0.7])),
+          'wrap_cylinder': (tt.WRAP_CYL, dict(qpos=[0.9])),
+          'wrap_sphere': (tt.WRAP_SPHERE, dict(qpos=[0.9])),
+          'spatial': (tt.SPATIAL, dict(qpos=[0.5, -0.3])),
+          'cable': (inline_xml(tt.test_spatial_tendon_actuator_and_limit),
+                    dict(ctrl=[0.6])),
+          'pulley': (inline_xml(tt.test_spatial_tendon_pulley_branches), {})},
+      'equality': {
+          'connect': (te.CONNECT, dict(qpos=[0.2, -0.1], qvel=[0.3, -0.4])),
+          'weld': (te.WELD, dict(qvel=weld_qvel)),
+          'joint_coupling': (te.JOINT_COUPLING, dict(qpos=[0.1, 0.3],
+                                                     qvel=[0.2, 0.0])),
+          'tendon_coupling': (te.TENDON_COUPLING, dict(qpos=[0.05, -0.02])),
+          'cable_weld': (CABLE_WELD_XML, dict(qpos=[-0.05, 0.2, 0, 1, 1, 0,
+                                                    0, 0], ctrl=[0.5]))},
+      'rk4': {
+          'pendulum_rk4': (rk4, rk4_state),
+          'pendulum_limit_rk4': (rk4.replace(
+              'type="hinge" axis="0 1 0"',
+              'type="hinge" axis="0 1 0" limited="true" range="-0.3 0.3"'),
+              {})},
+      'gravcomp': {'gravcomp_chain': (GRAVCOMP_XML, {})}}
+
+
+def physics_model_arrays():
+  """The arrays of assets/physics_models.npz: per model `<name>/static`
+  (JSON), `<name>/model/<field>` (its float64 put_model snapshot: the
+  values JAX's float64 golden runs on), `<name>/family`
+  and its test's initial state `<name>/qpos`, `/qvel`, `/ctrl` (the
+  model's qpos0 and zeros where the test sets none)."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+  from mujoco_mpc_tpu.physics.model import put_model
+  jax.config.update('jax_enable_x64', True)
+  out = {}
+  for family, models in physics_families().items():
+    for name, (xml, state) in models.items():
+      mjm = mujoco.MjModel.from_xml_string(xml)
+      arrays, static = model_snapshot(put_model(mjm, dtype=jnp.float64))
+      out[f'{name}/static'] = np.asarray(json.dumps(static, sort_keys=True))
+      out[f'{name}/family'] = np.asarray(family)
+      out.update({f'{name}/model/{k}': v for k, v in arrays.items()})
+      init = dict(qpos=np.array(mjm.qpos0), qvel=np.zeros(mjm.nv),
+                  ctrl=np.zeros(mjm.nu))
+      init.update({k: np.asarray(v, np.float64) for k, v in state.items()})
+      out.update({f'{name}/{k}': v for k, v in init.items()})
+  return out
+
+
+def perturbed_states(z, name, bsz, rng):
+  """bsz states of a physics model (its snapshot arrays z): its initial
+  state, then that state moved by 0.01 in qpos (unit quaternions kept)
+  and 0.1 in qvel; controls (bsz,) drawn by the caller."""
+  static = json.loads(str(z[f'{name}/static']))
+  qpos = np.repeat(z[f'{name}/qpos'][None], bsz, 0)
+  qvel = np.repeat(z[f'{name}/qvel'][None], bsz, 0)
+  qpos[1:] += 0.01 * rng.standard_normal(qpos[1:].shape)
+  qvel[1:] += 0.1 * rng.standard_normal(qvel[1:].shape)
+  for t, adr in zip(static['jnt_type'], static['jnt_qposadr']):
+    quat = {0: adr + 3, 1: adr}.get(t)
+    if quat is not None:
+      q = qpos[:, quat:quat + 4]
+      qpos[:, quat:quat + 4] = q / np.linalg.norm(q, axis=1, keepdims=True)
+  return qpos, qvel
+
+
+def physics_controls(z, name, shape, rng):
+  """Controls (shape + (nu,)) uniform in the actuators' ctrlrange where
+  limited, in [-1, 1] elsewhere."""
+  static = json.loads(str(z[f'{name}/static']))
+  rng_ = np.array(z[f'{name}/model/actuator_ctrlrange']).reshape(-1, 2)
+  lim = np.asarray(static['actuator_ctrllimited'], bool)
+  lo = np.where(lim, rng_[:, 0], -1.0)
+  hi = np.where(lim, rng_[:, 1], 1.0)
+  return lo + (hi - lo) * rng.random(tuple(shape) + (len(lo),))
+
+
+def physics_golden_inputs(z):
+  """{<name>/in_qpos (B, nq), in_qvel (B, nv), ctrl (T, B, nu)} of every
+  physics model: PHYSICS_GOLDEN_BATCH perturbed states and
+  PHYSICS_GOLDEN_STEPS steps of controls, numpy default_rng(61 + the
+  model's index)."""
+  names = sorted({k.split('/')[0] for k in z.files})
+  out = {}
+  for i, name in enumerate(names):
+    rng = np.random.default_rng(61 + i)
+    qpos, qvel = perturbed_states(z, name, PHYSICS_GOLDEN_BATCH, rng)
+    out[f'{name}/in_qpos'] = qpos
+    out[f'{name}/in_qvel'] = qvel
+    out[f'{name}/ctrl'] = physics_controls(
+        z, name, (PHYSICS_GOLDEN_STEPS, PHYSICS_GOLDEN_BATCH), rng)
+  return out
+
+
+def jax_physics_trajectory(xml, qpos, qvel, ctrl):
+  """JAX's float64 trajectory of a model from states (B, ...) under
+  controls (T, B, nu): (qpos (T, B, nq), qvel (T, B, nv)) after each
+  step, the step jitted and vmapped once."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics.model import make_data, put_model
+  jm = put_model(mujoco.MjModel.from_xml_string(xml), dtype=jnp.float64)
+  jd0 = make_data(jm, dtype=jnp.float64)
+
+  @jax.jit
+  @jax.vmap
+  def step(q, v, u):
+    d = jfwd.step(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
+    return d.qpos, d.qvel
+  q, v = jnp.asarray(qpos), jnp.asarray(qvel)
+  qs, vs = [], []
+  for u in ctrl:
+    q, v = step(q, v, jnp.asarray(u))
+    qs.append(np.asarray(q))
+    vs.append(np.asarray(v))
+  return np.stack(qs), np.stack(vs)
+
+
+PHYSICS_FWD_FIELDS = ('qacc', 'qfrc_constraint', 'qfrc_passive',
+                      'qfrc_actuator', 'actuator_length', 'ten_length',
+                      'ten_velocity', 'ten_J')
+
+
+def jax_physics_forward(xml, qpos, qvel, ctrl):
+  """JAX's float64 forward of one model at states (B, ...): PHYSICS_FWD_
+  FIELDS, the sensors, and the equality and tendon-limit rows (j, pos,
+  aref, d), as numpy (B, ...), under 'fwd/<field>', 'eq/<field>' and
+  'tlim/<field>'."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+  from mujoco_mpc_tpu.physics import constraint as jconstraint
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics import sensors as jsensors
+  from mujoco_mpc_tpu.physics.model import make_data, put_model
+  jm = put_model(mujoco.MjModel.from_xml_string(xml), dtype=jnp.float64)
+  jd0 = make_data(jm, dtype=jnp.float64)
+
+  @jax.jit
+  @jax.vmap
+  def run(q, v, u):
+    d = jfwd.forward(jm, jd0.replace(qpos=q, qvel=v, ctrl=u))
+    out = {f'fwd/{k}': getattr(d, k) for k in PHYSICS_FWD_FIELDS}
+    if jm.nsensordata:
+      out['fwd/sensordata'] = jsensors.sensordata(jm, d)
+    for key, fn in (('eq', jconstraint._equality_rows),
+                    ('tlim', jconstraint._tendon_limit_rows)):
+      rows = fn(jm, d)
+      if rows is not None:
+        out.update({f'{key}/{k}': getattr(rows, k)
+                    for k in ('j', 'pos', 'aref', 'd')})
+    return out
+  return {k: np.asarray(v) for k, v in run(
+      jnp.asarray(qpos), jnp.asarray(qvel), jnp.asarray(ctrl)).items()}
+
+
+def wrap_sweep_states(z, name):
+  """tests/test_tendons.py's hinge sweep (9 angles in [-1.2, 1.2]) of a
+  wrap model, and a random state of the two-link string
+  (default_rng(3), as test_spatial_tendon_length_and_moment draws it)."""
+  if name == 'spatial':
+    rng = np.random.default_rng(3)
+    return (0.3 * rng.standard_normal((1, 2)),
+            0.5 * rng.standard_normal((1, 2)))
+  q = np.linspace(-1.2, 1.2, 9)[:, None]
+  return q, np.zeros_like(q)
+
+
+def jax_cable_weld_jacobian(xml, qpos, qvel, ctrl):
+  """jax.jacfwd of JAX's float64 step at one state of CABLE_WELD_XML: the
+  next (qpos, qvel) in (qvel, ctrl), as 'jac/<out>_<in>' arrays."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+  from mujoco_mpc_tpu.physics import forward as jfwd
+  from mujoco_mpc_tpu.physics.model import make_data, put_model
+  jm = put_model(mujoco.MjModel.from_xml_string(xml), dtype=jnp.float64)
+  jd0 = make_data(jm, dtype=jnp.float64).replace(qpos=jnp.asarray(qpos))
+
+  def step(v, u):
+    d = jfwd.step(jm, jd0.replace(qvel=v, ctrl=u))
+    return d.qpos, d.qvel
+  jac = jax.jit(jax.jacfwd(step, argnums=(0, 1)))(jnp.asarray(qvel),
+                                                 jnp.asarray(ctrl))
+  return {f'jac/{o}_{i}': np.asarray(jac[a][b])
+          for a, o in enumerate(('qpos', 'qvel'))
+          for b, i in enumerate(('qvel', 'ctrl'))}
+
+
+def all_pairs_poses(ngeom):
+  """ALL_PAIRS_POSES random geom poses (xpos (B, ngeom, 3), xmat (B, ngeom,
+  3, 3)), default_rng(67): the geoms within 0.08 of the origin, the floor
+  at the origin, the poses rotated at random."""
+  import mujoco
+  rng = np.random.default_rng(67)
+  xpos = 0.08 * rng.standard_normal((ALL_PAIRS_POSES, ngeom, 3))
+  xpos[:, 0] = 0.0
+  quat = rng.standard_normal((ALL_PAIRS_POSES, ngeom, 4))
+  quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+  quat[:, 0] = (1.0, 0.0, 0.0, 0.0)
+  xmat = np.zeros((ALL_PAIRS_POSES, ngeom, 9))
+  for b in range(ALL_PAIRS_POSES):
+    for g in range(ngeom):
+      mujoco.mju_quat2Mat(xmat[b, g], quat[b, g])
+  return xpos, xmat.reshape(ALL_PAIRS_POSES, ngeom, 3, 3)
+
+
+def jax_all_pairs_points():
+  """JAX's narrowphase on every collision pair of ALL_PAIRS_XML at
+  all_pairs_poses: 'pairs/<g1>_<g2>/<dist, pos, normal>' (B, points, ...)
+  and the poses 'pairs/xpos', 'pairs/xmat'."""
+  import jax
+  import jax.numpy as jnp
+  import mujoco
+  from mujoco_mpc_tpu.physics import collision as jcollision
+  from mujoco_mpc_tpu.physics.model import make_data, put_model
+  jm = put_model(mujoco.MjModel.from_xml_string(ALL_PAIRS_XML),
+                 dtype=jnp.float64)
+  jd0 = make_data(jm, dtype=jnp.float64)
+  xpos, xmat = all_pairs_poses(jm.ngeom)
+  out = {'pairs/xpos': xpos, 'pairs/xmat': xmat}
+  for g1, g2 in jm.collision_pairs:
+    pts = jax.jit(jax.vmap(lambda p, r, g1=g1, g2=g2: [
+        tuple(cp[:3]) for cp in jcollision.narrowphase(
+            jm, jd0.replace(geom_xpos=p, geom_xmat=r), g1, g2)]))(
+                jnp.asarray(xpos), jnp.asarray(xmat))
+    for k, name in enumerate(('dist', 'pos', 'normal')):
+      out[f'pairs/{g1}_{g2}/{name}'] = np.stack(
+          [np.asarray(cp[k]) for cp in pts], 1)
+  return out
+
+
+def physics_golden_arrays():
+  """The arrays of assets/physics_features_golden.npz: the inputs of
+  physics_golden_inputs and JAX's trajectories from them, <name>/qpos
+  and <name>/qvel; JAX's forward at each model's test state
+  (<name>/fwd/..., <name>/eq/..., <name>/tlim/...), at the wrap sweeps
+  (<name>/sweep/...), jax.jacfwd of the step at CABLE_WELD_XML's state
+  (cable_weld/jac/...) and the narrowphase of every pair of
+  ALL_PAIRS_XML (pairs/...)."""
+  import jax
+  jax.config.update('jax_enable_x64', True)
+  fams = {n: x for models in physics_families().values()
+          for n, (x, _) in models.items()}
+  path = os.path.join(port_registry.ASSETS, PHYSICS_MODELS)
+  with np.load(path) as z:
+    inputs = physics_golden_inputs(z)
+    state = {n: [z[f'{n}/{k}'][None] for k in ('qpos', 'qvel', 'ctrl')]
+             for n in fams}
+    sweeps = {n: wrap_sweep_states(z, n)
+              for n in ('wrap_cylinder', 'wrap_sphere', 'spatial')}
+  out = dict(inputs)
+  for name, xml in fams.items():
+    q, v = jax_physics_trajectory(xml, inputs[f'{name}/in_qpos'],
+                                  inputs[f'{name}/in_qvel'],
+                                  inputs[f'{name}/ctrl'])
+    out[f'{name}/qpos'], out[f'{name}/qvel'] = q, v
+    out.update({f'{name}/{k}': a for k, a in jax_physics_forward(
+        xml, *state[name]).items()})
+  for name, (q, v) in sweeps.items():
+    ctrl = np.zeros((q.shape[0], 0))
+    out[f'{name}/sweep/qpos'], out[f'{name}/sweep/qvel'] = q, v
+    out.update({f'{name}/sweep/{k}': a for k, a in jax_physics_forward(
+        fams[name], q, v, ctrl).items()})
+  q, v, u = (x[0] for x in state['cable_weld'])
+  out.update({f'cable_weld/{k}': a for k, a in jax_cable_weld_jacobian(
+      fams['cable_weld'], q, v, u).items()})
+  out.update(jax_all_pairs_points())
+  out['provenance'] = np.asarray(json.dumps({
+      'jax': jax.__version__, 'dtype': 'float64',
+      'command': PHYSICS_GOLDEN_COMMAND,
+      'inputs': 'physics_golden_inputs: numpy default_rng(61 + the '
+                "model's index in sorted order)"}))
+  return out
+
+
 def write(path: str, arrays: dict, static: dict) -> None:
   np.savez(path, static=np.asarray(json.dumps(static, sort_keys=True)),
            **arrays)
@@ -1487,7 +1940,11 @@ def main():
              '--box-pairs-golden': (BOX_PAIRS_GOLDEN,
                                     write_box_pairs_golden),
              '--last-tasks-golden': (LAST_TASKS_GOLDEN,
-                                     write_last_tasks_golden)}
+                                     write_last_tasks_golden),
+             '--physics-models': (PHYSICS_MODELS, lambda path: np.savez(
+                 path, **physics_model_arrays())),
+             '--physics-golden': (PHYSICS_GOLDEN, lambda path: np.savez(
+                 path, **physics_golden_arrays()))}
   flag = next((a for a in sys.argv[1:] if a in goldens), None)
   if flag:
     fname, writer = goldens[flag]

@@ -11,7 +11,7 @@ measurement. Run from the repository root (a few minutes):
                                                       estimators |
                                                       manipulation |
                                                       box_pairs |
-                                                      last_tasks]
+                                                      last_tasks | physics]
 
 With `ilqg` it rehearses tools/ilqg_check.py (the iLQG phases) instead,
 with `planners` tools/planner_check.py (phases 21-24: the other planners
@@ -29,7 +29,9 @@ states, phase 4's rows at the tasks' own batches and Allegro Cube's at
 `candidates`), with `last_tasks` tools/last_tasks_check.py (phase 3p at
 `candidates` states, phase 4's rows at the tasks' own batches and
 Quadruped Hill's at `candidates`, phases 44-49 with Hill's wide plan at
-`candidates`).
+`candidates`), with `physics` tools/physics_check.py (phase 3q, phase
+4's rows and phases 50-54, every model at `candidates` states; take 64
+or more: 3q's share of tied samples rounds to 1 sample at 16).
 """
 
 import os
@@ -92,7 +94,7 @@ def _fake_build(name):
 
 def main():
   modes = ('ilqg', 'planners', 'cube', 'estimators', 'manipulation',
-           'box_pairs', 'last_tasks')
+           'box_pairs', 'last_tasks', 'physics')
   args = [a for a in sys.argv[1:] if a not in modes]
   mode = next((a for a in sys.argv[1:] if a in modes), None)
   samples = int(args[0]) if args else 32
@@ -120,6 +122,8 @@ def main():
   chip_smoke.BOX_QPOS0 = samples // 4
   chip_smoke.LAST_STATES = chip_smoke.LAST_WIDE = samples
   chip_smoke.LAST_HOME = samples // 4
+  chip_smoke.PHYS_SAMPLES = samples
+  chip_smoke.PHYS_CPU_SAMPLES = min(samples, chip_smoke.PHYS_CPU_SAMPLES)
   chip_smoke.resident_blocks = lambda nv, threads, smem: 0
   chip_smoke.device_us = lambda fn, reps=2, top=0, **_: (
       fn(), (0.0, 0, []) if top else 0.0)[1]
@@ -162,6 +166,9 @@ def main():
   elif mode == 'last_tasks':
     from tools import last_tasks_check
     last_tasks_check.main()
+  elif mode == 'physics':
+    from tools import physics_check
+    physics_check.main()
   else:
     chip_smoke.main()
 
